@@ -8,10 +8,11 @@ before printing any result.  Phases, each printed as it runs:
 1. build   — compile ``summerset_tpu_torch/csrc/bitslice.cu`` from the
              checkout (``nvcc``, sm_90a) and print the build time.
 2. kernel  — the GF(2^8) kernel against its plain PyTorch version on the
-             card, bit for bit, for the RS(3,2), RS(2,1) and RS(5,3)
-             parity tables and the ten 3-of-5 decode tables, at 1024
-             values of 4 KiB, single values of 4 KiB..4 MiB and an odd
-             lane count; kernel time (CUDA events) beside its bound.
+             card, bit for bit, for the RS(3,2), RS(2,1), RS(5,3) and
+             RS(6,4) parity tables, the ten 3-of-5 decode tables and one
+             6-of-10 RS(6,4) decode table, at 1024 values of 4 KiB,
+             single values of 4 KiB..4 MiB and an odd lane count; kernel
+             time (CUDA events) beside its bound.
 3. multipaxos — the engine at the bench shape (4096 groups x 5, W=128,
              P=32) for a window of ticks: commits must advance, and the
              first 64 groups must equal a CPU run of the port at G=64;
@@ -24,6 +25,25 @@ before printing any result.  Phases, each printed as it runs:
              shard subsets, and a few values through ``CodewordStore``.
              Kernel launch counts are read over this phase only.  The
              same profile window follows.
+5. raft    — Raft at the BASELINE shape (4096 groups x 5, W=128, P=32)
+             from a cold start with the default 30-60 tick election
+             timers: warm up until every group has exactly one leader,
+             then a timed window (ms/tick, committed slots/s), the CPU
+             check of the first 64 groups and the profile window.
+6. craft   — CRaft 1024 x 5, fault_tolerance=1, RS(3,2): a healthy window
+             whose last tick's coded values are encoded in one batched
+             kernel call and decoded from rotating 3-of-5 subsets; two
+             followers of every group paused past alive_timeout (new
+             slots must be stamped full-copy and still commit); the
+             followers resumed (new slots coded again); CPU check; profile.
+7. crossword — Crossword 1024 x 5, fault_tolerance=1, T=5 (RS(3,2)),
+             adaptive assignment, with spr_override=2 for the odd groups
+             in its second window: the last tick's values are encoded in
+             one batched call, each replica keeps only its assigned shard
+             rows at the value's width, and each value is rebuilt from a
+             rotating replica set whose rows cover d shards; a few values
+             go through CodewordStore; CPU check; profile.
+Phases 4, 6 and 7 each count their own kernel launches and fail on none.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -39,9 +59,15 @@ import time
 SEED = 20261016
 MP_SHAPE = dict(G=4096, R=5, W=128, P=32)
 RS_SHAPE = dict(G=1024, R=5, W=128, P=32)
+RAFT_SHAPE = dict(G=4096, R=5, W=128, P=32)
+CRAFT_SHAPE = dict(G=1024, R=5, W=128, P=32)
+CW_SHAPE = dict(G=1024, R=5, W=128, P=32)
 CPU_GROUPS = 64
 MP_TICKS = 64
 RS_TICKS = 48
+RAFT_TICKS = 64
+ELECT_STEP = 10          # ticks between leader counts in the cold start
+ELECT_MAX = 400          # cold-start ticks allowed until one leader/group
 PROFILE_TICKS = 8
 PAYLOAD = 4096
 #: the card every phase runs on (a rehearsal on the CPU may override it)
@@ -121,6 +147,14 @@ def pack_batch(np, payloads, d, lanes):
 
 
 # ---------------------------------------------------------- engine helpers --
+def make_engine(proto, cfg, sh, G, device):
+    from summerset_tpu_torch.core import Engine
+    from summerset_tpu_torch.protocols import make_protocol
+
+    k = make_protocol(proto, G, sh["R"], sh["W"], cfg, device=device)
+    return Engine(k, device=device)
+
+
 def drive(torch, eng, ticks, P):
     """A window of saturating synthetic load: ``run_synthetic`` for all but
     the last tick, then one ``tick`` so its effects can be read."""
@@ -224,6 +258,145 @@ def profile_ticks(torch, eng, state, ns, ticks, P, what, card):
     for name, dev_us, cpu_us in phases:
         log(f"  phase {name:<22} device {dev_us / ticks / 1e3:.4f} ms/tick, "
             f"host {cpu_us / ticks / 1e3:.4f} ms/tick (profiled)")
+    # the host's CUDA runtime calls: launches, copies, syncs, allocations
+    api = sorted(((e.key, e.count, e.cpu_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == cpu and e.key.startswith("cu")),
+                 key=lambda r: -r[2])[:6]
+    log("  runtime calls per tick: " + ", ".join(
+        f"{k} {n / ticks:.1f}x {us / ticks / 1e3:.4f} ms"
+        for k, n, us in api))
+
+
+def run_window(torch, eng, st, ns, t0, ticks, P, alive=None, spr=None):
+    """``ticks`` ticks of saturating load from absolute tick ``t0`` (value
+    ids ``tick * P + i``, host applier saturated) through ``run_ticks``;
+    ``alive`` ([R] bools) and ``spr`` ([G] int32 ``spr_override``) hold
+    for every tick.  Returns the state, the netstate and the last tick's
+    effects extras."""
+    G, R = eng.kernel.G, eng.kernel.R
+    dev = eng.device
+    t = torch.arange(t0, t0 + ticks, dtype=torch.int32, device=dev)
+    seq = {
+        "n_proposals": torch.full((ticks, G), P, dtype=torch.int32,
+                                  device=dev),
+        "value_base": (t * P)[:, None].expand(ticks, G),
+        "exec_floor": torch.full((G, R), 1 << 30, dtype=torch.int32,
+                                 device=dev).expand(ticks, G, R),
+    }
+    if alive is not None:
+        seq["alive"] = torch.tensor(alive, device=dev)[None, None, :].expand(
+            ticks, G, R)
+    if spr is not None:
+        seq["spr_override"] = spr.to(dev)[None].expand(ticks, G)
+    st, ns, fx = eng.run_ticks(st, ns, seq, collect=True)
+    return st, ns, {k: v[-1] for k, v in fx.extra.items()}
+
+
+def last_tick_slots(torch, st, fx, frontier, P, what):
+    """The slots each group's leader appended in the last tick: ``(groups,
+    leader rows, absolute slots)``, each [B] on the device.  Fails unless
+    every group has exactly one serving leader."""
+    isl = fx["is_leader"]
+    if not bool((isl.sum(dim=1) == 1).all()):
+        fail(f"{what}: a group has no single serving leader")
+    G = isl.shape[0]
+    dev = isl.device
+    lead = isl.to(torch.int32).argmax(dim=1)
+    g = torch.arange(G, device=dev)
+    n = fx["n_accepted"][g, lead]
+    end = st[frontier][g, lead]
+    i = torch.arange(P, device=dev)
+    m = i[None, :] < n[:, None]
+    slot = end[:, None] - n[:, None] + i[None, :]
+    gg = g[:, None].expand(G, P)[m]
+    return gg, lead[gg], slot[m]
+
+
+def drive_plan(torch, proto, cfg, sh, G, device, plan, spr=None):
+    """Boot ``proto`` at ``G`` groups and run the windows of ``plan``,
+    ``(ticks, alive, override)`` each (``override`` applies ``spr``).
+    Returns the engine, the final netstate, each window's ``(state,
+    last-tick effects)`` and the wall seconds of window 1, the timed
+    healthy window."""
+    eng = make_engine(proto, cfg, sh, G, device)
+    st, ns = eng.init()
+    out, t0, dt = [], 0, 0.0
+    for i, (ticks, alive, override) in enumerate(plan):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        st, ns, fx = run_window(torch, eng, st, ns, t0, ticks, sh["P"], alive,
+                                spr if override else None)
+        torch.cuda.synchronize()
+        if i == 1:
+            dt = time.perf_counter() - w0
+        t0 += ticks
+        out.append((st, fx))
+    return eng, ns, out, dt
+
+
+# -------------------------------------------------------- codeword helpers --
+def abs_err(got, want):
+    return int((got.long() - want.long()).abs().max())
+
+
+def encode_values(torch, np, rs, code, B, seed, what):
+    """``B`` random 4 KiB payloads packed at the kernel geometry and
+    encoded in one batched call, held bit for bit against the plain
+    version: ``(payloads [B, PAYLOAD] uint8, data [B, d, L], codeword
+    [B, d + p, L], max_abs_err)``."""
+    rng = np.random.default_rng(seed)
+    payloads = rng.integers(0, 256, size=(B, PAYLOAD), dtype=np.uint8)
+    L = lanes_for(PAYLOAD, code.d)
+    data = torch.from_numpy(pack_batch(np, payloads, code.d, L)).to(DEV)
+    parity = code.compute_parity(data)
+    want = rs._bitslice_matmul_plain(code._parity_tbl, data)
+    if not torch.equal(parity, want):
+        fail(f"{what} encode: kernel != plain")
+    return (payloads, data, torch.cat([data, parity], dim=1),
+            abs_err(parity, want))
+
+
+def decode_values(torch, np, rs, code, cw, present, payloads, what):
+    """Decode value ``b`` of ``cw`` [B, T, L] from the shard ids
+    ``present[b]``, one kernel call per distinct set, each held against
+    the plain version; the payload bytes must round-trip.  Returns the
+    number of distinct sets and the max_abs_err against the plain
+    version."""
+    B = cw.shape[0]
+    decoded = torch.empty((B, code.d, cw.shape[2]), dtype=torch.int32,
+                          device=cw.device)
+    keys = sorted(set(present))
+    err = 0
+    for key in keys:
+        idx = torch.from_numpy(np.array(
+            [b for b, p in enumerate(present) if p == key])).to(cw.device)
+        shards = cw.index_select(0, idx)[:, list(key)].contiguous()
+        got = code.reconstruct_data(shards, key)
+        want = rs._bitslice_matmul_plain(code._decode_tbl(key), shards)
+        if not torch.equal(got, want):
+            fail(f"{what} decode from {key}: kernel != plain")
+        err = max(err, abs_err(got, want))
+        decoded[idx] = got
+    torch.cuda.synchronize()
+    back = decoded.cpu().numpy().view(np.uint8).reshape(B, -1)[:, :PAYLOAD]
+    if not np.array_equal(back, payloads):
+        fail(f"{what}: decoded payload bytes differ")
+    return len(keys), err
+
+
+def kernel_numbers(torch, rs, code, data, card, what):
+    """The kernel's time at a path's encode shape beside the plain
+    version's and the bound."""
+    B, d, L = data.shape
+    k_ms = time_ms(torch, lambda: code.compute_parity(data), 20)
+    p_ms = time_ms(torch, lambda: rs._bitslice_matmul_plain(
+        code._parity_tbl, data), 3)
+    b_ms, b_by = bound_ms(code.p, d, B, L)
+    log(f"{what} encode [{B},{d},{L}]: kernel {k_ms:.4f} ms plain "
+        f"{p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) share "
+        f"{b_ms / k_ms:.3f} | {card}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 # ------------------------------------------------------------------ phases --
@@ -248,12 +421,15 @@ def phase_kernels(torch, np, card):
     dev = torch.device(DEV)
     rng = np.random.default_rng(SEED)
     codes = {(d, p): rs.RSCode(d, p, device=dev)
-             for d, p in ((3, 2), (2, 1), (5, 3))}
+             for d, p in ((3, 2), (2, 1), (5, 3), (6, 4))}
     tables = [(f"enc({d},{p})", code._parity_tbl)
               for (d, p), code in codes.items()]
     subsets = list(itertools.combinations(range(5), 3))
     tables += [(f"dec(3,2){s}", codes[(3, 2)]._decode_tbl(s))
                for s in subsets]
+    # Crossword at T=10: replicas 1, 3 and 4 hold shards {2,3}, {6,7}, {8,9}
+    held64 = (2, 3, 6, 7, 8, 9)
+    tables.append((f"dec(6,4){held64}", codes[(6, 4)]._decode_tbl(held64)))
     shape_defs = [("1024x4KiB", 1024, 4096), ("1x4KiB", 1, 4096),
                   ("1x64KiB", 1, 65536), ("1x1MiB", 1, 1 << 20),
                   ("1x4MiB", 1, 4 << 20), ("3xL1000", 3, None)]
@@ -288,8 +464,6 @@ def phase_kernels(torch, np, card):
 
 
 def phase_multipaxos(torch, card):
-    from summerset_tpu_torch.core import Engine
-    from summerset_tpu_torch.protocols import make_protocol
     from summerset_tpu_torch.protocols.multipaxos import (
         ReplicaConfigMultiPaxos,
     )
@@ -302,9 +476,7 @@ def phase_multipaxos(torch, card):
     )
 
     def engine(G, device):
-        k = make_protocol("multipaxos", G, sh["R"], sh["W"], cfg,
-                          device=device)
-        return Engine(k, device=device)
+        return make_engine("multipaxos", cfg, sh, G, device)
 
     eng = engine(sh["G"], DEV)
     st, ns = eng.init()
@@ -335,10 +507,8 @@ def phase_multipaxos(torch, card):
 
 
 def phase_rspaxos(torch, np, card):
-    from summerset_tpu_torch.core import Engine
     from summerset_tpu_torch.host.codeword import CodewordStore
     from summerset_tpu_torch.ops import rscoding as rs
-    from summerset_tpu_torch.protocols import make_protocol
     from summerset_tpu_torch.protocols.rspaxos import ReplicaConfigRSPaxos
 
     log("== phase 4: RSPaxos + RS(3,2) codeword plane (main path)")
@@ -349,8 +519,7 @@ def phase_rspaxos(torch, np, card):
     )
 
     def engine(G, device):
-        k = make_protocol("rspaxos", G, sh["R"], sh["W"], cfg, device=device)
-        return Engine(k, device=device)
+        return make_engine("rspaxos", cfg, sh, G, device)
 
     eng = engine(sh["G"], DEV)
     rs.bitslice_gf256.launches = 0
@@ -375,35 +544,18 @@ def phase_rspaxos(torch, np, card):
     if B == 0:
         fail("rspaxos: no values proposed in the last tick")
     groups = np.repeat(np.arange(sh["G"]), n_acc)
-    rng = np.random.default_rng(SEED + 4)
-    payloads = rng.integers(0, 256, size=(B, PAYLOAD), dtype=np.uint8)
-    L = lanes_for(PAYLOAD, 3)
-    host = pack_batch(np, payloads, 3, L)
+    payloads, data, cw, e_enc = encode_values(torch, np, rs, code, B,
+                                              SEED + 4, "main-path")
     ref = rs.pack_bytes(payloads[0].tobytes(), 3, lane_multiple=128)
-    if not np.array_equal(host[0], ref):
+    if not np.array_equal(data[0].cpu().numpy(), ref):
         fail("batched packing differs from pack_bytes")
-    data = torch.from_numpy(host).to(DEV)
-    parity = code.compute_parity(data)                      # one launch
-    want = rs._bitslice_matmul_plain(code._parity_tbl, data)
-    main_err = int((parity.long() - want.long()).abs().max())
-    if not torch.equal(parity, want):
-        fail("main-path encode: kernel != plain")
-    cw = torch.cat([data, parity], dim=1)                   # [B, 5, L]
     subsets = list(itertools.combinations(range(5), 3))
-    which = torch.from_numpy(groups % len(subsets)).to(DEV)
-    decoded = torch.empty_like(data)
-    for i, sub in enumerate(subsets):
-        idx = torch.nonzero(which == i).flatten()
-        if idx.numel():
-            shards = cw.index_select(0, idx)[:, list(sub)].contiguous()
-            decoded[idx] = code.reconstruct_data(shards, sub)
-    torch.cuda.synchronize()
-    back = decoded.cpu().numpy().view(np.uint8).reshape(B, -1)[:, :PAYLOAD]
-    if not np.array_equal(back, payloads):
-        fail("rspaxos: decoded payload bytes differ")
+    calls, e_dec = decode_values(torch, np, rs, code, cw,
+                                 [subsets[g % len(subsets)] for g in groups],
+                                 payloads, "rspaxos")
     log(f"codeword plane: {B} values x {PAYLOAD} B encoded in one "
-        f"[{B}, 3, {L}] call, decoded from all ten 3-of-5 subsets "
-        f"by group, bytes round-trip")
+        f"[{B}, 3, {data.shape[2]}] call, decoded from {calls} 3-of-5 "
+        f"subsets by group, bytes round-trip")
 
     store = CodewordStore(sh["G"], code, total=5, device=DEV)
     peer = CodewordStore(sh["G"], code, total=5, device=DEV)
@@ -431,15 +583,261 @@ def phase_rspaxos(torch, np, card):
     profile_ticks(torch, eng, st, ns, PROFILE_TICKS, sh["P"], "rspaxos", card)
 
     # the kernel's numbers at the main path's encode shape
-    k_ms = time_ms(torch, lambda: code.compute_parity(data), 20)
-    p_ms = time_ms(torch, lambda: rs._bitslice_matmul_plain(
-        code._parity_tbl, data), 3)
-    b_ms, b_by = bound_ms(2, 3, B, L)
-    log(f"main-path encode [{B},3,{L}]: kernel {k_ms:.4f} ms plain "
-        f"{p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) share "
-        f"{b_ms / k_ms:.3f} | {card}")
-    return {"launches": launches, "max_abs_err": main_err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return dict(kernel_numbers(torch, rs, code, data, card, "main-path"),
+                launches=launches, max_abs_err=max(e_enc, e_dec))
+
+
+# --------------------------------- phases 5-7: Raft, CRaft and Crossword --
+def phase_raft(torch, card):
+    from summerset_tpu_torch.protocols.raft import ReplicaConfigRaft
+
+    log("== phase 5: Raft at the BASELINE shape, cold start")
+    sh = RAFT_SHAPE
+    P = sh["P"]
+    cfg = ReplicaConfigRaft(
+        max_proposals_per_tick=P, chunk_size=2 * P,
+        exec_follows_commit=False, init_leader=-1,
+    )
+
+    def elect(eng, chunks=None):
+        """Saturating load from a cold start until every group has exactly
+        one leader (the card), or the card's chunks replayed (the CPU)."""
+        st, ns = eng.init()
+        if chunks is not None:
+            for n in chunks:
+                st, ns = eng.run_synthetic(st, ns, n, P)
+            return st, ns, chunks
+        chunks = []
+        while True:
+            st, ns = eng.run_synthetic(st, ns, ELECT_STEP, P)
+            chunks.append(ELECT_STEP)
+            if bool((st["is_leader"].sum(dim=1) == 1).all()):
+                return st, ns, chunks
+            if sum(chunks) >= ELECT_MAX:
+                fail(f"raft: not every group elected one leader within "
+                     f"{ELECT_MAX} ticks")
+
+    eng = make_engine("raft", cfg, sh, sh["G"], DEV)
+    t0 = time.perf_counter()
+    st, ns, chunks = elect(eng)
+    torch.cuda.synchronize()
+    elect_s = time.perf_counter() - t0
+    terms = st["term"].amax(dim=1)
+    log(f"raft G={sh['G']} R={sh['R']} W={sh['W']} P={P}: one leader in "
+        f"every group after {sum(chunks)} ticks ({elect_s:.3f} s), term "
+        f"max {int(terms.max())} mean {float(terms.float().mean()):.2f}")
+    c0 = committed(st)
+    t0 = time.perf_counter()
+    st, ns = eng.run_synthetic(st, ns, RAFT_TICKS, P)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if int(st["commit_bar"].amax(dim=1).min()) <= 0:
+        fail("raft: a group committed nothing")
+    if committed(st) <= c0:
+        fail("raft: commits did not advance")
+    log(f"raft: {RAFT_TICKS} ticks in {dt:.3f} s ({dt / RAFT_TICKS * 1e3:.3f} "
+        f"ms/tick), {(committed(st) - c0) / dt:.1f} committed slots/s, "
+        f"commit_bar min {int(st['commit_bar'].amax(dim=1).min())} | {card}")
+
+    cpu = make_engine("raft", cfg, sh, CPU_GROUPS, "cpu")
+    cst, cns, _ = elect(cpu, chunks)
+    cst, cns = cpu.run_synthetic(cst, cns, RAFT_TICKS, P)
+    n = compare_groups(torch, (st, ns), (cst, cns), CPU_GROUPS, "raft")
+    log(f"raft: first {CPU_GROUPS} groups equal the CPU run over "
+        f"{sum(chunks) + RAFT_TICKS} ticks ({n} state leaves + netstate)")
+    profile_ticks(torch, eng, st, ns, PROFILE_TICKS, P, "raft", card)
+
+
+def phase_craft(torch, np, card):
+    from summerset_tpu_torch.ops import rscoding as rs
+    from summerset_tpu_torch.protocols.craft import ReplicaConfigCRaft
+
+    log("== phase 6: CRaft + RS(3,2), full-copy fallback and back")
+    sh = CRAFT_SHAPE
+    P = sh["P"]
+    cfg = ReplicaConfigCRaft(
+        max_proposals_per_tick=P, chunk_size=2 * P,
+        exec_follows_commit=False, fault_tolerance=1,
+    )
+    down = (True, True, True, False, False)   # followers 3 and 4 paused
+    # warm-up, timed healthy window, two followers paused past
+    # alive_timeout (read at 24 and 40 ticks), resumed
+    plan = [(8, None, False), (40, None, False), (24, down, False),
+            (16, down, False), (32, None, False)]
+    if cfg.alive_timeout >= 24:
+        fail("craft: the pause must outlast alive_timeout")
+
+    rs.bitslice_gf256.launches = 0
+    eng, ns, out, dt = drive_plan(torch, "craft", cfg, sh, sh["G"], DEV, plan)
+    st = out[-1][0]
+    c_warm, c_healthy = committed(out[0][0]), committed(out[1][0])
+    log(f"craft G={sh['G']} R={sh['R']} W={sh['W']} P={P} ft=1: "
+        f"{plan[1][0]} healthy ticks in {dt:.3f} s "
+        f"({dt / plan[1][0] * 1e3:.3f} ms/tick), "
+        f"{(c_healthy - c_warm) / dt:.1f} committed slots/s | {card}")
+
+    def modes(k):
+        st_k, fx_k = out[k]
+        g, lead, slot = last_tick_slots(torch, st_k, fx_k, "log_end", P,
+                                        "craft")
+        return g, st_k["win_full"][g, lead, slot % sh["W"]]
+
+    # the healthy window's last tick: every leader's new slots are coded
+    g1, full1 = modes(1)
+    if bool(full1.any()) or full1.numel() == 0:
+        fail("craft: the healthy window stamped no slots or full-copy ones")
+    # two followers down past alive_timeout: full-copy, and still commits
+    _, full3 = modes(3)
+    if not bool(full3.all()) or full3.numel() == 0:
+        fail("craft: with two followers down new slots are not full-copy")
+    cb2 = out[2][0]["commit_bar"].amax(dim=1)
+    cb3 = out[3][0]["commit_bar"].amax(dim=1)
+    if not bool((cb3 > cb2).all()):
+        fail("craft: a group stopped committing in full-copy mode")
+    # resumed: coded again
+    _, full4 = modes(4)
+    if bool(full4.any()) or full4.numel() == 0:
+        fail("craft: after the followers resumed new slots are not coded")
+    log(f"craft: last-tick slots coded {full1.numel()} (healthy) -> "
+        f"full-copy {full3.numel()} (two followers paused, commits "
+        f"{int(cb2.sum())} -> {int(cb3.sum())}) -> coded {full4.numel()} "
+        f"(resumed)")
+
+    # the codeword plane over the healthy window's coded values
+    code = rs.RSCode(3, 2, device=DEV)
+    B = int(full1.numel())
+    payloads, data, cw, e_enc = encode_values(torch, np, rs, code, B,
+                                              SEED + 6, "craft")
+    subsets = list(itertools.combinations(range(5), 3))
+    groups = g1.cpu().numpy()
+    present = [subsets[g % len(subsets)] for g in groups]
+    calls, e_dec = decode_values(torch, np, rs, code, cw, present, payloads,
+                                 "craft")
+    torch.cuda.synchronize()
+    launches = rs.bitslice_gf256.launches
+    if launches == 0:
+        fail("the craft path never launched bitslice_gf256")
+    log(f"craft codeword plane: {B} coded values x {PAYLOAD} B encoded in "
+        f"one [{B}, 3, {data.shape[2]}] call, decoded from {calls} "
+        f"rotating 3-of-5 subsets, bytes round-trip; bitslice_gf256 "
+        f"launches on the craft path: {launches}")
+
+    _, cns, cout, _ = drive_plan(torch, "craft", cfg, sh, CPU_GROUPS, "cpu",
+                                 plan)
+    n = compare_groups(torch, (st, ns), (cout[-1][0], cns), CPU_GROUPS,
+                       "craft")
+    log(f"craft: first {CPU_GROUPS} groups equal the CPU run over "
+        f"{sum(w[0] for w in plan)} ticks ({n} state leaves + netstate)")
+    profile_ticks(torch, eng, st, ns, PROFILE_TICKS, P, "craft", card)
+    kernel_numbers(torch, rs, code, data, card, "craft")
+    return {"launches": launches, "max_abs_err": max(e_enc, e_dec)}
+
+
+def phase_crossword(torch, np, card):
+    from summerset_tpu_torch.host.codeword import CodewordStore, assigned_sids
+    from summerset_tpu_torch.ops import rscoding as rs
+    from summerset_tpu_torch.protocols.crossword import (
+        ReplicaConfigCrossword,
+    )
+
+    log("== phase 7: Crossword + RS(3,2), adaptive and overridden widths")
+    sh = CW_SHAPE
+    P, R, W = sh["P"], sh["R"], sh["W"]
+    cfg = ReplicaConfigCrossword(
+        max_proposals_per_tick=P, chunk_size=2 * P,
+        exec_follows_commit=False, fault_tolerance=1, rs_total_shards=5,
+        assignment_adaptive=True,
+    )
+    T, dj, d = 5, 1, 3
+    # warm-up, timed healthy window, odd groups at spr_override=2
+    plan = [(8, None, False), (40, None, False), (32, None, True)]
+
+    def odd(G):
+        return (torch.arange(G, dtype=torch.int32) % 2) * 2   # 0 / 2
+
+    rs.bitslice_gf256.launches = 0
+    eng, ns, out, dt = drive_plan(torch, "crossword", cfg, sh, sh["G"], DEV,
+                                  plan, odd(sh["G"]))
+    st = out[-1][0]
+    c_warm, c_healthy = committed(out[0][0]), committed(out[1][0])
+    log(f"crossword G={sh['G']} R={R} W={W} P={P} ft=1 T={T}: "
+        f"{plan[1][0]} healthy ticks in {dt:.3f} s "
+        f"({dt / plan[1][0] * 1e3:.3f} ms/tick), "
+        f"{(c_healthy - c_warm) / dt:.1f} committed slots/s | {card}")
+    if committed(st) <= c_healthy:
+        fail("crossword: commits did not advance under the override")
+
+    # each last-tick value's width, read from its leader's win_spr
+    g, lead, slot = last_tick_slots(torch, st, out[-1][1], "next_slot", P,
+                                    "crossword")
+    spr = st["win_spr"][g, lead, slot % W]
+    want = torch.where(g % 2 == 1, 2, 1).to(torch.int32)
+    if spr.numel() == 0 or not torch.equal(spr, want):
+        fail("crossword: last-tick widths are not 2 (odd groups, "
+             "overridden) and 1 (even groups, adaptive)")
+    log(f"crossword: last tick {spr.numel()} values, "
+        f"{int((spr == 2).sum())} at spr=2 (override), "
+        f"{int((spr == 1).sum())} at spr=1 (adaptive)")
+
+    # covering replica sets per width: rows of the replicas in the set
+    # hold >= d distinct shard ids, and no smaller subset does
+    def covers(s):
+        out_ = []
+        for k in range(1, R + 1):
+            for combo in itertools.combinations(range(R), k):
+                held = {x for r in combo for x in assigned_sids(r, s, dj, T)}
+                if len(held) >= d and not any(set(c) <= set(combo)
+                                              for c, _ in out_):
+                    out_.append((combo, tuple(sorted(held))[:d]))
+        return out_
+
+    cover = {s: covers(s) for s in (1, 2)}
+    code = rs.RSCode(d, T - d, device=DEV)
+    B = int(spr.numel())
+    payloads, data, cw, e_enc = encode_values(torch, np, rs, code, B,
+                                              SEED + 7, "crossword")
+    widths = spr.cpu().numpy()
+    present = [cover[int(s)][j % len(cover[int(s)])][1]
+               for j, s in enumerate(widths)]
+    calls, e_dec = decode_values(torch, np, rs, code, cw, present, payloads,
+                                 "crossword")
+
+    # a few values through the store: replica r is given only its
+    # assigned rows at the value's width
+    store = CodewordStore(sh["G"], code, total=T, dj=dj, device=DEV)
+    groups = g.cpu().numpy()
+    for j in range(4):
+        s = int(widths[j])
+        gj, vid = int(groups[j]), 5000 + j
+        batch = payloads[j].tobytes()
+        dlen, rows = store.encode(gj, vid, batch, spr=s)
+        combo, _ = cover[s][(j * 3 + 1) % len(cover[s])]
+        peer = CodewordStore(sh["G"], code, total=T, dj=dj, device=DEV)
+        for r in combo:
+            peer.add_shards(gj, vid, dlen, {
+                x: rows[x] for x in assigned_sids(r, s, dj, T)
+            }, assigned=True)
+        if peer.reconstruct_batch(gj, vid) != batch:
+            fail(f"crossword: CodewordStore round-trip failed for value {j}")
+    torch.cuda.synchronize()
+    launches = rs.bitslice_gf256.launches
+    if launches == 0:
+        fail("the crossword path never launched bitslice_gf256")
+    log(f"crossword codeword plane: {B} values encoded in one "
+        f"[{B}, {d}, {data.shape[2]}] call; each rebuilt from the assigned "
+        f"rows of a rotating covering replica set ({calls} decode sets), "
+        f"bytes round-trip; 4 values through CodewordStore; "
+        f"bitslice_gf256 launches on the crossword path: {launches}")
+
+    _, cns, cout, _ = drive_plan(torch, "crossword", cfg, sh, CPU_GROUPS,
+                                 "cpu", plan, odd(CPU_GROUPS))
+    n = compare_groups(torch, (st, ns), (cout[-1][0], cns), CPU_GROUPS,
+                       "crossword")
+    log(f"crossword: first {CPU_GROUPS} groups equal the CPU run over "
+        f"{sum(w[0] for w in plan)} ticks ({n} state leaves + netstate)")
+    profile_ticks(torch, eng, st, ns, PROFILE_TICKS, P, "crossword", card)
+    kernel_numbers(torch, rs, code, data, card, "crossword")
+    return {"launches": launches, "max_abs_err": max(e_enc, e_dec)}
 
 
 def main():
@@ -463,14 +861,20 @@ def main():
     max_err = phase_kernels(torch, np, card)
     phase_multipaxos(torch, card)
     main_path = phase_rspaxos(torch, np, card)
+    phase_raft(torch, card)
+    paths = {"rspaxos": main_path, "craft": phase_craft(torch, np, card),
+             "crossword": phase_crossword(torch, np, card)}
+    log("bitslice_gf256 launches by path: " + ", ".join(
+        f"{k} {v['launches']}" for k, v in paths.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "bitslice_gf256",
         "route": "cuda",
         "source": "summerset_tpu_torch/csrc/bitslice.cu",
         "replaces": "summerset_tpu/ops/rscoding.py:176",
-        "launches": main_path["launches"],
-        "max_abs_err": max(max_err, main_path["max_abs_err"]),
+        "launches": sum(v["launches"] for v in paths.values()),
+        "max_abs_err": max([max_err] + [v["max_abs_err"]
+                                         for v in paths.values()]),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"],

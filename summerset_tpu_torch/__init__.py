@@ -9,7 +9,8 @@ its layout so every counterpart is easy to find:
                    kernel (``csrc/bitslice.cu``)
 - ``core``       — protocol SPI, telemetry lanes, quorum tally, network
                    model, tick engine
-- ``protocols``  — the vectorized MultiPaxos and RSPaxos kernels
+- ``protocols``  — the vectorized MultiPaxos, RSPaxos, Raft, CRaft and
+                   Crossword kernels
 - ``host``       — the codeword payload store
 - ``entry``      — one flagship tick (1024 groups x 5 replicas)
 - ``convert``    — JAX-state (numpy) <-> port-state (torch) conversion

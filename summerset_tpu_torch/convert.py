@@ -16,7 +16,8 @@ import torch
 from .device import resolve_device
 
 #: leaves the JAX package holds as uint32 (bitmaps, flags, LCG states)
-UINT32_LEAVES = frozenset({"flags", "prep_acks", "prep_voters", "rng"})
+UINT32_LEAVES = frozenset({"flags", "grants", "prep_acks", "prep_voters",
+                           "rng"})
 
 
 def to_torch(tree: Mapping[str, Any], device=None) -> dict:

@@ -244,7 +244,9 @@ class NetModel:
                 with self._lane_scope(k):
                     raw[k] = torch.index_select(b, 0, idx)[0]
                     oh = at_cursor.reshape((D,) + (1,) * (b.ndim - 1))
-                    nbufs[k] = torch.where(oh, 0, b)
+                    # masked_fill keeps the lane's dtype (a where with a
+                    # scalar 0 would widen a bool lane to int64)
+                    nbufs[k] = b.masked_fill(oh, 0)
             bufs = nbufs
 
         # receiver-side mask: a replica paused now receives nothing

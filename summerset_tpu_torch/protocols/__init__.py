@@ -12,8 +12,8 @@ _REGISTRY: Dict[str, Type[ProtocolKernel]] = {}
 
 #: protocols the JAX package has that this port does not run yet
 NOT_PORTED = (
-    "bodega", "chainrep", "craft", "crossword", "epaxos", "quorumleases",
-    "raft", "repnothing", "simplepush",
+    "bodega", "chainrep", "epaxos", "quorumleases", "repnothing",
+    "simplepush",
 )
 
 
@@ -48,3 +48,6 @@ def make_protocol(name: str, *args, **kwargs) -> ProtocolKernel:
 
 from . import multipaxos  # noqa: E402,F401
 from . import rspaxos  # noqa: E402,F401
+from . import raft  # noqa: E402,F401
+from . import craft  # noqa: E402,F401
+from . import crossword  # noqa: E402,F401

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.quorum import quorum_frontier
+
 NULL_VAL = 0      # reserved value id: no-op filler
 NO_SLOT = -1      # empty window position marker
 I32_MAX = (1 << 31) - 1
@@ -85,6 +87,13 @@ def take_lane(lane, src):
     return torch.gather(lane, 1, idx[..., None].expand(G, R, lane.shape[2]))
 
 
+# ------------------------------------------------------------ quorum tally --
+def kth_largest(values, k: int):
+    """k-th largest along the last axis (k >= 1): the quorum-frontier
+    tally, delegated to the tally plane's ``quorum_frontier``."""
+    return quorum_frontier(values, k)
+
+
 # --------------------------------------------------- shared lockstep blocks --
 def client_intake(s, inputs, serving, cap: int, window: int,
                   frontier: str = "next_slot"):
@@ -122,6 +131,11 @@ def advance_exec(s, inputs, exec_follows_commit: bool):
         s["exec_bar"],
         torch.minimum(s["commit_bar"], inputs["exec_floor"].to(torch.int32)),
     )
+
+
+def flag_bits(mask: torch.Tensor, bit: int) -> torch.Tensor:
+    """``bit`` where ``mask`` else 0, as int32 flags."""
+    return mask.to(torch.int32) * bit
 
 
 def dst_onehot(src, R: int):

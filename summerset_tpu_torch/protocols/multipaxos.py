@@ -36,6 +36,7 @@ from .common import (
     client_intake,
     dst_onehot,
     first_argmax,
+    flag_bits,
     initial_ballot,
     make_greater_ballot,
     not_self,
@@ -54,11 +55,6 @@ PREPARE_REPLY = 32
 AR_NACK = 64
 SNAPSHOT = 128
 # bits 256+ are reserved for subclass extensions
-
-
-def flag_bits(mask: torch.Tensor, bit: int) -> torch.Tensor:
-    """``bit`` where ``mask`` else 0, as int32 flags."""
-    return mask.to(torch.int32) * bit
 
 
 @dataclasses.dataclass

@@ -19,12 +19,8 @@ import torch
 from ..core import quorum as quorum_lib
 from ..utils.bitmap import popcount
 from . import register_protocol
-from .common import NULL_VAL, range_cover
-from .multipaxos import (
-    MultiPaxosKernel,
-    ReplicaConfigMultiPaxos,
-    flag_bits,
-)
+from .common import NULL_VAL, flag_bits, range_cover
+from .multipaxos import MultiPaxosKernel, ReplicaConfigMultiPaxos
 
 RECON_REQ = 256    # needy replica -> all: want full data for [rq_lo, rq_hi)
 RECON_REPLY = 512  # peer -> needy: my shards cover [rq_lo, rr_hi)

@@ -13,6 +13,7 @@ Tolerance: exact.  Every compared value is an integer, and the kernel
 repeats the plain version's wrapping int32 arithmetic.
 """
 
+import functools
 import hashlib
 import itertools
 
@@ -25,23 +26,34 @@ from summerset_tpu_torch.core import Engine, NetConfig
 from summerset_tpu_torch.host.codeword import CodewordStore
 from summerset_tpu_torch.ops import rscoding as trs
 from summerset_tpu_torch.protocols import make_protocol
+from summerset_tpu_torch.protocols.craft import ReplicaConfigCRaft
+from summerset_tpu_torch.protocols.crossword import ReplicaConfigCrossword
 from summerset_tpu_torch.protocols.multipaxos import ReplicaConfigMultiPaxos
+from summerset_tpu_torch.protocols.raft import ReplicaConfigRaft
 from summerset_tpu_torch.protocols.rspaxos import ReplicaConfigRSPaxos
 
 SUBSETS = list(itertools.combinations(range(5), 3))
 
 
+#: the shards replicas 1, 3 and 4 hold under Crossword's RS(6,4) at two
+#: shards per replica (T=10, dj=2)
+RS64_HELD = (2, 3, 6, 7, 8, 9)
+
+
 def _tables():
-    """The parity tables of RS(3,2), RS(2,1), RS(5,3) and the ten 3-of-5
-    decode tables of RS(3,2)."""
+    """The parity tables of RS(3,2), RS(2,1), RS(5,3) and RS(6,4), the ten
+    3-of-5 decode tables of RS(3,2) and one 6-of-10 decode table of
+    RS(6,4)."""
     out = {}
-    for d, p in ((3, 2), (2, 1), (5, 3)):
+    for d, p in ((3, 2), (2, 1), (5, 3), (6, 4)):
         out[f"enc{d}{p}"] = trs._bitslice_coeffs(
             trs.build_encode_matrix(d, p)[d:])
     M = trs.build_encode_matrix(3, 2)
     for s in SUBSETS:
         out[f"dec{s}"] = trs._bitslice_coeffs(
             trs.gf_inv_matrix_host(M[list(s)]))
+    out[f"dec64{RS64_HELD}"] = trs._bitslice_coeffs(
+        trs.gf_inv_matrix_host(trs.build_encode_matrix(6, 4)[list(RS64_HELD)]))
     return out
 
 
@@ -118,8 +130,18 @@ def _window(G, R, P, T, w):
     }
 
 
+CONFIGS = {
+    "multipaxos": ReplicaConfigMultiPaxos,
+    "rspaxos": functools.partial(ReplicaConfigRSPaxos, fault_tolerance=1),
+    "raft": ReplicaConfigRaft,
+    "craft": functools.partial(ReplicaConfigCRaft, fault_tolerance=1),
+    "crossword": functools.partial(ReplicaConfigCrossword,
+                                   fault_tolerance=1),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("proto", ["multipaxos", "rspaxos"])
+@pytest.mark.parametrize("proto", sorted(CONFIGS))
 def test_engine_on_card_matches_cpu(proto, cuda_device):
     G, R, W, P, T = 8, 5, 32, 4, 16
     fast = dict(max_proposals_per_tick=P, hear_timeout_lo=5,
@@ -128,8 +150,7 @@ def test_engine_on_card_matches_cpu(proto, cuda_device):
                     max_delay_ticks=3)
     digests = {}
     for dev in ("cpu", cuda_device):
-        cfg = (ReplicaConfigMultiPaxos(**fast) if proto == "multipaxos"
-               else ReplicaConfigRSPaxos(fault_tolerance=1, **fast))
+        cfg = CONFIGS[proto](**fast)
         eng = Engine(make_protocol(proto, G, R, W, cfg, device=dev),
                      netcfg=net, seed=7, device=dev)
         st, ns = eng.init()

@@ -45,6 +45,9 @@ def test_port_and_chip_smoke_import_no_jax():
     # the walk really reached the kernel, protocol and host modules
     for m in ("summerset_tpu_torch.ops.rscoding",
               "summerset_tpu_torch.protocols.rspaxos",
+              "summerset_tpu_torch.protocols.raft",
+              "summerset_tpu_torch.protocols.craft",
+              "summerset_tpu_torch.protocols.crossword",
               "summerset_tpu_torch.host.codeword",
               "summerset_tpu_torch.core.engine",
               "summerset_tpu_torch.entry"):
@@ -75,6 +78,9 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         lambda: Engine(kernel),
         lambda: make_protocol("multipaxos", 2, 3, 32),
         lambda: make_protocol("rspaxos", 2, 5, 32),
+        lambda: make_protocol("raft", 2, 5, 32),
+        lambda: make_protocol("craft", 2, 5, 32),
+        lambda: make_protocol("crossword", 2, 5, 32),
         lambda: RSCode(3, 2),
         lambda: CodewordStore(2, code, total=5),
         lambda: entry(),

@@ -26,16 +26,20 @@ SUBSETS = list(itertools.combinations(range(5), 3))
 
 
 def _tables():
-    """Every table the RSPaxos path uses: the parity tables of the three
-    schemes and the ten 3-of-5 decode tables."""
+    """Every table the RSPaxos and CRaft paths use (the parity tables of
+    the three schemes and the ten 3-of-5 decode tables), plus Crossword's
+    RS(6,4) parity table and one 6-of-10 decode table."""
     out = {}
-    for d, p in ((3, 2), (2, 1), (5, 3)):
+    for d, p in ((3, 2), (2, 1), (5, 3), (6, 4)):
         out[f"enc{d}{p}"] = trs._bitslice_coeffs(
             trs.build_encode_matrix(d, p)[d:])
     M = trs.build_encode_matrix(3, 2)
     for s in SUBSETS:
         out[f"dec{s}"] = trs._bitslice_coeffs(
             trs.gf_inv_matrix_host(M[list(s)]))
+    held = (2, 3, 6, 7, 8, 9)
+    out[f"dec64{held}"] = trs._bitslice_coeffs(
+        trs.gf_inv_matrix_host(trs.build_encode_matrix(6, 4)[list(held)]))
     return out
 
 
@@ -50,7 +54,7 @@ def _lanes(seed, shape):
 def test_gf_tables_match_jax():
     np.testing.assert_array_equal(trs.GF_EXP, jrs.GF_EXP)
     np.testing.assert_array_equal(trs.GF_LOG, jrs.GF_LOG)
-    for d, p in ((3, 2), (2, 1), (5, 3), (4, 0)):
+    for d, p in ((3, 2), (2, 1), (5, 3), (6, 4), (4, 0)):
         np.testing.assert_array_equal(
             trs.build_encode_matrix(d, p), jrs.build_encode_matrix(d, p))
     for name, tbl in TABLES.items():
@@ -230,3 +234,93 @@ def test_codeword_store_matches_jax():
     assert tstore.size(0) == jstore.size(0)
     assert pickle.loads(pickle.dumps(tcw.assigned_sids(3, 2, 1, 5))) == \
         jcw.assigned_sids(3, 2, 1, 5)
+
+
+# ------------------------------------- CRaft / Crossword codeword geometry --
+#: (T, spr): CRaft and Crossword at T=5 (RS(3,2), one shard per replica
+#: step), Crossword at T=10 (RS(6,4), two)
+ASSIGNMENTS = [(5, 1), (5, 2), (5, 3), (10, 2), (10, 4)]
+
+
+def _codes(T):
+    d, p = (3, 2) if T == 5 else (6, 4)
+    return (trs.RSCode(d, p, use_kernel=False, device="cpu"),
+            jrs.RSCode(d, p, use_pallas=False))
+
+
+def _minimal_covers(spr, dj, T, d, R=5):
+    """Replica sets whose assigned shards hold >= d distinct ids, none of
+    whose proper subsets does."""
+    sids = {r: set(tcw.assigned_sids(r, spr, dj, T)) for r in range(R)}
+    out = []
+    for k in range(1, R + 1):
+        for combo in itertools.combinations(range(R), k):
+            if len(set().union(*(sids[r] for r in combo))) < d:
+                continue
+            if not any(set(c) <= set(combo) for c in out):
+                out.append(combo)
+    return out
+
+
+@pytest.mark.parametrize("T,spr", ASSIGNMENTS)
+def test_codeword_assignment_matches_jax(T, spr):
+    """Shards, the WAL slice each replica logs, and reconstruction from
+    every minimal covering replica set, byte for byte against JAX."""
+    tcode, jcode = _codes(T)
+    d, dj = tcode.d, T // 5
+
+    def stores():
+        return (tcw.CodewordStore(2, tcode, total=T, dj=dj, device="cpu"),
+                jcw.CodewordStore(2, jcode, total=T, dj=dj))
+
+    tenc, jenc = stores()
+    g, vid = 1, 40 + spr
+    batch = {"ops": [("put", f"k{T}-{spr}", "v" * 300)]}
+    tl, trows = tenc.encode(g, vid, batch, spr=spr)
+    jl, jrows = jenc.encode(g, vid, batch, spr=spr)
+    assert tl == jl
+    np.testing.assert_array_equal(trows, jrows)
+
+    def same_wal(tw, jw, sids):
+        assert tw[0] == jw[0] == tl
+        assert sorted(tw[1]) == sorted(jw[1]) == sorted(sids)
+        for s in sids:
+            np.testing.assert_array_equal(tw[1][s], jw[1][s])
+
+    for r in range(5):
+        sids = tcw.assigned_sids(r, spr, dj, T)
+        assert sids == jcw.assigned_sids(r, spr, dj, T)
+        # the encoder logs each replica's own slice of the full codeword
+        same_wal(tenc.wal_shards(g, vid, r), jenc.wal_shards(g, vid, r), sids)
+        # a replica holding its assignment logs exactly that ...
+        tp, jp = stores()
+        tp.add_shards(g, vid, tl, {s: trows[s] for s in sids}, assigned=True)
+        jp.add_shards(g, vid, jl, {s: jrows[s] for s in sids}, assigned=True)
+        same_wal(tp.wal_shards(g, vid, r), jp.wal_shards(g, vid, r), sids)
+        # ... and never a foreign row that arrived by gossip
+        other = tcw.assigned_sids((r + 2) % 5, spr, dj, T)
+        tp.add_shards(g, vid, tl, {s: trows[s] for s in other})
+        jp.add_shards(g, vid, jl, {s: jrows[s] for s in other})
+        if tp.have_mask(g, vid) != (1 << T) - 1:
+            same_wal(tp.wal_shards(g, vid, r), jp.wal_shards(g, vid, r),
+                     sids)
+
+    covers = _minimal_covers(spr, dj, T, d)
+    assert covers
+    for combo in covers:
+        held = {s for r in combo for s in tcw.assigned_sids(r, spr, dj, T)}
+        tp, jp = stores()
+        short = {s for r in combo[:-1]
+                 for s in tcw.assigned_sids(r, spr, dj, T)}
+        if short:
+            tp.add_shards(g, vid, tl, {s: trows[s] for s in short})
+            assert tp.reconstruct_batch(g, vid) is None
+        tp.add_shards(g, vid, tl, {s: trows[s] for s in held})
+        jp.add_shards(g, vid, jl, {s: jrows[s] for s in held})
+        assert tp.have_mask(g, vid) == jp.have_mask(g, vid)
+        assert tp.reconstruct_batch(g, vid) == batch
+        assert jp.reconstruct_batch(g, vid) == batch
+        assert tp.have_mask(g, vid) == (1 << T) - 1
+        for s in range(T):
+            np.testing.assert_array_equal(tp.shards_for(g, vid)[1][s],
+                                          jp.shards_for(g, vid)[1][s])
