@@ -43,7 +43,24 @@ before printing any result.  Phases, each printed as it runs:
              rows at the value's width, and each value is rebuilt from a
              rotating replica set whose rows cover d shards; a few values
              go through CodewordStore; CPU check; profile.
-Phases 4, 6 and 7 each count their own kernel launches and fail on none.
+8. quorumleases — QuorumLeases 4096 x 5, W=128, P=32: responders {1, 2}
+             installed through the log (``conf_target``); every replica's
+             ``conf_cur``, leases held on replicas 1 and 2 only, leader
+             reads on replica 0 only; then replica 2 paused: the leader's
+             commit bar moves at most 2P in 8 ticks and rises again once
+             the lease and its margin have lapsed; CPU check; profile.
+9. bodega  — Bodega 4096 x 5: a roster (leader 0, responders {1, 2}) is
+             announced through ``conf_init`` and installed everywhere with
+             config leases out and replica 0 a stable leader; with writes
+             drained, responders 1 and 2 serve local reads; bucket 3 moves
+             to {3, 4}; replica 0 paused past ``conf_timeout``: a
+             higher-ballot conf names a new leader and commits go on; CPU
+             check; profile.
+10. basic  — ChainRep, SimplePush and RepNothing 4096 x 5 through
+             ``run_synthetic``: commits in every group, ChainRep's tail acks
+             back at the head, CPU check, one timing line each.
+Phases 4, 6 and 7 each count their own kernel launches and fail on none;
+phases 8-10 run no codeword plane and launch no hand kernel.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -62,6 +79,15 @@ RS_SHAPE = dict(G=1024, R=5, W=128, P=32)
 RAFT_SHAPE = dict(G=4096, R=5, W=128, P=32)
 CRAFT_SHAPE = dict(G=1024, R=5, W=128, P=32)
 CW_SHAPE = dict(G=1024, R=5, W=128, P=32)
+QL_SHAPE = dict(G=4096, R=5, W=128, P=32)
+BO_SHAPE = dict(G=4096, R=5, W=128, P=32)
+BASIC_SHAPE = dict(G=4096, R=5, W=128, P=32)
+QL_RESP = 0b00110        # QuorumLeases responders {1, 2}
+QL_RELEASE_TICKS = 60    # responder 2 paused: ticks until the barrier lifts
+BO_RESP = 0b00110        # Bodega roster responders {1, 2} on every bucket
+BO_RESP3 = 0b11000       # ... then {3, 4} on bucket 3
+BO_FAILOVER_TICKS = 200  # replica 0 paused: past conf_timeout to a new leader
+TIMED_TICKS = 64         # the timed window of phases 8-10
 CPU_GROUPS = 64
 MP_TICKS = 64
 RS_TICKS = 48
@@ -268,18 +294,21 @@ def profile_ticks(torch, eng, state, ns, ticks, P, what, card):
         for k, n, us in api))
 
 
-def run_window(torch, eng, st, ns, t0, ticks, P, alive=None, spr=None):
+def run_window(torch, eng, st, ns, t0, ticks, P, alive=None, spr=None,
+               extra=None, n_prop=None):
     """``ticks`` ticks of saturating load from absolute tick ``t0`` (value
     ids ``tick * P + i``, host applier saturated) through ``run_ticks``;
     ``alive`` ([R] bools) and ``spr`` ([G] int32 ``spr_override``) hold
-    for every tick.  Returns the state, the netstate and the last tick's
-    effects extras."""
+    for every tick; ``extra`` maps a host input to one int for every tick
+    and group, or to a list of one int per tick; ``n_prop`` (default
+    ``P``) is the per-tick offer.  Returns the state, the netstate and the
+    last tick's effects extras."""
     G, R = eng.kernel.G, eng.kernel.R
     dev = eng.device
     t = torch.arange(t0, t0 + ticks, dtype=torch.int32, device=dev)
     seq = {
-        "n_proposals": torch.full((ticks, G), P, dtype=torch.int32,
-                                  device=dev),
+        "n_proposals": torch.full((ticks, G), P if n_prop is None else n_prop,
+                                  dtype=torch.int32, device=dev),
         "value_base": (t * P)[:, None].expand(ticks, G),
         "exec_floor": torch.full((G, R), 1 << 30, dtype=torch.int32,
                                  device=dev).expand(ticks, G, R),
@@ -289,6 +318,10 @@ def run_window(torch, eng, st, ns, t0, ticks, P, alive=None, spr=None):
             ticks, G, R)
     if spr is not None:
         seq["spr_override"] = spr.to(dev)[None].expand(ticks, G)
+    for k, v in (extra or {}).items():
+        per_tick = v if isinstance(v, list) else [v] * ticks
+        seq[k] = torch.tensor(per_tick, dtype=torch.int32,
+                              device=dev)[:, None].expand(ticks, G)
     st, ns, fx = eng.run_ticks(st, ns, seq, collect=True)
     return st, ns, {k: v[-1] for k, v in fx.extra.items()}
 
@@ -313,26 +346,22 @@ def last_tick_slots(torch, st, fx, frontier, P, what):
     return gg, lead[gg], slot[m]
 
 
-def drive_plan(torch, proto, cfg, sh, G, device, plan, spr=None):
-    """Boot ``proto`` at ``G`` groups and run the windows of ``plan``,
-    ``(ticks, alive, override)`` each (``override`` applies ``spr``).
-    Returns the engine, the final netstate, each window's ``(state,
-    last-tick effects)`` and the wall seconds of window 1, the timed
-    healthy window."""
-    eng = make_engine(proto, cfg, sh, G, device)
+def drive_plan(torch, eng, plan, P):
+    """Boot ``eng`` and run the windows of ``plan`` back to back: dicts of
+    ``ticks`` and ``run_window`` keywords.  Returns each window's
+    ``(state, netstate, last-tick extras, wall seconds)``."""
     st, ns = eng.init()
-    out, t0, dt = [], 0, 0.0
-    for i, (ticks, alive, override) in enumerate(plan):
+    out, t0 = [], 0
+    for w in plan:
+        w = dict(w)
+        ticks = w.pop("ticks")
         torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        st, ns, fx = run_window(torch, eng, st, ns, t0, ticks, sh["P"], alive,
-                                spr if override else None)
+        a = time.perf_counter()
+        st, ns, fx = run_window(torch, eng, st, ns, t0, ticks, P, **w)
         torch.cuda.synchronize()
-        if i == 1:
-            dt = time.perf_counter() - w0
+        out.append((st, ns, fx, time.perf_counter() - a))
         t0 += ticks
-        out.append((st, fx))
-    return eng, ns, out, dt
+    return out
 
 
 # -------------------------------------------------------- codeword helpers --
@@ -662,22 +691,24 @@ def phase_craft(torch, np, card):
     down = (True, True, True, False, False)   # followers 3 and 4 paused
     # warm-up, timed healthy window, two followers paused past
     # alive_timeout (read at 24 and 40 ticks), resumed
-    plan = [(8, None, False), (40, None, False), (24, down, False),
-            (16, down, False), (32, None, False)]
+    plan = [dict(ticks=8), dict(ticks=40), dict(ticks=24, alive=down),
+            dict(ticks=16, alive=down), dict(ticks=32)]
     if cfg.alive_timeout >= 24:
         fail("craft: the pause must outlast alive_timeout")
 
     rs.bitslice_gf256.launches = 0
-    eng, ns, out, dt = drive_plan(torch, "craft", cfg, sh, sh["G"], DEV, plan)
-    st = out[-1][0]
+    eng = make_engine("craft", cfg, sh, sh["G"], DEV)
+    out = drive_plan(torch, eng, plan, P)
+    st, ns = out[-1][:2]
+    dt = out[1][3]   # the timed healthy window
     c_warm, c_healthy = committed(out[0][0]), committed(out[1][0])
     log(f"craft G={sh['G']} R={sh['R']} W={sh['W']} P={P} ft=1: "
-        f"{plan[1][0]} healthy ticks in {dt:.3f} s "
-        f"({dt / plan[1][0] * 1e3:.3f} ms/tick), "
+        f"{plan[1]['ticks']} healthy ticks in {dt:.3f} s "
+        f"({dt / plan[1]['ticks'] * 1e3:.3f} ms/tick), "
         f"{(c_healthy - c_warm) / dt:.1f} committed slots/s | {card}")
 
     def modes(k):
-        st_k, fx_k = out[k]
+        st_k, _, fx_k, _ = out[k]
         g, lead, slot = last_tick_slots(torch, st_k, fx_k, "log_end", P,
                                         "craft")
         return g, st_k["win_full"][g, lead, slot % sh["W"]]
@@ -722,12 +753,12 @@ def phase_craft(torch, np, card):
         f"rotating 3-of-5 subsets, bytes round-trip; bitslice_gf256 "
         f"launches on the craft path: {launches}")
 
-    _, cns, cout, _ = drive_plan(torch, "craft", cfg, sh, CPU_GROUPS, "cpu",
-                                 plan)
-    n = compare_groups(torch, (st, ns), (cout[-1][0], cns), CPU_GROUPS,
-                       "craft")
+    cout = drive_plan(torch, make_engine("craft", cfg, sh, CPU_GROUPS, "cpu"),
+                      plan, P)
+    n = compare_groups(torch, (st, ns), cout[-1][:2], CPU_GROUPS, "craft")
     log(f"craft: first {CPU_GROUPS} groups equal the CPU run over "
-        f"{sum(w[0] for w in plan)} ticks ({n} state leaves + netstate)")
+        f"{sum(w['ticks'] for w in plan)} ticks ({n} state leaves + "
+        f"netstate)")
     profile_ticks(torch, eng, st, ns, PROFILE_TICKS, P, "craft", card)
     kernel_numbers(torch, rs, code, data, card, "craft")
     return {"launches": launches, "max_abs_err": max(e_enc, e_dec)}
@@ -750,25 +781,26 @@ def phase_crossword(torch, np, card):
     )
     T, dj, d = 5, 1, 3
     # warm-up, timed healthy window, odd groups at spr_override=2
-    plan = [(8, None, False), (40, None, False), (32, None, True)]
-
-    def odd(G):
-        return (torch.arange(G, dtype=torch.int32) % 2) * 2   # 0 / 2
+    def plan(G):
+        odd = (torch.arange(G, dtype=torch.int32) % 2) * 2   # 0 / 2
+        return [dict(ticks=8), dict(ticks=40), dict(ticks=32, spr=odd)]
 
     rs.bitslice_gf256.launches = 0
-    eng, ns, out, dt = drive_plan(torch, "crossword", cfg, sh, sh["G"], DEV,
-                                  plan, odd(sh["G"]))
-    st = out[-1][0]
+    eng = make_engine("crossword", cfg, sh, sh["G"], DEV)
+    windows = plan(sh["G"])
+    out = drive_plan(torch, eng, windows, P)
+    st, ns = out[-1][:2]
+    dt = out[1][3]   # the timed healthy window
     c_warm, c_healthy = committed(out[0][0]), committed(out[1][0])
     log(f"crossword G={sh['G']} R={R} W={W} P={P} ft=1 T={T}: "
-        f"{plan[1][0]} healthy ticks in {dt:.3f} s "
-        f"({dt / plan[1][0] * 1e3:.3f} ms/tick), "
+        f"{windows[1]['ticks']} healthy ticks in {dt:.3f} s "
+        f"({dt / windows[1]['ticks'] * 1e3:.3f} ms/tick), "
         f"{(c_healthy - c_warm) / dt:.1f} committed slots/s | {card}")
     if committed(st) <= c_healthy:
         fail("crossword: commits did not advance under the override")
 
     # each last-tick value's width, read from its leader's win_spr
-    g, lead, slot = last_tick_slots(torch, st, out[-1][1], "next_slot", P,
+    g, lead, slot = last_tick_slots(torch, st, out[-1][2], "next_slot", P,
                                     "crossword")
     spr = st["win_spr"][g, lead, slot % W]
     want = torch.where(g % 2 == 1, 2, 1).to(torch.int32)
@@ -829,15 +861,229 @@ def phase_crossword(torch, np, card):
         f"bytes round-trip; 4 values through CodewordStore; "
         f"bitslice_gf256 launches on the crossword path: {launches}")
 
-    _, cns, cout, _ = drive_plan(torch, "crossword", cfg, sh, CPU_GROUPS,
-                                 "cpu", plan, odd(CPU_GROUPS))
-    n = compare_groups(torch, (st, ns), (cout[-1][0], cns), CPU_GROUPS,
+    cout = drive_plan(torch, make_engine("crossword", cfg, sh, CPU_GROUPS,
+                                         "cpu"), plan(CPU_GROUPS), P)
+    n = compare_groups(torch, (st, ns), cout[-1][:2], CPU_GROUPS,
                        "crossword")
     log(f"crossword: first {CPU_GROUPS} groups equal the CPU run over "
-        f"{sum(w[0] for w in plan)} ticks ({n} state leaves + netstate)")
+        f"{sum(w['ticks'] for w in windows)} ticks ({n} state leaves + "
+        f"netstate)")
     profile_ticks(torch, eng, st, ns, PROFILE_TICKS, P, "crossword", card)
     kernel_numbers(torch, rs, code, data, card, "crossword")
     return {"launches": launches, "max_abs_err": max(e_enc, e_dec)}
+
+
+# ------------------- phases 8-10: the lease planes and the basic kernels --
+def timed_line(what, sh, out, card):
+    """ms/tick and committed slots/s of window 1, the timed window."""
+    ticks, dt = TIMED_TICKS, out[1][3]
+    rate = (committed(out[1][0]) - committed(out[0][0])) / dt
+    if rate <= 0:
+        fail(f"{what}: commits did not advance in the timed window")
+    log(f"{what} G={sh['G']} R={sh['R']} W={sh['W']} P={sh['P']}: "
+        f"{ticks} ticks in {dt:.3f} s ({dt / ticks * 1e3:.3f} ms/tick), "
+        f"{rate:.1f} committed slots/s | {card}")
+
+
+def lease_plane_check(torch, proto, cfg, sh, plan, card):
+    """Run ``plan`` on the card at full width and on the CPU at
+    ``CPU_GROUPS`` groups; the first groups must be equal.  Returns the
+    card engine and its windows."""
+    eng = make_engine(proto, cfg, sh, sh["G"], DEV)
+    out = drive_plan(torch, eng, plan, sh["P"])
+    cpu = drive_plan(torch, make_engine(proto, cfg, sh, CPU_GROUPS, "cpu"),
+                   plan, sh["P"])
+    n = compare_groups(torch, out[-1][:2], cpu[-1][:2], CPU_GROUPS, proto)
+    log(f"{proto}: first {CPU_GROUPS} groups equal the CPU run over "
+        f"{sum(w['ticks'] for w in plan)} ticks ({n} state leaves + "
+        f"netstate)")
+    return eng, out
+
+
+def phase_quorum_leases(torch, card):
+    from summerset_tpu_torch.protocols.quorum_leases import (
+        ReplicaConfigQuorumLeases,
+    )
+
+    log("== phase 8: QuorumLeases at the bench shape, conf via the log, "
+        "write barrier")
+    sh = QL_SHAPE
+    P = sh["P"]
+    cfg = ReplicaConfigQuorumLeases(
+        max_proposals_per_tick=P, chunk_size=2 * P,
+        exec_follows_commit=False,
+    )
+    conf = {"conf_target": QL_RESP}
+    down2 = (True, True, False, True, True)
+    # warm-up (the conf is proposed through the log), the timed window,
+    # responder 2 paused: the barrier stalls, then lifts once its lease
+    # and the margin have lapsed
+    plan = [dict(ticks=8, extra=conf), dict(ticks=TIMED_TICKS, extra=conf),
+            dict(ticks=8, alive=down2, extra=conf),
+            dict(ticks=QL_RELEASE_TICKS, alive=down2, extra=conf)]
+    eng, out = lease_plane_check(torch, "quorumleases", cfg, sh, plan, card)
+    timed_line("quorumleases", sh, out, card)
+
+    st, _, fx, _ = out[1]
+    if not bool((st["conf_cur"] == QL_RESP).all()):
+        fail("quorumleases: conf {1, 2} not applied on every replica")
+    held, reads = fx["lease_held"], fx["leader_read_ok"]
+    if not bool(held[:, 1:3].all()) or bool(held[:, [0, 3, 4]].any()):
+        fail("quorumleases: leases not held on exactly replicas 1 and 2")
+    if not bool(reads[:, 0].all()) or bool(reads[:, 1:].any()):
+        fail("quorumleases: leader reads not on replica 0 only")
+    log(f"quorumleases: conf_cur == {QL_RESP:#07b} on every replica, "
+        f"lease_held on replicas 1 and 2 and leader_read_ok on replica 0 "
+        f"only, in all {sh['G']} groups")
+
+    pre = out[1][0]["commit_bar"][:, 0]
+    mid = out[2][0]["commit_bar"][:, 0]
+    fin = out[3][0]["commit_bar"][:, 0]
+    if not bool((mid - pre <= 2 * P).all()):
+        fail("quorumleases: commits ran past the paused responder's lease")
+    if not bool((fin - mid > 10 * P).all()):
+        fail("quorumleases: the write barrier did not lift")
+    log(f"quorumleases: replica 2 paused: leader commit_bar rose "
+        f"{int((mid - pre).min())}..{int((mid - pre).max())} slots in 8 "
+        f"ticks (<= {2 * P}), then {int((fin - mid).min())}.."
+        f"{int((fin - mid).max())} in the next {QL_RELEASE_TICKS} "
+        f"(> {10 * P}), in all {sh['G']} groups")
+    profile_ticks(torch, eng, out[1][0], out[1][1], PROFILE_TICKS, P,
+                  "quorumleases", card)
+
+
+def phase_bodega(torch, card):
+    from summerset_tpu_torch.protocols.bodega import ReplicaConfigBodega
+
+    log("== phase 9: Bodega at the bench shape, roster, per-bucket change, "
+        "leader failover")
+    sh = BO_SHAPE
+    P, G, K = sh["P"], sh["G"], 8
+    cfg = ReplicaConfigBodega(
+        max_proposals_per_tick=P, chunk_size=2 * P,
+        exec_follows_commit=False, num_key_buckets=K,
+    )
+    bal0 = 1 << 8            # the warm-start roster's ballot (leader 0)
+
+    def announce(resp, bucket, ticks):
+        """Replica 0 announces leader 0 and ``resp`` on ``bucket`` (-1 =
+        every bucket) on the window's first tick."""
+        return {"conf_init": [0] + [-1] * (ticks - 1),
+                "conf_leader_target": 0, "conf_resp_target": resp,
+                "conf_bucket": bucket}
+
+    down0 = (False, True, True, True, True)
+    # roster announce, the timed window, writes drained, bucket 3 moved to
+    # {3, 4}, replica 0 paused past conf_timeout
+    plan = [dict(ticks=8, extra=announce(BO_RESP, -1, 8)),
+            dict(ticks=TIMED_TICKS), dict(ticks=16, n_prop=0),
+            dict(ticks=24, extra=announce(BO_RESP3, 3, 24)),
+            dict(ticks=BO_FAILOVER_TICKS, alive=down0)]
+    eng, out = lease_plane_check(torch, "bodega", cfg, sh, plan, card)
+    timed_line("bodega", sh, out, card)
+
+    st, _, fx, _ = out[1]
+    if not bool((st["conf_bal"] > bal0).all()):
+        fail("bodega: the announced roster is not installed everywhere")
+    if not bool((st["conf_resp"] == BO_RESP).all()) or not bool(
+            (st["conf_leader"] == 0).all()):
+        fail("bodega: installed roster differs from the announced one")
+    if not bool((st["lease_out"].amax(dim=(1, 2)) > 0).all()):
+        fail("bodega: a group has no config lease out")
+    if not bool(fx["stable_leader"][:, 0].all()):
+        fail("bodega: replica 0 is not a stable leader in every group")
+    nloc = out[2][2]["n_local_buckets"]
+    if not bool((nloc[:, 1:3] > 0).all()) or bool(nloc[:, [0, 3, 4]].any()):
+        fail("bodega: local reads not served on exactly responders 1, 2")
+    log(f"bodega: roster {BO_RESP:#07b} installed at conf_bal "
+        f"{int(st['conf_bal'].min())}..{int(st['conf_bal'].max())} on every "
+        f"replica, config leases out, replica 0 stable leader; writes "
+        f"drained: n_local_buckets on responders 1, 2 min "
+        f"{int(nloc[:, 1:3].min())} of {K}, in all {G} groups")
+
+    st3 = out[3][0]
+    resp = st3["conf_resp"]
+    want = torch.full((K,), BO_RESP, dtype=torch.int32, device=resp.device)
+    want[3] = BO_RESP3
+    if not bool((resp == want).all()) or not bool(
+            (st3["conf_bal"] > st["conf_bal"]).all()):
+        fail("bodega: the per-bucket change is not installed everywhere")
+    log(f"bodega: bucket 3 -> {BO_RESP3:#07b}, the other buckets "
+        f"{BO_RESP:#07b}, on every replica of all {G} groups")
+
+    st4 = out[4][0]
+    lead = st4["conf_leader"][:, 1:]
+    if not bool((lead != 0).all()) or not bool(
+            (st4["conf_bal"][:, 1:] > st3["conf_bal"][:, 1:]).all()):
+        fail("bodega: no higher-ballot conf named a new leader")
+    if not bool((lead == lead[:, :1]).all()):
+        fail("bodega: the live replicas of a group name different leaders")
+    before = st3["commit_bar"][:, 1:].amax(dim=1)
+    after = st4["commit_bar"][:, 1:].amax(dim=1)
+    if not bool((after > before).all()):
+        fail("bodega: commits stopped after the leader paused")
+    log(f"bodega: replica 0 paused {BO_FAILOVER_TICKS} ticks: every "
+        f"group's live replicas name one new conf leader (leaders "
+        f"{sorted(set(lead[:, 0].tolist()))}) at a higher ballot, live "
+        f"commit_bar "
+        f"+{int((after - before).min())}..+{int((after - before).max())}, "
+        f"in all {G} groups")
+    profile_ticks(torch, eng, out[1][0], out[1][1], PROFILE_TICKS, P,
+                  "bodega", card)
+
+
+def phase_basic(torch, card):
+    from summerset_tpu_torch.protocols.chain_rep import ReplicaConfigChainRep
+    from summerset_tpu_torch.protocols.rep_nothing import (
+        ReplicaConfigRepNothing,
+    )
+    from summerset_tpu_torch.protocols.simple_push import (
+        ReplicaConfigSimplePush,
+    )
+
+    log("== phase 10: ChainRep, SimplePush and RepNothing")
+    sh = BASIC_SHAPE
+    P, G = sh["P"], sh["G"]
+    cfgs = {
+        "chainrep": ReplicaConfigChainRep(max_proposals_per_tick=P,
+                                          chunk_size=2 * P),
+        "simplepush": ReplicaConfigSimplePush(max_proposals_per_tick=P,
+                                              chunk_size=2 * P),
+        "repnothing": ReplicaConfigRepNothing(max_proposals_per_tick=P),
+    }
+    for proto, cfg in cfgs.items():
+        eng = make_engine(proto, cfg, sh, G, DEV)
+        st, ns = eng.init()
+        st, ns = eng.run_synthetic(st, ns, 8, P)  # warm-up
+        torch.cuda.synchronize()
+        c0 = committed(st)
+        t0 = time.perf_counter()
+        st, ns = eng.run_synthetic(st, ns, TIMED_TICKS, P)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        cb = st["commit_bar"]
+        if not bool((cb.amax(dim=1) > 0).all()) or committed(st) <= c0:
+            fail(f"{proto}: commits did not advance in every group")
+        if proto == "chainrep" and not bool(
+                ((cb[:, 0] > 0) & (cb[:, 0] <= cb[:, -1])).all()):
+            fail("chainrep: the tail's acks did not ripple back to the head")
+        if proto == "simplepush" and not bool((cb > 0).all()):
+            fail("simplepush: a pushed peer committed nothing")
+        if proto == "repnothing" and bool(cb[:, 1:].any()):
+            fail("repnothing: a non-serving replica committed")
+        log(f"{proto} G={G} R={sh['R']} W={sh['W']} P={P}: {TIMED_TICKS} "
+            f"ticks in {dt:.3f} s ({dt / TIMED_TICKS * 1e3:.3f} ms/tick), "
+            f"{(committed(st) - c0) / dt:.1f} committed slots/s, head/tail "
+            f"commit_bar min {int(cb[:, 0].min())}/{int(cb[:, -1].min())} "
+            f"| {card}")
+        card_run = drive(torch, make_engine(proto, cfg, sh, G, DEV),
+                         TIMED_TICKS, P)
+        cpu_run = drive(torch, make_engine(proto, cfg, sh, CPU_GROUPS,
+                                           "cpu"), TIMED_TICKS, P)
+        n = compare_groups(torch, card_run[:2], cpu_run[:2], CPU_GROUPS,
+                           proto)
+        log(f"{proto}: first {CPU_GROUPS} groups equal the CPU run over "
+            f"{TIMED_TICKS} ticks ({n} state leaves + netstate)")
 
 
 def main():
@@ -866,6 +1112,14 @@ def main():
              "crossword": phase_crossword(torch, np, card)}
     log("bitslice_gf256 launches by path: " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
+    from summerset_tpu_torch.ops import rscoding as rs
+
+    rs.bitslice_gf256.launches = 0
+    phase_quorum_leases(torch, card)
+    phase_bodega(torch, card)
+    phase_basic(torch, card)
+    log(f"bitslice_gf256 launches in phases 8-10 (no codeword plane): "
+        f"{rs.bitslice_gf256.launches}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "bitslice_gf256",

@@ -21,6 +21,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import prng
 from .quorum import tally_scope
 
@@ -55,7 +56,7 @@ class NetConfig:
 
 
 def _bool(a, device=None) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, bool), device=device)
+    return torch.as_tensor(np.asarray(a, bool), device=resolve_device(device))
 
 
 @dataclasses.dataclass
@@ -67,7 +68,9 @@ class ControlInputs:
     ``reset``:   [G, R] bool — True rebuilds the row from its durable
                  leaves at the start of the tick (device crash-restart).
 
-    The constructors return CPU tensors unless given ``device``.
+    The constructors build on ``device`` (default ``"cuda"``, as every
+    entry point of the port; they raise with no card unless the CPU is
+    asked for).
     """
 
     alive: Any = None
@@ -75,18 +78,16 @@ class ControlInputs:
     reset: Any = None
 
     @staticmethod
-    def all_up(G: int, R: int, device="cpu") -> "ControlInputs":
-        return ControlInputs(
-            alive=torch.ones((G, R), dtype=torch.bool, device=device),
-            link_up=torch.ones((G, R, R), dtype=torch.bool, device=device),
-        )
+    def all_up(G: int, R: int, device=None) -> "ControlInputs":
+        return ControlInputs(alive=_bool(np.ones((G, R)), device),
+                             link_up=_bool(np.ones((G, R, R)), device))
 
     @staticmethod
-    def links_all_up(G: int, R: int, device="cpu"):
-        return torch.ones((G, R, R), dtype=torch.bool, device=device)
+    def links_all_up(G: int, R: int, device=None):
+        return _bool(np.ones((G, R, R)), device)
 
     @staticmethod
-    def split_links(G: int, R: int, side, device="cpu"):
+    def split_links(G: int, R: int, side, device=None):
         """Symmetric partition between ``side`` and its complement."""
         a = np.zeros(R, bool)
         a[list(side)] = True
@@ -95,7 +96,7 @@ class ControlInputs:
         return _bool(link, device)
 
     @staticmethod
-    def isolate_links(G: int, R: int, *victims, device="cpu"):
+    def isolate_links(G: int, R: int, *victims, device=None):
         """Each victim alone (self-link kept), both directions."""
         v = np.zeros(R, bool)
         v[list(victims)] = True
@@ -105,7 +106,7 @@ class ControlInputs:
         return _bool(link, device)
 
     @staticmethod
-    def one_way_down(G: int, R: int, src: int, dst: int, device="cpu"):
+    def one_way_down(G: int, R: int, src: int, dst: int, device=None):
         """Messages ``src -> dst`` dropped; the reverse still delivers."""
         link = np.ones((G, R, R), bool)
         link[:, src, dst] = False
@@ -113,7 +114,7 @@ class ControlInputs:
 
     @staticmethod
     def skew_alive(G: int, R: int, ticks: int, rates: dict,
-                   offset: int = 0, device="cpu"):
+                   offset: int = 0, device=None):
         """Per-replica clock skew as duty-cycled ``[T, G, R]`` alive masks."""
         alive = np.ones((ticks, G, R), bool)
         t = np.arange(offset, offset + ticks, dtype=np.float64)

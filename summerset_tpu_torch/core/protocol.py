@@ -76,6 +76,9 @@ class ProtocolKernel:
     DURABLE_SCALARS = None   # tuple[str] of [G, R] tensors
     DURABLE_WINDOWS = None   # tuple[str] of [G, R, W] tensors
     VALUE_WINDOW = "win_val"
+    # step() inputs beyond n_proposals [G], value_base [G] and exec_floor
+    # [G, R], as (name, shape code): g=[G], gr=[G, R], grr=[G, R, R]
+    EXTRA_INPUTS: Tuple[Tuple[str, str], ...] = ()
 
     def restore_durable(self, st, g: int, me: int, rec: dict, floor: int):
         """Reinstate acceptor row ``(g, me)`` from the logged durable record

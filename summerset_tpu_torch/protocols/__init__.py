@@ -1,7 +1,7 @@
 """Vectorized protocol kernels + the protocol factory, counterpart of
 ``summerset_tpu/protocols/__init__.py``.  Only the ported protocols are
-registered; the other names the JAX package knows raise a ``ValueError``
-that says so.
+registered; a name the JAX package knows but the port does not run yet
+raises a ``ValueError`` that says so.
 """
 
 from typing import Dict, Type
@@ -11,10 +11,7 @@ from ..core.protocol import ProtocolKernel
 _REGISTRY: Dict[str, Type[ProtocolKernel]] = {}
 
 #: protocols the JAX package has that this port does not run yet
-NOT_PORTED = (
-    "bodega", "chainrep", "epaxos", "quorumleases", "repnothing",
-    "simplepush",
-)
+NOT_PORTED = ("epaxos",)
 
 
 def register_protocol(name: str):
@@ -51,3 +48,8 @@ from . import rspaxos  # noqa: E402,F401
 from . import raft  # noqa: E402,F401
 from . import craft  # noqa: E402,F401
 from . import crossword  # noqa: E402,F401
+from . import quorum_leases  # noqa: E402,F401
+from . import bodega  # noqa: E402,F401
+from . import chain_rep  # noqa: E402,F401
+from . import simple_push  # noqa: E402,F401
+from . import rep_nothing  # noqa: E402,F401

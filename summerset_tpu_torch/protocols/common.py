@@ -18,6 +18,7 @@ from ..core.quorum import quorum_frontier
 NULL_VAL = 0      # reserved value id: no-op filler
 NO_SLOT = -1      # empty window position marker
 I32_MAX = (1 << 31) - 1
+INF = 1 << 30     # frontier-min sentinel of the JAX kernels (a state value)
 
 
 # ----------------------------------------------------------------- ballots --
@@ -56,6 +57,13 @@ def first_argmax(x: torch.Tensor, best: torch.Tensor, dim: int):
     idx = arange32(n, x.device).reshape(shape)
     hit = x == best.unsqueeze(dim)
     return torch.where(hit, idx, n).amin(dim=dim)
+
+
+def first_true(mask: torch.Tensor, dim: int):
+    """Index of the first True of a bool tensor along ``dim``, 0 where
+    there is none: ``jnp.argmax`` on a bool lane."""
+    m = mask.to(torch.int32)
+    return first_argmax(m, m.amax(dim=dim), dim)
 
 
 def best_by_ballot(flags, bit: int, bal_field):

@@ -42,6 +42,7 @@ class CrosswordKernel(RSPaxosKernel):
 
     # the voted value's assignment width is voted content
     DURABLE_WINDOWS = RSPaxosKernel.DURABLE_WINDOWS + ("win_spr",)
+    EXTRA_INPUTS = RSPaxosKernel.EXTRA_INPUTS + (("spr_override", "g"),)
 
     def __init__(
         self,

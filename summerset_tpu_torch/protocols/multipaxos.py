@@ -86,6 +86,7 @@ class MultiPaxosKernel(ProtocolKernel):
 
     DURABLE_SCALARS = ("bal_max", "vote_bal", "vote_from", "vote_bar")
     DURABLE_WINDOWS = ("win_abs", "win_bal", "win_val")
+    EXTRA_INPUTS: Tuple[Tuple[str, str], ...] = (("demote", "gr"),)
 
     def restore_durable(self, st, g, me, rec, floor):
         """Reinstate our acceptor row from the last logged record."""

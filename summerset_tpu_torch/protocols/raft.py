@@ -87,6 +87,7 @@ class RaftKernel(ProtocolKernel):
 
     DURABLE_SCALARS = ("term", "voted_for", "log_end", "last_term")
     DURABLE_WINDOWS = ("win_abs", "win_term", "win_val")
+    EXTRA_INPUTS: Tuple[Tuple[str, str], ...] = (("demote", "gr"),)
 
     def restore_durable(self, st, g, me, rec, floor):
         """Reinstate our row from the last logged term/vote metadata and

@@ -254,15 +254,16 @@ def test_netmodel_pop_push_digests(net, proto, tally):
 
 def test_control_input_factories():
     for t, j in [
-        (tnet.ControlInputs.split_links(G, R, [0, 1]),
+        (tnet.ControlInputs.split_links(G, R, [0, 1], device="cpu"),
          jnet.ControlInputs.split_links(G, R, [0, 1])),
-        (tnet.ControlInputs.isolate_links(G, R, 2, 4),
+        (tnet.ControlInputs.isolate_links(G, R, 2, 4, device="cpu"),
          jnet.ControlInputs.isolate_links(G, R, 2, 4)),
-        (tnet.ControlInputs.one_way_down(G, R, 1, 3),
+        (tnet.ControlInputs.one_way_down(G, R, 1, 3, device="cpu"),
          jnet.ControlInputs.one_way_down(G, R, 1, 3)),
-        (tnet.ControlInputs.skew_alive(G, R, 9, {1: 0.5, 3: 0.25}, offset=2),
+        (tnet.ControlInputs.skew_alive(G, R, 9, {1: 0.5, 3: 0.25}, offset=2,
+                                       device="cpu"),
          jnet.ControlInputs.skew_alive(G, R, 9, {1: 0.5, 3: 0.25}, offset=2)),
-        (tnet.ControlInputs.links_all_up(G, R),
+        (tnet.ControlInputs.links_all_up(G, R, device="cpu"),
          jnet.ControlInputs.links_all_up(G, R)),
     ]:
         _eq(t, j)

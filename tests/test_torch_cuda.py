@@ -1,5 +1,6 @@
 """The port on the card: the GF(2^8) CUDA kernel against its plain PyTorch
-version, and the card's engine and codec against the port on the CPU.
+version, and the card's engine (every ported protocol) and codec against
+the port on the CPU.
 
 Every test here needs an NVIDIA card and ``nvcc`` and skips elsewhere.
 The file imports neither ``jax`` nor the JAX package, so it also runs on a
@@ -26,11 +27,18 @@ from summerset_tpu_torch.core import Engine, NetConfig
 from summerset_tpu_torch.host.codeword import CodewordStore
 from summerset_tpu_torch.ops import rscoding as trs
 from summerset_tpu_torch.protocols import make_protocol
+from summerset_tpu_torch.protocols.bodega import ReplicaConfigBodega
+from summerset_tpu_torch.protocols.chain_rep import ReplicaConfigChainRep
 from summerset_tpu_torch.protocols.craft import ReplicaConfigCRaft
 from summerset_tpu_torch.protocols.crossword import ReplicaConfigCrossword
 from summerset_tpu_torch.protocols.multipaxos import ReplicaConfigMultiPaxos
+from summerset_tpu_torch.protocols.quorum_leases import (
+    ReplicaConfigQuorumLeases,
+)
 from summerset_tpu_torch.protocols.raft import ReplicaConfigRaft
+from summerset_tpu_torch.protocols.rep_nothing import ReplicaConfigRepNothing
 from summerset_tpu_torch.protocols.rspaxos import ReplicaConfigRSPaxos
+from summerset_tpu_torch.protocols.simple_push import ReplicaConfigSimplePush
 
 SUBSETS = list(itertools.combinations(range(5), 3))
 
@@ -157,6 +165,63 @@ def test_engine_on_card_matches_cpu(proto, cuda_device):
         out = []
         for w in range(3):
             st, ns, fx = eng.run_ticks(st, ns, _window(G, R, P, T, w),
+                                       collect=True)
+            out.append(_digest({"state": to_numpy(st), "net": to_numpy(ns),
+                                "commit": fx.commit_bar.cpu().numpy(),
+                                "extra": to_numpy(fx.extra)}))
+        assert int(st["commit_bar"].max()) > 0
+        digests[str(dev)] = out
+    assert digests["cpu"] == digests[str(cuda_device)]
+
+
+SLICE3 = {
+    "quorumleases": ReplicaConfigQuorumLeases,
+    "bodega": functools.partial(ReplicaConfigBodega, conf_timeout=12),
+    "chainrep": ReplicaConfigChainRep,
+    "simplepush": functools.partial(ReplicaConfigSimplePush, rep_degree=2),
+    "repnothing": ReplicaConfigRepNothing,
+}
+
+
+def _slice3_window(G, R, P, T, w):
+    """Proposals every tick, a conf change in window 0 (QuorumLeases'
+    target {1, 2}; Bodega's roster announced by replica 0 at tick 0),
+    replica 2 paused for ticks 20..27, replica 1 reset in window 1."""
+    seq = _window(G, R, P, T, w)
+    abs_t = w * T + np.arange(T)
+    alive = np.ones((T, G, R), bool)
+    alive[(abs_t >= 20) & (abs_t < 28), :, 2] = False
+    seq["alive"] = alive
+    seq["reset"] = np.zeros((T, G, R), bool)
+    if w == 1:
+        seq["reset"][5, :, 1] = True
+    seq["conf_target"] = np.full((T, G), 0b00110, np.int32)
+    seq["conf_init"] = np.where(abs_t == 0, 0, -1)[:, None].repeat(
+        G, axis=1).astype(np.int32)
+    seq["conf_leader_target"] = np.zeros((T, G), np.int32)
+    seq["conf_resp_target"] = np.full((T, G), 0b00110, np.int32)
+    seq["conf_bucket"] = np.full((T, G), -1, np.int32)
+    return seq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proto", sorted(SLICE3))
+def test_slice3_kernels_on_card_match_cpu(proto, cuda_device):
+    """QuorumLeases, Bodega, ChainRep, SimplePush and RepNothing on the
+    card against the port on the CPU at G=8 on the jittered, lossy D=3
+    line, with a pause, a reset and a conf change."""
+    G, R, W, P, T = 8, 5, 32, 4, 16
+    net = NetConfig(delay_ticks=1, jitter_ticks=1, drop_rate=0.05,
+                    max_delay_ticks=3)
+    digests = {}
+    for dev in ("cpu", cuda_device):
+        cfg = SLICE3[proto](max_proposals_per_tick=P)
+        eng = Engine(make_protocol(proto, G, R, W, cfg, device=dev),
+                     netcfg=net, seed=7, device=dev)
+        st, ns = eng.init()
+        out = []
+        for w in range(3):
+            st, ns, fx = eng.run_ticks(st, ns, _slice3_window(G, R, P, T, w),
                                        collect=True)
             out.append(_digest({"state": to_numpy(st), "net": to_numpy(ns),
                                 "commit": fx.commit_bar.cpu().numpy(),

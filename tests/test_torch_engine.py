@@ -248,7 +248,7 @@ def test_lease_margin_refusal_and_unported_paths():
                device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine(tk, mesh=object(), device="cpu")
-    for name in ("epaxos", "QuorumLeases", "bodega", "chainrep"):
+    for name in ("epaxos", "EPaxos"):
         with pytest.raises(ValueError, match="not ported"):
             tmake(name, G, R, W, device="cpu")
     with pytest.raises(ValueError, match="unrecognized"):

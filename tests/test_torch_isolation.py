@@ -48,6 +48,11 @@ def test_port_and_chip_smoke_import_no_jax():
               "summerset_tpu_torch.protocols.raft",
               "summerset_tpu_torch.protocols.craft",
               "summerset_tpu_torch.protocols.crossword",
+              "summerset_tpu_torch.protocols.quorum_leases",
+              "summerset_tpu_torch.protocols.bodega",
+              "summerset_tpu_torch.protocols.chain_rep",
+              "summerset_tpu_torch.protocols.simple_push",
+              "summerset_tpu_torch.protocols.rep_nothing",
               "summerset_tpu_torch.host.codeword",
               "summerset_tpu_torch.core.engine",
               "summerset_tpu_torch.entry"):
@@ -65,7 +70,7 @@ def test_chip_smoke_refuses_without_a_card():
 
 def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     from summerset_tpu_torch.convert import to_torch
-    from summerset_tpu_torch.core import Engine
+    from summerset_tpu_torch.core import ControlInputs, Engine
     from summerset_tpu_torch.entry import entry
     from summerset_tpu_torch.host.codeword import CodewordStore
     from summerset_tpu_torch.ops.rscoding import RSCode
@@ -81,6 +86,17 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         lambda: make_protocol("raft", 2, 5, 32),
         lambda: make_protocol("craft", 2, 5, 32),
         lambda: make_protocol("crossword", 2, 5, 32),
+        lambda: make_protocol("quorumleases", 2, 5, 32),
+        lambda: make_protocol("bodega", 2, 5, 32),
+        lambda: make_protocol("chainrep", 2, 5, 32),
+        lambda: make_protocol("simplepush", 2, 5, 32),
+        lambda: make_protocol("repnothing", 2, 5, 32),
+        lambda: ControlInputs.all_up(2, 5),
+        lambda: ControlInputs.links_all_up(2, 5),
+        lambda: ControlInputs.split_links(2, 5, [0, 1]),
+        lambda: ControlInputs.isolate_links(2, 5, 2),
+        lambda: ControlInputs.one_way_down(2, 5, 1, 3),
+        lambda: ControlInputs.skew_alive(2, 5, 4, {1: 0.5}),
         lambda: RSCode(3, 2),
         lambda: CodewordStore(2, code, total=5),
         lambda: entry(),
@@ -91,3 +107,5 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     # with the CPU asked for explicitly, everything builds there
     eng = Engine(kernel, device="cpu")
     assert eng.init()[0]["commit_bar"].device.type == "cpu"
+    assert ControlInputs.all_up(2, 3, device="cpu").alive.device.type == \
+        "cpu"
