@@ -59,8 +59,25 @@ before printing any result.  Phases, each printed as it runs:
 10. basic  — ChainRep, SimplePush and RepNothing 4096 x 5 through
              ``run_synthetic``: commits in every group, ChainRep's tail acks
              back at the head, CPU check, one timing line each.
+11. epaxos — EPaxos at 1024 groups x 5 (``BASELINE.json:11``), W=128,
+             P=32, 8 key buckets, default timeouts: (a) the device-exec
+             path, 8 warm-up ticks then a timed window of 64: every row's
+             ``cmt_row`` and ``exec_row`` advance at every replica, and
+             committed instances agree across replicas (val/seq/noop/deps,
+             checked on the card); (b) replica 0 paused past
+             ``alive_timeout``: every survivor commits row 0 up to the
+             survivors' max ``ext_row``, rows 1-4 keep committing, row-0
+             instances committed before the pause keep their values; (c)
+             the host-exec path (``exec_follows_commit=False``) at 64
+             groups, with rotating ``prop_replica``, ``prop_vids`` minted
+             per bucket as ``host/server.py`` mints them, and one port
+             ``EPaxosExecutor`` per (group, replica) feeding
+             ``exec_floor_rows``: per-bucket apply orders agree across
+             replicas and ``exec_row`` follows the floors; (d) the first 64
+             groups of (a)+(b), and all of (c), equal a CPU run; (e) the
+             profile window and the phase's peak device memory.
 Phases 4, 6 and 7 each count their own kernel launches and fail on none;
-phases 8-10 run no codeword plane and launch no hand kernel.
+phases 8-11 run no codeword plane and launch no hand kernel.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -82,6 +99,11 @@ CW_SHAPE = dict(G=1024, R=5, W=128, P=32)
 QL_SHAPE = dict(G=4096, R=5, W=128, P=32)
 BO_SHAPE = dict(G=4096, R=5, W=128, P=32)
 BASIC_SHAPE = dict(G=4096, R=5, W=128, P=32)
+EP_SHAPE = dict(G=1024, R=5, W=128, P=32, K=8)
+EP_PAUSE_TICKS = 150     # replica 0 paused: past alive_timeout to recovery
+EP_HOST_GROUPS = 64      # the host-exec part (a Python executor per replica)
+EP_HOST_TICKS = 40
+EP_HOST_DRAIN = 8        # last host-exec ticks propose nothing
 QL_RESP = 0b00110        # QuorumLeases responders {1, 2}
 QL_RELEASE_TICKS = 60    # responder 2 paused: ticks until the barrier lifts
 BO_RESP = 0b00110        # Bodega roster responders {1, 2} on every bucket
@@ -1086,6 +1108,221 @@ def phase_basic(torch, card):
             f"{TIMED_TICKS} ticks ({n} state leaves + netstate)")
 
 
+# ----------------------------------------------------- phase 11: EPaxos --
+def ep_instances(st):
+    """Committed instances: per group and row, the furthest replica's
+    contiguous committed frontier, summed."""
+    return int(st["cmt_row"].amax(dim=1).sum())
+
+
+def ep_agreement(st, what):
+    """Wherever two replicas hold the same (row, col) as COMMITTED, its
+    value, seq, no-op mark and deps are equal (checked on the device).
+    Returns the number of (pair, instance) comparisons."""
+    from summerset_tpu_torch.protocols.epaxos import COMMITTED
+
+    cm = st["st2"] == COMMITTED                      # [G, R, row, W]
+    R = cm.shape[1]
+    n = 0
+    for a in range(R):
+        for b in range(a + 1, R):
+            both = cm[:, a] & cm[:, b] & (st["abs2"][:, a] == st["abs2"][:, b])
+            for k in ("val2", "seq2", "noop2"):
+                if bool((both & (st[k][:, a] != st[k][:, b])).any()):
+                    fail(f"{what}: replicas {a}, {b} committed different "
+                         f"{k} for one instance")
+            dd = (st["deps2"][:, a] != st["deps2"][:, b]).any(dim=-1)
+            if bool((both & dd).any()):
+                fail(f"{what}: replicas {a}, {b} committed different deps")
+            n += int(both.sum())
+    return n
+
+
+class EPaxosHost:
+    """The host side of EPaxos serving, as ``host/server.py`` runs it, for
+    every (group, replica) of a lockstep engine: the proposing replica
+    rotates with the tick and mints one vid per proposed key bucket in the
+    residue class ``bucket + K * me (mod K * R)``, with the window space
+    read from the previous tick's ``exec_row`` (``server.py:2020-2063``);
+    each (group, replica) runs its own ``EPaxosExecutor``, whose floors
+    are that replica's row of ``exec_floor_rows`` (``:2585-2595``)."""
+
+    def __init__(self, np, G, R, W, P, K, seed):
+        from summerset_tpu_torch.host.epaxos_exec import EPaxosExecutor
+
+        self.np, self.G, self.R, self.W, self.P, self.K = np, G, R, W, P, K
+        self.rng = np.random.default_rng(seed)
+        self.next_vid = [1] * G
+        self.applied = {(g, r): [] for g in range(G) for r in range(R)}
+        self.execs = {
+            (g, r): EPaxosExecutor(R, W, self._rec(g, r))
+            for g in range(G) for r in range(R)
+        }
+
+    def _rec(self, g, r):
+        out = self.applied[(g, r)]
+        return lambda row, col, vid, noop: out.append(
+            (row, col, int(vid), bool(noop)))
+
+    def inputs(self, sn, t, propose):
+        np, G, R, W, P, K = self.np, self.G, self.R, self.W, self.P, self.K
+        me = t % R
+        pv = np.zeros((G, P), np.int32)
+        n = np.zeros(G, np.int32)
+        for g in range(G if propose else 0):
+            # the buckets with requests pending this tick
+            take = self.rng.permutation(K)[:int(self.rng.integers(1, K + 1))]
+            space = max(0, int(sn["exec_row"][g, me, me]) + W
+                        - int(sn["own_next"][g, me]))
+            for i, b in enumerate(take[:min(P, space)]):
+                vid = self.next_vid[g]
+                vid += (int(b) + K * me - vid) % (K * R)
+                self.next_vid[g] = vid + 1
+                pv[g, i] = vid
+                n[g] = i + 1
+        floors = np.zeros((G, R, R), np.int32)
+        for (g, r), ex in self.execs.items():
+            floors[g, r] = ex.floor
+        return {"n_proposals": n, "value_base": pv[:, 0].copy(),
+                "prop_replica": np.full(G, me, np.int32), "prop_vids": pv,
+                "exec_floor_rows": floors}
+
+    def advance(self, sn):
+        for (g, r), ex in self.execs.items():
+            ex.advance(sn["abs2"][g, r], sn["st2"][g, r], sn["seq2"][g, r],
+                       sn["val2"][g, r], sn["noop2"][g, r],
+                       sn["deps2"][g, r], sn["cmt_row"][g, r])
+
+
+def ep_host_run(np, cfg, sh, device):
+    """The host-exec path for ``EP_HOST_TICKS`` ticks at ``EP_HOST_GROUPS``
+    groups.  Checks that ``exec_row`` equals the floors fed in every tick;
+    returns the state, netstate, the host side and the wall seconds."""
+    G, R, W, P, K = EP_HOST_GROUPS, sh["R"], sh["W"], sh["P"], sh["K"]
+    eng = make_engine("epaxos", cfg, sh, G, device)
+    host = EPaxosHost(np, G, R, W, P, K, SEED + 11)
+    keys = ("abs2", "st2", "seq2", "val2", "noop2", "deps2", "cmt_row",
+            "exec_row", "own_next")
+    st, ns = eng.init()
+    sn = {k: st[k].cpu().numpy() for k in keys}
+    t0 = time.perf_counter()
+    for t in range(EP_HOST_TICKS):
+        inp = host.inputs(sn, t, t < EP_HOST_TICKS - EP_HOST_DRAIN)
+        st, ns, _ = eng.tick(st, ns, inp)
+        sn = {k: st[k].cpu().numpy() for k in keys}
+        if not np.array_equal(sn["exec_row"], inp["exec_floor_rows"]):
+            fail(f"epaxos host-exec ({device}): exec_row does not follow "
+                 f"the executors' floors at tick {t}")
+        host.advance(sn)
+    return st, ns, host, time.perf_counter() - t0
+
+
+def phase_epaxos(torch, np, card):
+    from summerset_tpu_torch.protocols.epaxos import (
+        COMMITTED,
+        ReplicaConfigEPaxos,
+    )
+
+    log("== phase 11: EPaxos 1024x5, device exec, row failover, host exec")
+    sh = EP_SHAPE
+    G, R, W, P, K = sh["G"], sh["R"], sh["W"], sh["P"], sh["K"]
+    cfg = ReplicaConfigEPaxos(max_proposals_per_tick=P, num_key_buckets=K)
+    if EP_PAUSE_TICKS <= cfg.alive_timeout:
+        fail("epaxos: the pause must outlast alive_timeout")
+    torch.cuda.reset_peak_memory_stats()
+    down0 = (False, True, True, True, True)
+    plan = [dict(ticks=8), dict(ticks=TIMED_TICKS),
+            dict(ticks=EP_PAUSE_TICKS, alive=down0)]
+    eng = make_engine("epaxos", cfg, sh, G, DEV)
+    out = drive_plan(torch, eng, plan, P)
+    (st0, _, _, _), (st1, ns1, _, dt), (st2, ns2, _, _) = out
+
+    # (a) the device-exec path
+    if not bool((st1["cmt_row"] > st0["cmt_row"]).all()):
+        fail("epaxos: a row's cmt_row did not advance at some replica")
+    if not bool((st1["exec_row"] > st0["exec_row"]).all()):
+        fail("epaxos: a row's exec_row did not advance at some replica")
+    n_agree = ep_agreement(st1, "epaxos (a)")
+    rate = (ep_instances(st1) - ep_instances(st0)) / dt
+    log(f"epaxos G={G} R={R} W={W} P={P} K={K}: {TIMED_TICKS} ticks in "
+        f"{dt:.3f} s ({dt / TIMED_TICKS * 1e3:.3f} ms/tick), {rate:.1f} "
+        f"committed instances/s; cmt_row and exec_row advanced on every "
+        f"row at every replica; {n_agree} replica-pair instance agreements "
+        f"| {card}")
+
+    # (b) row failover
+    ext0 = st2["ext_row"][:, 1:, 0].amax(dim=1, keepdim=True)
+    if not bool((st2["cmt_row"][:, 1:, 0] >= ext0).all()):
+        fail("epaxos: a survivor did not commit row 0 up to the "
+             "survivors' ext_row")
+    if not bool((st2["cmt_row"][:, 1:, 1:] > st1["cmt_row"][:, 1:, 1:]).all()):
+        fail("epaxos: rows 1-4 stopped committing during the pause")
+    kept = 0
+    for r in range(1, R):
+        pre = (st1["st2"][:, r, 0] == COMMITTED)
+        post = (st2["st2"][:, r, 0] == COMMITTED) & (
+            st2["abs2"][:, r, 0] == st1["abs2"][:, r, 0])
+        both = pre & post
+        for k in ("val2", "seq2", "noop2"):
+            if bool((both & (st2[k][:, r, 0] != st1[k][:, r, 0])).any()):
+                fail(f"epaxos: a row-0 instance committed before the pause "
+                     f"changed its {k} at replica {r}")
+        kept += int(both.sum())
+    n_agree2 = ep_agreement(st2, "epaxos (b)")
+    recovered = int((st2["cmt_row"][:, 1:, 0] - st1["cmt_row"][:, 1:, 0])
+                    .amax(dim=1).sum())
+    log(f"epaxos: replica 0 paused {EP_PAUSE_TICKS} ticks: every survivor "
+        f"committed row 0 to the survivors' ext_row ({recovered} row-0 "
+        f"instances resolved by recovery), rows 1-4 kept committing, "
+        f"{kept} pre-pause row-0 commits unchanged, {n_agree2} agreements, "
+        f"in all {G} groups")
+
+    # (d) the first groups of (a)+(b) against the CPU
+    cpu = drive_plan(torch, make_engine("epaxos", cfg, sh, CPU_GROUPS, "cpu"),
+                     plan, P)
+    n = compare_groups(torch, (st2, ns2), cpu[-1][:2], CPU_GROUPS, "epaxos")
+    log(f"epaxos: first {CPU_GROUPS} groups equal the CPU run over "
+        f"{sum(w['ticks'] for w in plan)} ticks ({n} state leaves + "
+        f"netstate)")
+    profile_ticks(torch, eng, st1, ns1, PROFILE_TICKS, P, "epaxos", card)
+    peak = torch.cuda.max_memory_allocated()
+
+    # (c) the host-exec path, on the card and on the CPU
+    hcfg = ReplicaConfigEPaxos(max_proposals_per_tick=P, num_key_buckets=K,
+                               exec_follows_commit=False)
+    hst, hns, host, hdt = ep_host_run(np, hcfg, sh, DEV)
+    applied = sum(len(v) for v in host.applied.values())
+    if applied == 0 or int(hst["exec_row"].sum()) == 0:
+        fail("epaxos host-exec: the executors applied nothing")
+    for g in range(EP_HOST_GROUPS):
+        orders = []
+        for r in range(R):
+            per = {b: [] for b in range(K)}
+            for row, col, vid, noop in host.applied[(g, r)]:
+                if not noop:
+                    per[vid % K].append((row, col, vid))
+            orders.append(per)
+        for r in range(1, R):
+            for b in range(K):
+                m = min(len(orders[0][b]), len(orders[r][b]))
+                if orders[0][b][:m] != orders[r][b][:m]:
+                    fail(f"epaxos host-exec: group {g} bucket {b}: replica "
+                         f"{r}'s apply order diverges from replica 0's")
+    cst, cns, chost, _ = ep_host_run(np, hcfg, sh, "cpu")
+    n = compare_groups(torch, (hst, hns), (cst, cns), EP_HOST_GROUPS,
+                       "epaxos host-exec")
+    if chost.applied != host.applied:
+        fail("epaxos host-exec: apply orders differ between card and CPU")
+    log(f"epaxos host-exec G={EP_HOST_GROUPS}: {EP_HOST_TICKS} ticks "
+        f"({EP_HOST_DRAIN} drain) in {hdt:.3f} s with "
+        f"{EP_HOST_GROUPS * R} executors; {applied} instances applied, "
+        f"per-bucket orders agree across replicas, exec_row == floors every "
+        f"tick; equal to the CPU run ({n} state leaves + netstate, apply "
+        f"orders) | {card}")
+    log(f"epaxos: peak device memory {peak / 2**20:.1f} MiB "
+        f"(max_memory_allocated over (a), (b) and the profile) | {card}")
+
+
 def main():
     import torch
 
@@ -1119,6 +1356,10 @@ def main():
     phase_bodega(torch, card)
     phase_basic(torch, card)
     log(f"bitslice_gf256 launches in phases 8-10 (no codeword plane): "
+        f"{rs.bitslice_gf256.launches}")
+    rs.bitslice_gf256.launches = 0
+    phase_epaxos(torch, np, card)
+    log(f"bitslice_gf256 launches in phase 11 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -1,7 +1,7 @@
 """Vectorized protocol kernels + the protocol factory, counterpart of
-``summerset_tpu/protocols/__init__.py``.  Only the ported protocols are
-registered; a name the JAX package knows but the port does not run yet
-raises a ``ValueError`` that says so.
+``summerset_tpu/protocols/__init__.py``.  Every protocol of the JAX
+package is ported; a name the JAX package knows but the port did not run
+would be listed in ``NOT_PORTED`` and raise a ``ValueError`` that says so.
 """
 
 from typing import Dict, Type
@@ -11,7 +11,7 @@ from ..core.protocol import ProtocolKernel
 _REGISTRY: Dict[str, Type[ProtocolKernel]] = {}
 
 #: protocols the JAX package has that this port does not run yet
-NOT_PORTED = ("epaxos",)
+NOT_PORTED: tuple = ()
 
 
 def register_protocol(name: str):
@@ -53,3 +53,4 @@ from . import bodega  # noqa: E402,F401
 from . import chain_rep  # noqa: E402,F401
 from . import simple_push  # noqa: E402,F401
 from . import rep_nothing  # noqa: E402,F401
+from . import epaxos  # noqa: E402,F401

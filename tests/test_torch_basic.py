@@ -22,6 +22,7 @@ from summerset_tpu.core.engine import reset_durable_rows as jreset
 from summerset_tpu.protocols import make_protocol as jmake
 from summerset_tpu.protocols.bodega import ReplicaConfigBodega as JBO
 from summerset_tpu.protocols.chain_rep import ReplicaConfigChainRep as JCR
+from summerset_tpu.protocols.epaxos import ReplicaConfigEPaxos as JEP
 from summerset_tpu.protocols.quorum_leases import (
     ReplicaConfigQuorumLeases as JQL,
 )
@@ -39,6 +40,7 @@ from summerset_tpu_torch.protocols.bodega import ReplicaConfigBodega as TBO
 from summerset_tpu_torch.protocols.chain_rep import (
     ReplicaConfigChainRep as TCR,
 )
+from summerset_tpu_torch.protocols.epaxos import ReplicaConfigEPaxos as TEP
 from summerset_tpu_torch.protocols.quorum_leases import (
     ReplicaConfigQuorumLeases as TQL,
 )
@@ -187,12 +189,13 @@ def test_reset_and_restore_durable_match_jax(proto, r):
 @pytest.mark.parametrize("proto,cfgs", [
     ("chainrep", (JCR, TCR)), ("simplepush", (JSP, TSP)),
     ("repnothing", (JRN, TRN)), ("quorumleases", (JQL, TQL)),
-    ("bodega", (JBO, TBO)),
+    ("bodega", (JBO, TBO)), ("epaxos", (JEP, TEP)),
 ])
 def test_kernel_declarations_match_jax(proto, cfgs):
     """Broadcast and tally lanes, durable leaves, host inputs and phase
     tables are declared as the JAX kernels declare them, and the outbox
-    has the same lanes, shapes and byte widths."""
+    has the same lanes, shapes and byte widths, in the same key order
+    (the netmodel's packing plan reads it).  Every protocol is ported."""
     jk = jmake(proto, 2, 5, W, cfgs[0](max_proposals_per_tick=P))
     tk = tmake(proto, 2, 5, W, cfgs[1](max_proposals_per_tick=P),
                device="cpu")
@@ -206,4 +209,5 @@ def test_kernel_declarations_match_jax(proto, cfgs):
     jo = {k: np.asarray(v) for k, v in jk.zero_outbox().items()}
     to = to_numpy(tk.zero_outbox())
     assert _signature(to) == _signature(jo)
-    assert NOT_PORTED == ("epaxos",)
+    assert list(to) == list(jo)
+    assert NOT_PORTED == ()

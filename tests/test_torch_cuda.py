@@ -1,6 +1,6 @@
 """The port on the card: the GF(2^8) CUDA kernel against its plain PyTorch
-version, and the card's engine (every ported protocol) and codec against
-the port on the CPU.
+version, and the card's engine (every protocol, EPaxos in both execution
+modes) and codec against the port on the CPU.
 
 Every test here needs an NVIDIA card and ``nvcc`` and skips elsewhere.
 The file imports neither ``jax`` nor the JAX package, so it also runs on a
@@ -31,6 +31,8 @@ from summerset_tpu_torch.protocols.bodega import ReplicaConfigBodega
 from summerset_tpu_torch.protocols.chain_rep import ReplicaConfigChainRep
 from summerset_tpu_torch.protocols.craft import ReplicaConfigCRaft
 from summerset_tpu_torch.protocols.crossword import ReplicaConfigCrossword
+from summerset_tpu_torch.protocols.epaxos import ReplicaConfigEPaxos
+from summerset_tpu_torch.host.epaxos_exec import EPaxosExecutor
 from summerset_tpu_torch.protocols.multipaxos import ReplicaConfigMultiPaxos
 from summerset_tpu_torch.protocols.quorum_leases import (
     ReplicaConfigQuorumLeases,
@@ -229,6 +231,108 @@ def test_slice3_kernels_on_card_match_cpu(proto, cuda_device):
         assert int(st["commit_bar"].max()) > 0
         digests[str(dev)] = out
     assert digests["cpu"] == digests[str(cuda_device)]
+
+
+def _epaxos_window(G, R, P, T, w):
+    """Proposals every tick, replica 1 paused at tick 3, replica 0 paused
+    from tick 20 past alive_timeout (its row recovered by a successor),
+    replica 2 durably reset in window 1."""
+    seq = _window(G, R, P, T, w)
+    abs_t = w * T + np.arange(T)
+    alive = np.ones((T, G, R), bool)
+    alive[abs_t == 3, :, 1] = False
+    alive[abs_t >= 20, :, 0] = False
+    seq["alive"] = alive
+    return seq
+
+
+@pytest.mark.cuda
+def test_epaxos_on_card_matches_cpu(cuda_device):
+    """EPaxos on the card against the port on the CPU at G=8 on the
+    jittered, lossy D=3 line, with pauses, a row failover and a reset:
+    the device-only execution path, whose row closure the CPU cannot
+    show failing (integer matmul exists there, not on CUDA)."""
+    G, R, W, P, T = 8, 5, 32, 5, 24
+    net = NetConfig(delay_ticks=1, jitter_ticks=1, drop_rate=0.05,
+                    max_delay_ticks=3)
+    digests = {}
+    for dev in ("cpu", cuda_device):
+        cfg = ReplicaConfigEPaxos(max_proposals_per_tick=P, alive_timeout=10,
+                                  num_key_buckets=4)
+        eng = Engine(make_protocol("epaxos", G, R, W, cfg, device=dev),
+                     netcfg=net, seed=7, device=dev)
+        st, ns = eng.init()
+        out = []
+        for w in range(4):
+            st, ns, fx = eng.run_ticks(st, ns, _epaxos_window(G, R, P, T, w),
+                                       collect=True)
+            out.append(_digest({"state": to_numpy(st), "net": to_numpy(ns),
+                                "commit": fx.commit_bar.cpu().numpy(),
+                                "extra": to_numpy(fx.extra)}))
+        assert int(st["exec_row"].min()) > 0
+        # row 0's tail is resolved at a survivor of every group (on a
+        # lossy line a survivor that missed the recovery lanes may not
+        # have learned it, as in the JAX kernel)
+        ext0 = st["ext_row"][:, 1:, 0].amax(dim=1, keepdim=True)
+        assert bool((st["cmt_row"][:, 1:, 0] >= ext0).any(dim=1).all())
+        digests[str(dev)] = out
+    assert digests["cpu"] == digests[str(cuda_device)]
+
+
+@pytest.mark.cuda
+def test_epaxos_host_exec_on_card_matches_cpu(cuda_device):
+    """EPaxos in host mode (``exec_follows_commit=False``) on the card
+    against the CPU at G=8: ``prop_replica`` rotates, one vid per bucket
+    is minted in the residue class ``bucket + K * me (mod K * R)``, and
+    each (group, replica) has its own ``EPaxosExecutor`` feeding its row
+    of ``exec_floor_rows``; states and apply orders must be equal."""
+    G, R, W, P, K, T = 8, 5, 32, 8, 8, 40
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        cfg = ReplicaConfigEPaxos(max_proposals_per_tick=P,
+                                  num_key_buckets=K,
+                                  exec_follows_commit=False)
+        eng = Engine(make_protocol("epaxos", G, R, W, cfg, device=dev),
+                     seed=7, device=dev)
+        st, ns = eng.init()
+        applied = {(g, r): [] for g in range(G) for r in range(R)}
+        execs = {(g, r): EPaxosExecutor(
+            R, W, lambda row, col, vid, noop, a=applied[(g, r)]: a.append(
+                (row, col, vid, noop)))
+            for g in range(G) for r in range(R)}
+        rng = np.random.default_rng(3)
+        nxt = [1] * G
+        for t in range(T):
+            sn = to_numpy(st)
+            me = t % R
+            pv = np.zeros((G, P), np.int32)
+            n = np.zeros(G, np.int32)
+            for g in range(G):
+                space = max(0, int(sn["exec_row"][g, me, me]) + W
+                            - int(sn["own_next"][g, me]))
+                take = rng.permutation(K)[:int(rng.integers(0, K + 1))]
+                for i, b in enumerate(take[:min(P, space)]):
+                    vid = nxt[g] + (int(b) + K * me - nxt[g]) % (K * R)
+                    nxt[g] = vid + 1
+                    pv[g, i] = vid
+                    n[g] = i + 1
+            floors = np.zeros((G, R, R), np.int32)
+            for (g, r), ex in execs.items():
+                floors[g, r] = ex.floor
+            st, ns, _ = eng.tick(st, ns, {
+                "n_proposals": n, "value_base": pv[:, 0].copy(),
+                "prop_replica": np.full(G, me, np.int32), "prop_vids": pv,
+                "exec_floor_rows": floors})
+            sn = to_numpy(st)
+            for (g, r), ex in execs.items():
+                ex.advance(sn["abs2"][g, r], sn["st2"][g, r],
+                           sn["seq2"][g, r], sn["val2"][g, r],
+                           sn["noop2"][g, r], sn["deps2"][g, r],
+                           sn["cmt_row"][g, r])
+        assert int(st["exec_row"].sum()) > 0
+        runs[str(dev)] = (_digest({"state": to_numpy(st),
+                                   "net": to_numpy(ns)}), applied)
+    assert runs["cpu"] == runs[str(cuda_device)]
 
 
 @pytest.mark.cuda

@@ -53,7 +53,9 @@ def test_port_and_chip_smoke_import_no_jax():
               "summerset_tpu_torch.protocols.chain_rep",
               "summerset_tpu_torch.protocols.simple_push",
               "summerset_tpu_torch.protocols.rep_nothing",
+              "summerset_tpu_torch.protocols.epaxos",
               "summerset_tpu_torch.host.codeword",
+              "summerset_tpu_torch.host.epaxos_exec",
               "summerset_tpu_torch.core.engine",
               "summerset_tpu_torch.entry"):
         assert m in got["modules"]
@@ -91,6 +93,7 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         lambda: make_protocol("chainrep", 2, 5, 32),
         lambda: make_protocol("simplepush", 2, 5, 32),
         lambda: make_protocol("repnothing", 2, 5, 32),
+        lambda: make_protocol("epaxos", 2, 5, 32),
         lambda: ControlInputs.all_up(2, 5),
         lambda: ControlInputs.links_all_up(2, 5),
         lambda: ControlInputs.split_links(2, 5, [0, 1]),
