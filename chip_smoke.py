@@ -76,8 +76,28 @@ before printing any result.  Phases, each printed as it runs:
              replicas and ``exec_row`` follows the floors; (d) the first 64
              groups of (a)+(b), and all of (c), equal a CPU run; (e) the
              profile window and the phase's peak device memory.
+12. serving — the port's serving path, at the JAX serving records' shape
+             (1024 groups x 3 replicas, W=64, tick 0.002 s): the port's
+             manager and three ``ServerReplica`` threads in this process
+             on the card (the harness of ``tests/test_torch_cluster.py``),
+             16 closed-loop clients over 1024 keys.  MultiPaxos: a 10 s
+             timed window (one ``serving`` JSON line: ops/s, p50/p99,
+             ticks/s per replica, the mean of each ``loop_stage_us`` stage,
+             ``max_memory_allocated``), the group-0 leader paused until
+             every client succeeds at a new leader (at least 3 s), a
+             durable reset of a follower and then of the leader, every
+             acknowledged key read back; then, with the clients stopped,
+             every replica's applied floors and KV equal each other and
+             every key's last acknowledged put, and a 3-client, 3-key
+             history recorded through the faults passes the port's
+             ``check_history``; a replica that failed a bring-up or
+             crashed at any point fails the phase (durable resets are
+             neither).  Raft: 5 s of load, one leader pause, the same
+             agreement, history and fault checks.  Last, 24 sequential puts
+             on a 1-replica cluster on the card and on the CPU, serial and
+             pipelined: equal durable digests, KV, floors and WAL records.
 Phases 4, 6 and 7 each count their own kernel launches and fail on none;
-phases 8-11 run no codeword plane and launch no hand kernel.
+phases 8-12 run no codeword plane and launch no hand kernel.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -86,6 +106,7 @@ Any mismatch or exception exits non-zero.
 
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -118,6 +139,16 @@ ELECT_STEP = 10          # ticks between leader counts in the cold start
 ELECT_MAX = 400          # cold-start ticks allowed until one leader/group
 PROFILE_TICKS = 8
 PAYLOAD = 4096
+# phase 12: the serving records' shape (1024 groups x 3, W=64 as
+# summerset_tpu/cli/server.py:33, tick 0.002 s as :34), 16 clients
+SERVE_SHAPE = dict(G=1024, R=3, W=64, tick=0.002, keys=1024)
+SERVE_CLIENTS = 16
+SERVE_SECS = 10.0         # MultiPaxos timed load window
+SERVE_RAFT_SECS = 5.0     # Raft timed load window
+SERVE_PAUSE_S = 3.0       # a paused leader stays paused at least this
+SERVE_FAILOVER_MAX_S = 30.0
+SERVE_OP_TIMEOUT = 1.0
+SERVE_HISTORY_OPS = 30    # the 3-client history is at least this long
 #: the card every phase runs on (a rehearsal on the CPU may override it)
 DEV = "cuda"
 
@@ -1323,6 +1354,466 @@ def phase_epaxos(torch, np, card):
         f"(max_memory_allocated over (a), (b) and the profile) | {card}")
 
 
+# ---------------------------------------------------------- serving path --
+def _serve_harness():
+    """The in-process cluster harness (``tests/test_torch_cluster.py``,
+    jax-free): a manager and replica threads on this process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import test_torch_cluster as harness
+
+    return harness
+
+
+class _LoadClient:
+    """One closed-loop client thread over its own slice of the keys
+    (key ``i`` belongs to client ``i % SERVE_CLIENTS``, so each key has
+    one writer and a last acknowledged put).  Records every success as
+    (time, latency, server it was connected to)."""
+
+    def __init__(self, cluster, ci, stop):
+        import random
+        import threading
+
+        self.ci = ci
+        self.stop = stop
+        self.rng = random.Random(SEED + ci)
+        self.keys = [f"key{k}" for k in range(SERVE_SHAPE["keys"])
+                     if k % SERVE_CLIENTS == ci]
+        self.acked = {}      # key -> last acknowledged put value
+        self.later = {}      # key -> puts unacknowledged since then
+        self.ok = []         # (t_done, latency_s, server)
+        self.errors = 0
+        self.cluster = cluster
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+
+    def run(self):
+        from summerset_tpu_torch.client.drivers import DriverClosedLoop
+
+        ep = self.cluster.endpoint()
+        drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT)
+        seq = 0
+        while not self.stop.is_set():
+            key = self.rng.choice(self.keys)
+            t0 = time.monotonic()
+            if self.rng.random() < 0.5:
+                val = f"c{self.ci}.{seq}"
+                rep = drv.put(key, val)
+                if rep.kind == "success":
+                    self.acked[key] = val
+                    self.later[key] = set()
+                elif rep.kind != "redirect":
+                    # may or may not have executed
+                    self.later.setdefault(key, set()).add(val)
+            else:
+                rep = drv.get(key)
+            t1 = time.monotonic()
+            if rep.kind == "success":
+                self.ok.append((t1, t1 - t0, ep.current))
+            elif rep.kind != "redirect":
+                self.errors += 1
+                drv._failover(rep)
+            seq += 1
+        ep.leave()
+
+
+def _stage_means(reps, prev):
+    """Mean ``loop_stage_us`` per stage over the window since ``prev``
+    (histogram copies), averaged over the replicas."""
+    from summerset_tpu_torch.host.server import STAGES
+
+    out = {}
+    for st in STAGES:
+        tot = cnt = 0
+        for me, rep in reps.items():
+            h = rep.metrics.hist("loop_stage_us", stage=st)
+            if h is None:
+                continue
+            w = h.since(prev.get((me, st)))
+            tot += w.total
+            cnt += w.count
+        if cnt:
+            out[st] = round(tot / cnt, 1)
+    return out
+
+
+def _stage_marks(reps):
+    from summerset_tpu_torch.host.server import STAGES
+
+    marks = {}
+    for me, rep in reps.items():
+        for st in STAGES:
+            h = rep.metrics.hist("loop_stage_us", stage=st)
+            if h is not None:
+                marks[(me, st)] = h.copy()
+    return marks
+
+
+def _lag_state(rep, lag):
+    """``debug_state`` of one replica cut to the lagging groups."""
+    groups = sorted({g for gs in lag.values() for g in gs})
+    st = rep.debug_state()
+    return {k: ([v[g] for g in groups] if isinstance(v, list)
+                and len(v) == len(rep.applied) else v)
+            for k, v in st.items()}
+
+
+def _barrier_writes(cluster, what, groups):
+    """One put into each of ``groups``, through up to 16 client threads.
+    Followers learn commits lazily: one whose vote run at the leader's
+    ballot starts above its commit bar (a restarted or resumed replica)
+    stays behind in an idle group until the group's next write, whose
+    accept makes the leader resend the run (the kernel's rule, as in the
+    JAX package).  These writes are that next write."""
+    import threading
+    import zlib
+
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+
+    G = SERVE_SHAPE["G"]
+    want, keys, i = set(groups), {}, 0
+    while len(keys) < len(want):
+        k = f"barrier{i}"
+        g = zlib.crc32(k.encode()) % G
+        if g in want:
+            keys.setdefault(g, k)
+        i += 1
+    todo = sorted(keys.values())
+    errs = []
+
+    def writer(part):
+        ep = cluster.endpoint()
+        drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT)
+        try:
+            for k in part:
+                drv.checked_put(k, "b", retries=60)
+        except AssertionError as e:
+            errs.append(str(e))
+        ep.leave()
+
+    n = min(SERVE_CLIENTS, len(todo))
+    ts = [threading.Thread(target=writer, args=(todo[c::n],), daemon=True)
+          for c in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    if errs:
+        fail(f"{what}: barrier writes failed: {errs[:3]}")
+    return len(todo)
+
+
+def _quiesce(cluster, what, rounds=4, settle=5.0):
+    """With the clients stopped, wait until every replica has applied the
+    same floors; a group still differing after ``settle`` seconds gets
+    one barrier write, up to ``rounds`` times.  Returns the floors and
+    the barrier writes it took."""
+    writes = 0
+    for r in range(rounds + 1):
+        deadline = time.monotonic() + settle
+        while True:
+            floors = [list(r.applied) for r in cluster.replicas.values()]
+            if len(floors) == cluster.n and all(f == floors[0]
+                                                 for f in floors):
+                return floors[0], writes
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        top = [max(col) for col in zip(*floors)]
+        lag = sorted({g for f in floors for g, (a, b) in
+                      enumerate(zip(f, top)) if a != b})
+        if r == rounds:
+            break
+        writes += _barrier_writes(cluster, what, lag)
+    lagmap = {me: [g for g, (a, b) in enumerate(zip(r.applied, top))
+                   if a != b][:8]
+              for me, r in cluster.replicas.items()}
+    fail(f"{what}: replicas did not converge on their applied floors "
+         f"after {writes} barrier writes; lagging groups: {lagmap}; "
+         f"states: {[_lag_state(r, lagmap) for r in cluster.replicas.values()]}")
+
+
+def _check_agreement(cluster, clients, what):
+    """Every replica's floors and KV are equal, and every key's value is
+    its last acknowledged put (or a put issued after it that timed out:
+    it may have executed)."""
+    _floors, writes = _quiesce(cluster, what)
+    views = {me: (list(rep.applied), dict(rep.statemach.snapshot_items()))
+             for me, rep in sorted(cluster.replicas.items())}
+    first = next(iter(views.values()))
+    for me, v in views.items():
+        if v != first:
+            fail(f"{what}: replica {me}'s applied floors or KV differ "
+                 "from replica 0's")
+    kv = first[1]
+    n = 0
+    for c in clients:
+        for key, val in c.acked.items():
+            got = kv.get(key)
+            if got != val and got not in c.later.get(key, ()):
+                fail(f"{what}: key {key} holds {got!r}, last acked put "
+                     f"{val!r}")
+            n += 1
+    return n, sum(first[0]), writes
+
+
+def _window(np, cluster, clients, secs, what):
+    """One timed window of the running load: ops/s and p50/p99 of the
+    successes completed in it, ticks/s per replica and the stage means."""
+    reps = dict(cluster.replicas)
+    ticks0 = {me: r.tick for me, r in reps.items()}
+    marks = _stage_marks(reps)
+    t0 = time.monotonic()
+    time.sleep(secs)
+    t1 = time.monotonic()
+    ticks = {str(me): round((r.tick - ticks0[me]) / (t1 - t0), 1)
+             for me, r in sorted(reps.items())}
+    lats = sorted(lat for c in clients for (t, lat, _s) in c.ok
+                  if t0 <= t < t1)
+    if not lats:
+        fail(f"{what}: no operation succeeded in the {secs} s window")
+    return {
+        "secs": round(t1 - t0, 3),
+        "ops_per_s": round(len(lats) / (t1 - t0), 1),
+        "p50_ms": round(float(np.percentile(lats, 50)) * 1e3, 3),
+        "p99_ms": round(float(np.percentile(lats, 99)) * 1e3, 3),
+        "ticks_per_s": ticks,
+        "stage_mean_us": _stage_means(reps, marks),
+    }
+
+
+def _serve_run(torch, np, card, protocol, secs, fault_plan,
+               read_back=False):
+    """One live 3-replica cluster on the card: a timed load window, then
+    ``fault_plan(cluster, clients)`` under load with a 3-client, 3-key
+    history recorded, then (``read_back``) every acked key read back, the
+    agreement and the history checks."""
+    import shutil
+    import tempfile
+    import threading
+
+    harness = _serve_harness()
+    from summerset_tpu_torch.utils.linearize import check_history
+
+    sh = SERVE_SHAPE
+    tmp = tempfile.mkdtemp(prefix="serve_")
+    t_up = time.perf_counter()
+    cluster = harness.Cluster(
+        protocol, sh["R"], tmp, tick=sh["tick"], num_groups=sh["G"],
+        window=sh["W"], device=DEV, settle=2.0,
+    )
+    try:
+        up_s = time.perf_counter() - t_up
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        stop = threading.Event()
+        clients = [_LoadClient(cluster, ci, stop)
+                   for ci in range(SERVE_CLIENTS)]
+        time.sleep(1.0)  # clients connected and past their first op
+        w = _window(np, cluster, clients, secs, f"serving {protocol}")
+        stages = w["stage_mean_us"]
+        host = sum(v for k, v in stages.items() if k != "device_wait")
+        peak = (torch.cuda.max_memory_allocated() / 2**20
+                if DEV == "cuda" else 0.0)
+        # the history clients run through the faults
+        hist_ops, hist_stop = [], threading.Event()
+        hist = [threading.Thread(target=harness.history_worker,
+                                 args=(cluster, ci, hist_ops, hist_stop),
+                                 kwargs={"timeout": SERVE_OP_TIMEOUT},
+                                 daemon=True) for ci in range(3)]
+        for t in hist:
+            t.start()
+        faults = fault_plan(cluster, clients)
+        stop.set()
+        for c in clients:
+            c.thread.join(timeout=30)
+        # the history clients run on alone until the history is big
+        # enough to be worth checking (bounded)
+        deadline = time.monotonic() + 60
+        while len(hist_ops) < SERVE_HISTORY_OPS \
+                and time.monotonic() < deadline:
+            time.sleep(0.2)
+        hist_stop.set()
+        for t in hist:
+            t.join(timeout=30)
+        if read_back:
+            faults["read_back_keys"] = _read_back(
+                cluster, clients, f"serving {protocol}")
+        n_keys, applied, writes = _check_agreement(
+            cluster, clients, f"serving {protocol}")
+        if len(hist_ops) < SERVE_HISTORY_OPS:
+            fail(f"serving {protocol}: history of {len(hist_ops)} ops, "
+                 f"fewer than {SERVE_HISTORY_OPS}")
+        ok, diag = check_history(hist_ops)
+        if not ok:
+            fail(f"serving {protocol}: history not linearizable: {diag}")
+        if cluster.faults():
+            fail(f"serving {protocol}: replica bring-up failures or "
+                 f"crashes: {cluster.faults()}")
+        line = {
+            "serving": protocol, "groups": sh["G"], "replicas": sh["R"],
+            "window": sh["W"], "clients": SERVE_CLIENTS,
+            "keys": sh["keys"], **w,
+            "device_wait_share": round(
+                stages.get("device_wait", 0.0)
+                / max(host + stages.get("device_wait", 0.0), 1e-9), 4),
+            "max_memory_allocated_mib": round(peak, 1),
+            "bring_up_s": round(up_s, 2), "faults": faults,
+            "acked_keys_checked": n_keys, "applied_total": applied,
+            "quiesce_barrier_writes": writes,
+            "history_ops": len(hist_ops), "card": card,
+        }
+        log(json.dumps(line))
+        return line
+    finally:
+        cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _pause_leader(cluster, clients, what):
+    """Pause the group-0 leader (at least SERVE_PAUSE_S) until every load
+    client has a success from another server, then resume it; returns
+    the seconds until the last client recovered."""
+    leader = cluster.leader_of(0)
+    if leader is None:
+        fail(f"{what}: no leader of group 0 before the pause")
+    t_pause = time.monotonic()
+    cluster.ctrl("pause_servers", servers=[leader], timeout=60)
+    deadline = t_pause + SERVE_FAILOVER_MAX_S
+    while True:
+        done = [
+            next((t for t, _lat, s in c.ok if t > t_pause and s != leader),
+                 None) for c in clients
+        ]
+        if (all(d is not None for d in done)
+                and time.monotonic() - t_pause >= SERVE_PAUSE_S):
+            break
+        if time.monotonic() > deadline:
+            cluster.ctrl("resume_servers", servers=[leader], timeout=60)
+            fail(f"{what}: {sum(d is None for d in done)} of "
+                 f"{len(clients)} clients got no success from a new "
+                 f"leader within {SERVE_FAILOVER_MAX_S} s of pausing "
+                 f"replica {leader}")
+        time.sleep(0.1)
+    new = cluster.leader_of(0)
+    cluster.ctrl("resume_servers", servers=[leader], timeout=60)
+    time.sleep(1.0)
+    return {"paused": leader, "new_leader": new,
+            "recovered_s": round(max(done) - t_pause, 3)}
+
+
+def _mp_faults(cluster, clients):
+    out = {"pause": _pause_leader(cluster, clients, "serving MultiPaxos")}
+    leader = cluster.leader_of(0)
+    follower = next(me for me in sorted(cluster.replicas) if me != leader)
+    for victim in (follower, leader):
+        t = time.monotonic()
+        rep = cluster.ctrl("reset_servers", servers=[victim], timeout=300)
+        if rep.done != [victim]:
+            fail(f"serving MultiPaxos: durable reset of {victim} not "
+                 f"acknowledged ({rep.done})")
+        out[f"reset_{'leader' if victim == leader else 'follower'}_s"] = \
+            round(time.monotonic() - t, 3)
+    time.sleep(2.0)
+    return out
+
+
+def _raft_faults(cluster, clients):
+    return {"pause": _pause_leader(cluster, clients, "serving Raft")}
+
+
+def _read_back(cluster, clients, what):
+    """Every key's last acknowledged value reads back through the
+    cluster (after the durable resets)."""
+    import threading
+
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+
+    bad = []
+
+    def reader(c):
+        ep = cluster.endpoint()
+        drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT)
+        for key, val in c.acked.items():
+            for _ in range(40):
+                rep = drv.get(key)
+                if rep.kind == "success":
+                    got = rep.result.value if rep.result else None
+                    if got != val and got not in c.later.get(key, ()):
+                        bad.append((key, val, got))
+                    break
+                drv._retry_pause(rep)
+            else:
+                bad.append((key, val, "no reply"))
+        ep.leave()
+
+    ts = [threading.Thread(target=reader, args=(c,), daemon=True)
+          for c in clients]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    if bad:
+        fail(f"{what}: {len(bad)} keys did not read back their last acked "
+             f"value, e.g. {bad[:3]}")
+    return sum(len(c.acked) for c in clients)
+
+
+def phase_serving(torch, np, card):
+    """Phase 12: the port's manager, three ServerReplica threads and 16
+    closed-loop clients in this process, on the card; then the
+    1-replica card-against-CPU check."""
+    import tempfile
+
+    from summerset_tpu_torch.ops import rscoding as rs
+
+    sh = SERVE_SHAPE
+    log(f"== phase 12: serving, {sh['G']} groups x {sh['R']} replicas, "
+        f"W={sh['W']}, {SERVE_CLIENTS} clients (MultiPaxos, Raft, card vs "
+        "cpu)")
+    t_phase = time.perf_counter()
+    rs.bitslice_gf256.launches = 0
+    mp = _serve_run(torch, np, card, "MultiPaxos", SERVE_SECS, _mp_faults,
+                    read_back=True)
+    raft = _serve_run(torch, np, card, "Raft", SERVE_RAFT_SECS,
+                      _raft_faults)
+    harness = _serve_harness()
+    runs = {}
+    for dev in (DEV, "cpu"):
+        for pipeline in (False, True):
+            with tempfile.TemporaryDirectory(prefix="seq_") as d:
+                runs[(dev, pipeline)] = harness.sequential_puts(
+                    d, dev, pipeline, groups=SERVE_SHAPE["G"],
+                    window=SERVE_SHAPE["W"])
+    for pipeline in (False, True):
+        mode = "pipelined" if pipeline else "serial"
+        a, b = runs[(DEV, pipeline)], runs[("cpu", pipeline)]
+        if sum(a["applied"]) != 24:
+            fail(f"serving {DEV} vs cpu ({mode}): {sum(a['applied'])} of "
+                 "24 puts applied")
+        for part in ("digest", "kv", "applied", "wal"):
+            if a[part] != b[part]:
+                fail(f"serving {DEV} vs cpu ({mode}): {part} differs")
+    log(f"serving: 24 sequential puts on 1 replica x {SERVE_SHAPE['G']} "
+        f"groups, {DEV} vs cpu, serial and pipelined: durable digests, KV, "
+        f"floors and WAL records ({len(runs[(DEV, True)]['wal'])} / "
+        f"{len(runs[(DEV, False)]['wal'])}) equal | {card}")
+    for (dev, pipeline), r in sorted(runs.items()):
+        log(json.dumps({
+            "serving_1_replica": dev, "pipeline": pipeline,
+            "groups": SERVE_SHAPE["G"],
+            "ticks_per_s": round(r["ticks_per_s"], 1),
+            "stage_mean_us": {k: round(v, 1)
+                              for k, v in r["stage_mean_us"].items()},
+            "card": card,
+        }))
+    log(f"bitslice_gf256 launches in phase 12 (no codeword plane): "
+        f"{rs.bitslice_gf256.launches}; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return mp, raft
+
+
 def main():
     import torch
 
@@ -1361,6 +1852,7 @@ def main():
     phase_epaxos(torch, np, card)
     log(f"bitslice_gf256 launches in phase 11 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
+    phase_serving(torch, np, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "bitslice_gf256",

@@ -135,13 +135,13 @@ class NetModel:
 
     def __init__(self, cfg: NetConfig, num_groups: int, population: int,
                  broadcast_lanes: frozenset,
-                 tally_lanes: frozenset = frozenset(), device="cpu"):
+                 tally_lanes: frozenset = frozenset(), device=None):
         self.cfg = cfg
         self.G = num_groups
         self.R = population
         self.broadcast_lanes = broadcast_lanes
         self.tally_lanes = tally_lanes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._pack_pair: tuple = ()
         self._pack_bcast: tuple = ()
 

@@ -11,6 +11,8 @@ from typing import Any, Dict
 
 import torch
 
+from ..device import resolve_device
+
 COUNTER_LANES = (
     "commits",
     "proposals",
@@ -32,16 +34,23 @@ _MAX_SET = frozenset(MAXGAUGE_LANES)
 TELEM_KEY = "telem"
 
 
-def zero_block(num_groups: int, population: int, device="cpu"):
-    """Fresh ``[G, R, K]`` lane block (every lane zero)."""
+def zero_block(num_groups: int, population: int, device=None):
+    """Fresh ``[G, R, K]`` lane block (every lane zero) on ``device``
+    (resolved by the port's device rule: ``None`` is the card)."""
     return torch.zeros((num_groups, population, K), dtype=torch.int32,
-                       device=device)
+                       device=resolve_device(device))
 
 
 def attach(state: Dict[str, Any], num_groups: int, population: int,
-           device="cpu"):
-    """Add the lane block to a state dict (idempotent)."""
+           device=None):
+    """Add the lane block to a state dict (idempotent).  With no
+    ``device`` the block goes where the state's tensors live, so it
+    never lands on the CPU beside a state on the card."""
     if TELEM_KEY not in state:
+        if device is None:
+            dev = next((v.device for v in state.values()
+                        if isinstance(v, torch.Tensor)), None)
+            device = dev if dev is not None else resolve_device(None)
         state[TELEM_KEY] = zero_block(num_groups, population, device)
     return state
 

@@ -1,0 +1,1128 @@
+"""ServerReplica: a networked replica around the port's device kernel,
+counterpart of ``summerset_tpu/host/server.py`` for MultiPaxos and Raft.
+
+Parity: reference ``GenericReplica`` + ``summerset_server`` — the replica
+composes ControlHub -> StateMachine -> StorageHub -> TransportHub ->
+ExternalApi, joins via the manager, then ``run()`` drives the tick loop;
+returning True means crash-restart.
+
+This process owns replica index ``me`` of every group.  Each tick it
+(1) drains the client batch, routing each key to a group by crc32,
+(2) exchanges tick frames with its peers (its outbox slice plus the
+payload piggyback), (3) steps the kernel on the card with the inbox
+assembled from the peers' frames, (4) WAL-logs dirty acceptor rows before
+the acks referencing them leave, applies newly committed slots and
+replies to the clients it proposed for.  Request payloads ride host
+frames keyed by (group, value id); the device log stores int32 references.
+
+The device seam (what ``jax.jit`` and async dispatch were in the JAX
+server): the step is ``kernel.step(state, inbox, inputs)`` under
+``torch.inference_mode()`` on a CUDA stream owned by the replica (so the
+replica threads of an in-process cluster never share one).  The inbox and
+the inputs go up as ``non_blocking`` copies from pinned host memory, and
+the host views the loop reads next (durable rows, windows, ``leader``,
+the telemetry block, every outbox lane, the commit bar and the effects)
+come back as ``non_blocking`` copies into pinned buffers allocated once
+per leaf, two sets used in turn, with one event recorded behind them.
+Waiting on that event is the ``device_wait`` stage.  On the CPU device
+there are no streams, no pinned memory and no prefetch: host views are
+the tensors' own memory.  Nothing falls back to the CPU: a failed CUDA
+call raises out of the tick and crashes the replica.
+
+Durability contract: the kernel's ``DURABLE_SCALARS``/``DURABLE_WINDOWS``
+are logged per dirty group before any ack leaves (serial loop: a
+group-commit fsync per tick; pipelined loop: a background group commit
+behind the durability fence).  A failed fsync crashes the replica before
+any gated frame or reply leaves.
+
+Not in this slice (ROADMAP.md item 6 and its queue): snapshots, the
+codeword, lease and conf planes, EPaxos and the basic kernels' serving,
+near-quorum reads and scans, health/demotion, resharding, the flight
+recorder and slot traces.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import queue
+import tempfile
+import time
+import zlib
+from typing import Any, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from ..core import telemetry as dev_telemetry
+from ..device import resolve_device
+from ..protocols import make_protocol
+from ..utils.errors import SummersetError
+from ..utils.logging import pf_info, pf_logger, pf_warn
+from .control import ControlHub
+from .external import ExternalApi
+from .messages import ApiReply, CtrlMsg
+from .payload import PayloadStore
+from .statemach import StateMachine, apply_command
+from .storage import LogAction, StorageHub
+from .telemetry import MetricsRegistry
+from .transport import TransportHub
+
+logger = pf_logger("server")
+
+#: protocols this slice serves; the rest name the ROADMAP item that will
+SERVED = ("multipaxos", "raft")
+_NOT_YET = {
+    "rspaxos": "6 (queue 1: the codeword serving plane)",
+    "craft": "6 (queue 1: the codeword serving plane)",
+    "crossword": "6 (queue 1: the codeword serving plane)",
+    "quorumleases": "6 (queue 2: the lease and conf planes)",
+    "bodega": "6 (queue 2: the lease and conf planes)",
+    "epaxos": "6 (queue 3: EPaxos serving)",
+    "chainrep": "6 (queue 4: ChainRep, SimplePush and RepNothing)",
+    "simplepush": "6 (queue 4: ChainRep, SimplePush and RepNothing)",
+    "repnothing": "6 (queue 4: ChainRep, SimplePush and RepNothing)",
+}
+
+# loop_stage_us stage names: the serial loop emits intake / exchange /
+# step / log / apply; the pipelined loop replaces "step" with "inbox"
+# (inbox lane assembly) + "dispatch" (inputs, the step launch and the
+# prefetch) + "device_wait" (host blocked on the step's event) and adds
+# "overlap" (host work coincident with the device step)
+STAGES = ("intake", "exchange", "step", "log", "apply",
+          "inbox", "dispatch", "device_wait", "overlap")
+
+#: the WAL directory when none is given: the port's own, never the JAX
+#: package's (a port replica must not replay a JAX replica's records)
+DEFAULT_BACKER_DIR = os.path.join(tempfile.gettempdir(), "summerset_tpu_torch")
+
+_VID_BITS = 40  # vids fit far below 2**40; keys combine (g << 40) | vid
+
+
+def _unique_window_keys(val_win: np.ndarray, groups: np.ndarray) -> np.ndarray:
+    """Sorted unique combined (group << 40) | vid keys over the selected
+    group rows of a (G, ...) value window, in one vectorized pass."""
+    if len(groups) == 0:
+        return np.empty(0, np.int64)
+    rows = np.asarray(val_win)[groups].reshape(len(groups), -1)
+    flat = rows.ravel().astype(np.int64)
+    gcol = np.repeat(np.asarray(groups, dtype=np.int64), rows.shape[1])
+    m = flat > 0
+    if not m.any():
+        return np.empty(0, np.int64)
+    return np.unique((gcol[m] << _VID_BITS) | flat[m])
+
+
+@dataclasses.dataclass
+class HostEffects:
+    """Host views of a step's ``StepEffects``: ``commit_bar`` [G, R] and
+    the protocol extras, as numpy arrays."""
+
+    commit_bar: np.ndarray
+    extra: Dict[str, np.ndarray]
+
+
+class ServerReplica:
+    def __init__(
+        self,
+        protocol: str,
+        api_addr: Tuple[str, int],
+        p2p_addr: Tuple[str, int],
+        manager_addr: Tuple[str, int],
+        config: Optional[dict] = None,
+        num_groups: int = 1,
+        window: int = 64,
+        tick_interval: float = 0.002,
+        backer_dir: str = DEFAULT_BACKER_DIR,
+        device=None,
+    ):
+        self._configure(protocol, config, num_groups, window, tick_interval,
+                        device)
+        self.api_addr = api_addr
+        self.p2p_addr = p2p_addr
+        # control plane first: the manager assigns our id (control.rs:43)
+        self.ctrl = ControlHub(manager_addr)
+        self.me = self.ctrl.me
+        self.population = self.ctrl.population
+        self.transport = None
+        self.external = None
+        self.wal = None
+        try:
+            self._setup_core(backer_dir)
+            self._join_mesh(protocol)
+            self.external = ExternalApi(
+                api_addr, max_batch_size=self.api_max_batch,
+                max_pending=self.api_max_pending, registry=self.metrics,
+            )
+        except BaseException:
+            # a failed bring-up releases every port and handle it took:
+            # the supervisor retries the constructor
+            self.shutdown()
+            raise
+        pf_info(logger, f"replica {self.me} ready on {self.device}")
+
+    # ------------------------------------------------------------ bring-up
+    def _configure(self, protocol, config, num_groups, window,
+                   tick_interval, device) -> None:
+        """Validate the protocol and knobs before any resource is taken."""
+        key = protocol.lower()
+        if key not in SERVED:
+            item = _NOT_YET.get(key)
+            raise SummersetError(
+                f"protocol {protocol} is not served by the port's "
+                "ServerReplica yet"
+                + (f" (ROADMAP.md item {item})" if item else "")
+                + f"; served: {', '.join(SERVED)}"
+            )
+        cfg = dict(config or {})
+        self.protocol = protocol
+        self.device = resolve_device(device)
+        self.tick_interval = tick_interval
+        self.G = num_groups
+        self.window = window
+        # ingress backpressure knobs (host/external.py)
+        self.api_max_batch = int(cfg.pop("api_max_batch", 5000))
+        self.api_max_pending = int(cfg.pop("api_max_pending", 16384))
+        if str(cfg.pop("device_mesh", "") or ""):
+            raise NotImplementedError(
+                "device_mesh: the sharded mesh is not ported to "
+                "summerset_tpu_torch yet (ROADMAP.md, Queue 1: the "
+                "multi-GPU mesh)"
+            )
+        # pipelined tick loop: the device step is dispatched and drained
+        # at its first consumer, and the WAL group-commit fsync runs on
+        # the logger thread behind the durability fence; False is the
+        # strictly ordered serial loop
+        self.pipeline = bool(cfg.pop("pipeline", True))
+        self._kcfg = cfg
+        # one registry threaded through every hub seam
+        self.metrics = MetricsRegistry()
+
+    def _setup_core(self, backer_dir: str) -> None:
+        """Kernel, state on the device, WAL (recovered) and bookkeeping."""
+        dev = self.device
+        proto = self.protocol
+        kercfg_cls = type(
+            make_protocol(proto, 1, self.population, 32, device="cpu").config
+        )
+        known = {f.name for f in dataclasses.fields(kercfg_cls)}
+        kcfg = kercfg_cls(
+            **{k: v for k, v in self._kcfg.items() if k in known}
+        )
+        kcfg.exec_follows_commit = False
+        kcfg.max_proposals_per_tick = 1  # one ReqBatch per group/tick
+        self.kernel = make_protocol(
+            proto, self.G, self.population, self.window, kcfg, device=dev
+        )
+        if self.kernel.DURABLE_SCALARS is None:
+            raise SummersetError(
+                f"protocol {proto} declares no durable acceptor contract; "
+                "refusing to serve it without durability"
+            )
+        self._demote_supported = (
+            "demote" in {n for n, _ in self.kernel.EXTRA_INPUTS}
+        )
+        self.state = self.kernel.init_state(seed=0)
+        # device metric lanes ride the state, on its device
+        dev_telemetry.attach(self.state, self.G, self.population)
+
+        os.makedirs(backer_dir, exist_ok=True)
+        self.wal_path = os.path.join(backer_dir, f"r{self.me}.wal")
+        self.wal = StorageHub(self.wal_path, registry=self.metrics)
+        self.statemach = StateMachine()
+        self.payloads = PayloadStore(self.G)
+        self.applied = [0] * self.G        # exec floor per group (own row)
+        self._sig: Optional[np.ndarray] = None  # durable-row dirty cache
+        self._logged_vids: Dict[int, set] = {
+            g: set() for g in range(self.G)
+        }
+        self._logged_keys = np.empty(0, np.int64)
+        self.origin: Set[Tuple[int, int]] = set()   # (g, vid) we proposed
+        self.missing: Set[Tuple[int, int]] = set()  # committed, no payload
+        self._wal_dirty = False
+        self._reply_queue: List[Tuple[int, ApiReply]] = []
+        self.kv_need: Set[int] = set()     # groups that jumped past window
+        self._pending_serve: Dict[Tuple[int, int], Any] = {}
+        self._pending_kv_serve = False
+        # per peer: frames whose lanes are still owed to some groups
+        # (see _peer_lanes)
+        self._owed: Dict[int, list] = {}
+        self.paused = False
+        self.stopping = False  # cooperative stop for embedded harnesses
+        self.was_leader = False
+        self._lead_announced = 0
+        self._is_leader = np.zeros(self.G, bool)
+        self._leader_hint = np.full(self.G, -1, np.int64)
+        self._last_extra: Dict[str, np.ndarray] = {}
+        self.tick = 0
+        # pipeline registers: the in-flight dispatched step and the
+        # durability fence token gating frames/replies on the fsync
+        self._pl: Optional[Dict[str, Any]] = None
+        self._fence_token: Optional[int] = None
+        self._np_cache: Dict[str, np.ndarray] = {}
+
+        self._recover_from_wal()
+
+        # the device seam: the replica's own stream, which waits once on
+        # the default stream init_state and recovery ran on; two sets of
+        # pinned host buffers used in turn by the prefetch
+        self._stream = None
+        if dev.type == "cuda":
+            self._stream = torch.cuda.Stream(device=dev)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+        self._pinned: Tuple[dict, dict] = ({}, {})
+        self._pf_slot = 0
+        ker = self.kernel
+        cand = set(ker.DURABLE_SCALARS) | set(ker.DURABLE_WINDOWS)
+        cand.update((ker.VALUE_WINDOW, "win_abs", "win_cfg", "win_noop",
+                     "leader", dev_telemetry.TELEM_KEY))
+        self._prefetch_keys = sorted(k for k in cand if k in self.state)
+        self._np_cache = {}
+        # outbox register the first tick's frames slice from (host views)
+        self._last_out = {
+            k: self._host(v) for k, v in self.kernel.zero_outbox().items()
+        }
+
+    def _join_mesh(self, protocol: str) -> None:
+        """p2p mesh join (multipaxos/mod.rs:717-737): the join is re-sent
+        until the mesh completes — a lower-id peer may join after us."""
+        self.transport = TransportHub(
+            self.me, self.population, self.p2p_addr, registry=self.metrics,
+        )
+        join = CtrlMsg("new_server_join", {
+            "protocol": protocol,
+            "api_addr": self.api_addr,
+            "p2p_addr": self.p2p_addr,
+        })
+        connected: set = set()
+        deadline = time.monotonic() + 60
+        while True:
+            self.ctrl.send_ctrl(join)
+            try:
+                msg = self.ctrl.recv_ctrl(timeout=3)
+            except (queue.Empty, SummersetError):
+                msg = None  # poll timeout or manager gone: re-send
+            if msg is not None and msg.kind == "connect_to_peers":
+                for peer, addr in msg.payload["to_peers"].items():
+                    p = int(peer)
+                    if p in connected or self.transport.connected(p):
+                        continue
+                    try:
+                        self.transport.connect_to_peer(p, addr)
+                    except (SummersetError, OSError):
+                        continue  # the peer may be mid-restart: retry
+                    connected.add(p)
+            try:
+                self.transport.wait_for_group(timeout=2)
+                break
+            except SummersetError:
+                if time.monotonic() > deadline:
+                    raise
+
+    # ------------------------------------------------------------- routing
+    def group_of(self, key: str) -> int:
+        """Key -> consensus group (crc32, as the JAX server routes)."""
+        if self.G == 1:
+            return 0
+        return zlib.crc32(key.encode()) % self.G
+
+    # ----------------------------------------------------- host state views
+    def _on_stream(self):
+        """Context that issues device work on the replica's stream."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """Host view of a tensor whose producing work has completed: the
+        tensor's own memory on the CPU, a synchronous copy on the card."""
+        if t.device.type == "cpu":
+            return t.numpy()
+        return t.cpu().numpy()
+
+    def _np_state(self, k: str) -> np.ndarray:
+        """Host view of one state leaf, pinned to the last DRAINED step;
+        cached until the next drain (the prefetched leaves arrive with
+        the drain itself)."""
+        cache = self.__dict__.setdefault("_np_cache", {})
+        v = cache.get(k)
+        if v is None:
+            v = self._host(self.state[k])
+            cache[k] = v
+        return v
+
+    def _set_state(self, new_state, views=None) -> None:
+        """Swap in a new device state and its host views."""
+        self.state = new_state
+        self._np_cache = dict(views or {})
+
+    def _upload(self, arrays: Dict[str, np.ndarray]
+                ) -> Dict[str, torch.Tensor]:
+        """Host lanes to the device.  On the CPU each tensor shares its
+        array's memory.  On the card each lane goes up as one pinned
+        ``non_blocking`` copy on the replica's stream (the caching host
+        allocator keeps each pinned block until its copy has run).  One
+        packed staging copy of all lanes made the ``inbox`` stage 0.2 ms
+        shorter but the tick no faster (``serve_upload_ab.py``)."""
+        if self._stream is None:
+            return {k: torch.from_numpy(np.ascontiguousarray(a))
+                    for k, a in arrays.items()}
+        with self._on_stream():
+            return {k: torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                    .to(self.device, non_blocking=True)
+                    for k, a in arrays.items()}
+
+    # ------------------------------------------------------------ recovery
+    def _recover_from_wal(self) -> None:
+        """Replay the WAL: apply records rebuild payloads + KV + exec
+        floors; the last durable record per group rebuilds the kernel
+        row's acceptor state (parity: recovery.rs replay loop + raft
+        durable curr_term/voted_for, raft/mod.rs:144-176)."""
+        off = 0
+        n = 0
+        votes: Dict[int, dict] = {}
+        while True:
+            res = self.wal.do_sync_action(LogAction("read", offset=off))
+            if not res.offset_ok or res.entry is None:
+                break
+            rec = res.entry
+            if isinstance(rec, tuple) and rec and rec[0] == "snap_floor":
+                raise SummersetError(
+                    "WAL starts with a snap_floor marker: it was compacted "
+                    "by a snapshot, and snapshots are not ported to "
+                    "summerset_tpu_torch yet (ROADMAP.md item 6, queue 5); "
+                    "refusing to serve"
+                )
+            if isinstance(rec, tuple) and rec and rec[0] == "vote":
+                g, v = rec[1], rec[2]
+                votes[g] = v
+                for vid, batch in v.get("pp", {}).items():
+                    self.payloads.install(g, vid, batch, overwrite=False)
+                    self._logged_vids[g].add(vid)
+            elif isinstance(rec, tuple) and len(rec) == 4 \
+                    and isinstance(rec[0], int):
+                g, slot, vid, batch = rec
+                self.payloads.install(g, vid, batch)
+                if batch is not None and slot >= self.applied[g]:
+                    for _client, req in batch:
+                        if req.cmd is not None:
+                            apply_command(self.statemach._kv, req.cmd)
+                self.applied[g] = max(self.applied[g], slot + 1)
+            else:
+                kind = rec[0] if isinstance(rec, tuple) and rec else rec
+                raise SummersetError(
+                    f"WAL record {kind!r} is not served by the port "
+                    "(MultiPaxos/Raft slice); refusing to serve"
+                )
+            off = res.end_offset
+            n += 1
+        if off < self.wal.size:
+            # torn tail: a crash mid-group-commit left a partial record
+            # (nothing beyond it was ever acked); truncate it away, or
+            # later appends would land past garbage
+            pf_warn(
+                logger,
+                f"truncating torn WAL tail at {off} (size {self.wal.size})",
+            )
+            self.wal.do_sync_action(
+                LogAction("truncate", offset=off, sync=True)
+            )
+        if votes:
+            # rebuild the rows on a host copy (thousands of small row
+            # writes), then move the state to its device once
+            st = {k: v.cpu() for k, v in self.state.items()}
+            for g, v in votes.items():
+                self.kernel.restore_durable(st, g, self.me, v,
+                                            self.applied[g])
+            self.state = {k: v.to(self.device) for k, v in st.items()}
+        self._rebuild_logged_keys()
+        if n:
+            pf_info(
+                logger,
+                f"recovered {n} WAL records ({len(votes)} acceptor rows)",
+            )
+
+    # ----------------------------------------------------------- durability
+    def _wal_append(self, entry: Any) -> None:
+        """One unsynced WAL append: the serial loop submits and waits, the
+        pipelined loop fires and forgets and settles at the fence."""
+        if self.pipeline:
+            self.wal.append_nowait(entry)
+        else:
+            self.wal.do_sync_action(
+                LogAction("append", entry=entry, sync=False)
+            )
+        self._wal_dirty = True
+
+    def _fence_begin(self) -> None:
+        """Open the durability fence over every record appended since the
+        last one (a background group-commit sync point).  No-op on a
+        clean tick."""
+        if self._wal_dirty:
+            self._fence_token = self.wal.flush_token()
+            self._wal_dirty = False
+
+    def _fence_wait(self) -> None:
+        """THE durability fence: block until the open token's fsync
+        completed.  Nothing a step computed may leave the process before
+        this returns; a background append or fsync failure raises here
+        and crashes the replica with everything gated still unsent."""
+        token = self._fence_token
+        if token is None:
+            return
+        self._fence_token = None
+        self.wal.wait_flush(token)
+
+    def _rebuild_logged_keys(self) -> None:
+        ks = [
+            (g << _VID_BITS) | v
+            for g, s in self._logged_vids.items() for v in s
+        ]
+        self._logged_keys = (
+            np.asarray(sorted(ks), np.int64) if ks
+            else np.empty(0, np.int64)
+        )
+
+    def _log_votes(self) -> None:
+        """Durably log dirty acceptor rows BEFORE the outbox carrying the
+        corresponding acks is released (next tick's send).  Payload
+        batches for newly voted value ids ride the same record.  Dirty
+        groups come from one vectorized signature compare."""
+        ker = self.kernel
+        me = self.me
+        scal = {
+            k: self._np_state(k)[:, me] for k in ker.DURABLE_SCALARS
+        }
+        wins = {
+            k: self._np_state(k)[:, me] for k in ker.DURABLE_WINDOWS
+        }
+        parts = [
+            a.reshape(self.G, -1).astype(np.int64)
+            for a in list(scal.values()) + list(wins.values())
+        ]
+        sig = np.concatenate(parts, axis=1)
+        if self._sig is not None and sig.shape == self._sig.shape:
+            dirty = np.nonzero((sig != self._sig).any(axis=1))[0]
+        else:
+            dirty = np.arange(self.G)
+        self._sig = sig
+        if len(dirty) == 0:
+            return
+        keys = _unique_window_keys(wins[ker.VALUE_WINDOW], np.asarray(dirty))
+        if len(self._logged_keys):
+            pos = np.minimum(
+                np.searchsorted(self._logged_keys, keys),
+                len(self._logged_keys) - 1,
+            )
+            cand = keys[self._logged_keys[pos] != keys]
+        else:
+            cand = keys
+        new_pp_by_g: Dict[int, dict] = {}
+        taken = []
+        for k in cand.tolist():
+            g, vid = k >> _VID_BITS, k & ((1 << _VID_BITS) - 1)
+            b = self.payloads.get(g, vid)
+            if b is not None:
+                new_pp_by_g.setdefault(g, {})[vid] = b
+                self._logged_vids[g].add(vid)
+                taken.append(k)
+        if taken:
+            # taken is sorted, so a positional insert keeps it sorted
+            tk = np.asarray(taken, np.int64)
+            self._logged_keys = np.insert(
+                self._logged_keys, np.searchsorted(self._logged_keys, tk),
+                tk,
+            )
+        for g in dirty:
+            g = int(g)
+            rec: Dict[str, Any] = {k: int(v[g]) for k, v in scal.items()}
+            rec.update({k: wins[k][g].tolist() for k in wins})
+            rec["pp"] = new_pp_by_g.get(g, {})
+            self._wal_append(("vote", g, rec))
+
+    # ----------------------------------------------------------- tick I/O
+    def _slice_outbox(self, out) -> Dict[int, Dict[str, Any]]:
+        """Per-peer frame: per-pair fields sliced [G] at (me, dst),
+        broadcast lanes sent whole (``out`` holds host views)."""
+        lanes = self.kernel.broadcast_lanes
+        frames: Dict[int, Dict[str, Any]] = {}
+        for dst in range(self.population):
+            if dst == self.me:
+                continue
+            frames[dst] = {
+                k: v[:, self.me] if k in lanes else v[:, self.me, dst]
+                for k, v in out.items()
+            }
+        return frames
+
+    def _peer_lanes(self, src: int, msgs: List[dict]) -> Optional[dict]:
+        """The kernel lanes of peer ``src`` this tick, from the frames it
+        sent since the last tick (oldest first) and the ones still owed.
+
+        The JAX server takes every lane from the newest frame only: the
+        lanes carry cumulative state, so the latest supersedes.  The
+        ``flags`` lane does not: an ``AR_NACK`` (or any event bit) in an
+        older frame is lost when a newer frame arrives before the
+        receiver ticks, and a follower whose nack is lost keeps a vote
+        run that starts above its commit bar and never commits again in
+        that group (found by ``chip_smoke.py`` phase 12; the lockstep
+        case ``tests/test_torch_server.py::test_superseded_nack_lockstep``
+        shows the JAX server's follower frozen so).  So per group
+        the lanes come from the oldest owed frame holding a flag bit the
+        newest frame lacks, else from the newest; the frames after it
+        stay owed, one delivered per tick, until a newer frame holds
+        their bits.  With one frame per peer per tick this is the JAX
+        rule exactly."""
+        owed = self._owed.get(src, [])
+        cand = owed + [(m, None) for m in msgs]
+        if not cand:
+            return None
+        if len(cand) == 1:
+            self._owed[src] = []
+            return cand[0][0]
+        G = self.G
+        n = len(cand)
+        flags = np.stack([m["flags"] for m, _ in cand])
+        due = np.stack([np.ones(G, bool) if o is None else o
+                        for _, o in cand])
+        uniq = ((flags & ~flags[-1]) != 0) & due
+        pick = np.where(uniq.any(axis=0), uniq.argmax(axis=0), n - 1)
+        cols = np.arange(G)
+        out = {
+            k: np.stack([m[k] for m, _ in cand])[pick, cols]
+            for k in cand[-1][0]
+        }
+        rows = np.arange(n)[:, None]
+        keep = (rows > pick[None, :]) & uniq
+        keep[-1] = pick < n - 1
+        self._owed[src] = [
+            (cand[i][0], keep[i]) for i in range(n) if keep[i].any()
+        ][-self.OWED_FRAMES:]
+        return out
+
+    #: frames per peer kept owed at most (the oldest beyond are dropped)
+    OWED_FRAMES = 8
+
+    def _assemble_inbox(self, own_out, peer_frames) -> Dict[str, Any]:
+        """Receiver-oriented inbox: row `me` filled from peers + self, the
+        peers' lanes chosen by ``_peer_lanes``.  Lanes keep their dtypes
+        (the int32 ``flags`` with the JAX uint32 bits, bool lanes as
+        bool)."""
+        lanes = self.kernel.broadcast_lanes
+        me = self.me
+        peers = {}
+        for src, fl in peer_frames.items():
+            got = self._peer_lanes(src, [f["msg"] for f in fl or ()])
+            if got is not None:
+                peers[src] = got
+        inbox = {}
+        for k, own in own_out.items():
+            arr = np.zeros(own.shape, own.dtype)
+            if k in lanes:
+                arr[:, me] = own[:, me]
+                for src, msg in peers.items():
+                    arr[:, src] = msg[k]
+            else:
+                # transposed orientation: [G, dst(me), src]
+                arr[:, me, me] = own[:, me, me]
+                for src, msg in peers.items():
+                    arr[:, me, src] = msg[k]
+            inbox[k] = arr
+        return self._upload(inbox)
+
+    # -------------------------------------------------------- client intake
+    def _reply(self, client: int, reply: ApiReply) -> None:
+        """Reply seam, fence-aware: the pipelined loop queues every reply
+        behind the durability fence; the serial loop's order already
+        puts durability first, so it sends at once."""
+        if self.pipeline:
+            self._reply_queue.append((client, reply))
+            return
+        self.external.send_reply(reply, client)
+
+    def _drain_replies_if_settled(self) -> None:
+        """End-of-tick reply release: drain only if the open fence's
+        fsync already completed (or the tick was clean); never block."""
+        token = self._fence_token
+        if token is not None and not self.wal.poll_flush(token):
+            return
+        self._drain_replies()
+
+    def _drain_replies(self) -> None:
+        """Release the queued replies, the fence waited FIRST (and again
+        by ``ExternalApi.send_replies``)."""
+        self._fence_wait()
+        q = self._reply_queue
+        if q:
+            self._reply_queue = []
+            self.external.send_replies(q, fence=self._fence_wait)
+
+    def _intake(self) -> Tuple[np.ndarray, np.ndarray, Dict]:
+        """Drain the client plane: route puts and gets to groups, redirect
+        what we don't lead, answer every other request kind with an
+        error (request.rs:16-216 redirects)."""
+        n_prop = np.zeros((self.G,), np.int32)
+        vbase = np.zeros((self.G,), np.int32)
+        piggy: Dict[Tuple[int, int], Any] = {}
+        batch = self.external.get_req_batch(timeout=0)
+        if not batch:
+            return n_prop, vbase, piggy
+        by_group: Dict[int, list] = {}
+        for client, req in batch:
+            if (req.kind != "req" or req.cmd is None
+                    or req.cmd.kind not in ("put", "get")):
+                self._reply(client, ApiReply(
+                    "error", req_id=req.req_id, success=False,
+                ))
+            else:
+                by_group.setdefault(
+                    self.group_of(req.cmd.key), []
+                ).append((client, req))
+        for g, reqs in by_group.items():
+            if not self._is_leader[g]:
+                hint = int(self._leader_hint[g])
+                for client, req in reqs:
+                    self._reply(client, ApiReply(
+                        "redirect", req_id=req.req_id, redirect=hint,
+                        success=False,
+                    ))
+                continue
+            vid = self.payloads.put(
+                g, reqs, stride=self.population, residue=self.me
+            )
+            self.origin.add((g, vid))
+            n_prop[g] = 1
+            vbase[g] = vid
+            piggy[(g, vid)] = reqs
+        return n_prop, vbase, piggy
+
+    # ---------------------------------------------------------- tick loop
+    def run(self) -> bool:
+        """Event loop; returns True to request a crash-restart."""
+        while True:
+            if self.stopping:
+                self._pipeline_flush()
+                return False
+            t0 = time.monotonic()
+            restart = self._handle_ctrl()
+            if restart is not None:
+                if restart is False:
+                    # graceful leave: settle the in-flight step so every
+                    # already-applied op is acked before teardown
+                    self._pipeline_flush()
+                return restart
+            if self.paused:
+                time.sleep(self.tick_interval)
+                continue
+            if self.pipeline:
+                self._tick_pipelined(t0)
+            else:
+                self._tick_serial(t0)
+
+    def _stage_clock(self, t0: float):
+        """Per-tick stage stopwatch: ``mark(name)`` records the segment
+        since the previous mark into ``loop_stage_us{stage=name}``."""
+        stage_us: Dict[str, int] = {}
+        box = [t0]
+
+        def mark(name: str) -> None:
+            now = time.monotonic()
+            d = int((now - box[0]) * 1e6)
+            self.metrics.observe("loop_stage_us", d, stage=name)
+            stage_us[name] = d
+            box[0] = now
+
+        return stage_us, mark
+
+    def _build_tick_frames(self, frames, piggy) -> Dict[int, dict]:
+        """This tick's per-peer frames: kernel lane slices plus the
+        payload piggyback, the need plane and the kv install plane."""
+        piggy.update(self._pending_serve)
+        self._pending_serve = {}
+        payload_msg: Dict[str, Any] = {
+            "pp": piggy,
+            "kv_need": bool(self.kv_need),
+            "ts": time.monotonic(),
+            "need": sorted(self.missing)[:64],
+        }
+        if self._pending_kv_serve:
+            payload_msg["kv"] = self.statemach.snapshot_items()
+            payload_msg["kv_floor"] = list(self.applied)
+            self._pending_kv_serve = False
+        return {dst: {"msg": frames[dst], **payload_msg} for dst in frames}
+
+    def _build_inputs(self, n_prop, vbase) -> Dict[str, Any]:
+        """This tick's kernel step inputs: ``n_proposals``,
+        ``value_base``, ``exec_floor`` and (kernels declaring it) an
+        all-false ``demote``, on the step's device."""
+        floor = np.repeat(
+            np.asarray(self.applied, np.int32)[:, None],
+            self.population, axis=1,
+        )
+        arrays = {"n_proposals": n_prop, "value_base": vbase,
+                  "exec_floor": floor}
+        if self._demote_supported:
+            arrays["demote"] = np.zeros((self.G, self.population), bool)
+        return self._upload(arrays)
+
+    def _dispatch(self, inbox, inputs) -> Dict[str, Any]:
+        """Launch step N on the replica's stream and, on the card, start
+        the prefetch of every host view the drain reads; returns the
+        in-flight register (it holds every tensor the step reads until
+        its event completes)."""
+        with self._on_stream(), torch.inference_mode():
+            new_state, new_out, fx = self.kernel.step(
+                self.state, inbox, inputs
+            )
+            host = self._prefetch_async(new_state, new_out, fx)
+        return {
+            "state": new_state, "out": new_out, "fx": fx, "host": host,
+            "inbox": inbox, "inputs": inputs, "prev": self.state,
+            "tick": self.tick, "t_dispatch": time.monotonic(),
+        }
+
+    def _prefetch_async(self, new_state, new_out, fx) -> Dict[str, Any]:
+        """Device->host copies of every leaf the host reads next into
+        pinned buffers (allocated once per leaf and shape; two sets used
+        in turn so a copy never lands under a view still in use), with
+        one event recorded behind them.  On the CPU the views are the
+        tensors' own memory and there is nothing to prefetch."""
+        if self._stream is None:
+            return {
+                "state": {k: new_state[k].numpy()
+                          for k in self._prefetch_keys},
+                "out": {k: v.numpy() for k, v in new_out.items()},
+                "commit_bar": fx.commit_bar.numpy(),
+                "extra": {k: v.numpy() for k, v in fx.extra.items()},
+                "event": None,
+            }
+        self._pf_slot ^= 1
+        bufs = self._pinned[self._pf_slot]
+
+        def copy(name: str, t: torch.Tensor) -> torch.Tensor:
+            b = bufs.get(name)
+            if b is None or b.shape != t.shape or b.dtype != t.dtype:
+                b = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                bufs[name] = b
+            b.copy_(t, non_blocking=True)
+            return b
+
+        host = {
+            "state": {k: copy("s:" + k, new_state[k])
+                      for k in self._prefetch_keys},
+            "out": {k: copy("o:" + k, v) for k, v in new_out.items()},
+            "commit_bar": copy("f:commit_bar", fx.commit_bar),
+            "extra": {k: copy("x:" + k, v) for k, v in fx.extra.items()},
+        }
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        host["event"] = ev
+        return host
+
+    def _retire(self, pl: Dict[str, Any]) -> HostEffects:
+        """Wait for the in-flight step's event (the ``device_wait``), then
+        swap in its state and host views; returns its host effects."""
+        host = pl["host"]
+        ev = host["event"]
+        if ev is not None:
+            ev.synchronize()
+
+        def np_of(t):
+            return t if isinstance(t, np.ndarray) else t.numpy()
+
+        self._set_state(pl["state"],
+                        {k: np_of(v) for k, v in host["state"].items()})
+        self._last_out = {k: np_of(v) for k, v in host["out"].items()}
+        return HostEffects(
+            commit_bar=np_of(host["commit_bar"]),
+            extra={k: np_of(v) for k, v in host["extra"].items()},
+        )
+
+    def _tick_end(self, t0: float, deadline: float) -> None:
+        """Shared tick epilogue: advance the tick, sleep to the deadline."""
+        self.tick += 1
+        rem = deadline - time.monotonic()
+        if rem > 0:
+            time.sleep(rem)
+
+    def _tick_serial(self, t0: float) -> None:
+        """One strictly ordered tick: intake -> send/recv -> step (waited)
+        -> WAL log -> group-commit fsync -> apply/reply."""
+        _, _stage = self._stage_clock(t0)
+        n_prop, vbase, piggy = self._intake()
+        _stage("intake")
+
+        frames = self._slice_outbox(self._last_out)
+        deadline = t0 + self.tick_interval
+        tick_frames = self._build_tick_frames(frames, piggy)
+        # these frames carry step N-1's outbox, whose WAL records
+        # _flush_durability fsynced at the end of tick N-1
+        self.transport.send_tick(self.tick, tick_frames)
+        got = self.transport.recv_tick(self.tick, deadline)
+        self._ingest_payloads(got)
+        inbox = self._assemble_inbox(self._last_out, got)
+        inputs = self._build_inputs(n_prop, vbase)
+        _stage("exchange")
+        fx = self._retire(self._dispatch(inbox, inputs))
+        _stage("step")
+
+        self._log_votes()
+        _stage("log")
+        self._apply_committed(fx)
+        self._flush_durability()
+        self._leader_edges(fx)
+        _stage("apply")
+        self._tick_end(t0, deadline)
+
+    def _tick_pipelined(self, t0: float) -> None:
+        """One software-pipelined tick: the serial dataflow, with the
+        device step drained at its first consumer and the WAL fsync on
+        the logger thread behind the durability fence.
+
+            intake   tick N's client batch -> proposals
+            exchange frames out (gated on the fence over step N-1's
+                     records), deferred replies released behind the same
+                     fence, frame recv until the deadline
+            inbox    inbox lane assembly and upload
+            dispatch inputs built, step N launched, prefetch started
+            overlap  peer-payload ingest, coincident with the step
+            device_wait  residual wait on step N's event
+            apply    apply N's commits, queue replies
+            log      N's durable rows -> background appends, fence N
+            (sleep to the deadline, the fsync running under it)
+            drain    replies released if fence N settled, else at N+1
+        """
+        _, _stage = self._stage_clock(t0)
+        deadline = t0 + self.tick_interval
+
+        n_prop, vbase, piggy = self._intake()
+        _stage("intake")
+
+        frames = self._slice_outbox(self._last_out)
+        tick_frames = self._build_tick_frames(frames, piggy)
+        self.transport.send_tick(
+            self.tick, tick_frames, fence=self._fence_wait
+        )
+        self._drain_replies()
+        got = self.transport.recv_tick(self.tick, deadline)
+        _stage("exchange")
+
+        inbox = self._assemble_inbox(self._last_out, got)
+        _stage("inbox")
+        inputs = self._build_inputs(n_prop, vbase)
+        self._pl = self._dispatch(inbox, inputs)
+        _stage("dispatch")
+
+        self._ingest_payloads(got)
+        _stage("overlap")
+
+        pl = self._pl
+        self._pl = None
+        fx = self._retire(pl)
+        _stage("device_wait")
+        self._apply_committed(fx)
+        self._leader_edges(fx)
+        _stage("apply")
+        self._log_votes()
+        self._fence_begin()
+        _stage("log")
+
+        self._tick_end(t0, deadline)
+        self._drain_replies_if_settled()
+
+    def _pipeline_flush(self) -> None:
+        """Settle the pipeline on graceful exit: retire any in-flight step
+        (log/apply), then release everything gated on the fence."""
+        pl = self._pl
+        if pl is not None:
+            self._pl = None
+            fx = self._retire(pl)
+            self._apply_committed(fx)
+            self._leader_edges(fx)
+            self._log_votes()
+        self._fence_begin()
+        self._drain_replies()
+
+    # -------------------------------------------------- payload exchange
+    def _ingest_payloads(self, got) -> None:
+        """Payload piggybacks are unioned across ALL frames a peer sent
+        since our last tick (unlike kernel lanes, they are not
+        cumulative); need requests are served next tick."""
+        for _src, fl in got.items():
+            for f in fl or ():
+                for (g, vid), batch in f.get("pp", {}).items():
+                    self.payloads.install(g, vid, batch, overwrite=False)
+                    self.missing.discard((g, vid))
+                for g, vid in f.get("need", []):
+                    b = self.payloads.get(g, vid)
+                    if b is not None:
+                        self._pending_serve[(g, vid)] = b
+                if f.get("kv_need") and not self.kv_need:
+                    self._pending_kv_serve = True
+                if "kv" in f and self.kv_need:
+                    self._merge_kv(f["kv"], f["kv_floor"])
+
+    def _merge_kv(self, kv: dict, floors: list) -> None:
+        """Install-snapshot KV merge, guarded per group: only groups that
+        jumped take the provider's state, and only when the provider's
+        floor covers ours."""
+        ok_groups = {
+            g for g in self.kv_need
+            if g < len(floors) and floors[g] > self.applied[g]
+        }
+        if not ok_groups:
+            return
+        self.statemach._kv.update({
+            k: v for k, v in kv.items() if self.group_of(k) in ok_groups
+        })
+        for g in ok_groups:
+            self.applied[g] = max(self.applied[g], int(floors[g]))
+            self.kv_need.discard(g)
+
+    # ------------------------------------------------------- application
+    def _apply_committed(self, fx: HostEffects) -> None:
+        self._last_extra = dict(fx.extra)
+        cbs = fx.commit_bar[:, self.me]
+        applied = np.asarray(self.applied)
+        for g in np.nonzero(cbs > applied)[0]:
+            self._apply_group(int(g), int(cbs[g]))
+
+    def _apply_group(self, g: int, cb: int) -> None:
+        if g in self.kv_need:
+            # a window jump is pending its KV transfer: hold the floor
+            return
+        win_abs = self._np_state("win_abs")[g, self.me]
+        win_val = self._np_state(self.kernel.VALUE_WINDOW)[g, self.me]
+        # marker lanes whose slots carry non-payload values
+        marker = np.zeros_like(win_abs, bool)
+        for lane in ("win_cfg", "win_noop"):
+            if lane in self.state:
+                marker |= self._np_state(lane)[g, self.me] != 0
+        while self.applied[g] < cb:
+            slot = self.applied[g]
+            pos = np.where(win_abs == slot)[0]
+            if len(pos) == 0:
+                # below the window: fetch the KV state from peers; the
+                # provider's floor moves applied[g] with the merge
+                self.kv_need.add(g)
+                return
+            vid = 0 if bool(marker[pos[0]]) else int(win_val[pos[0]])
+            batch = self.payloads.get(g, vid)
+            if vid != 0 and batch is None:
+                self.missing.add((g, vid))
+                return  # stall the exec floor until the payload arrives
+            # durability before client-visible effects: the apply record
+            # lands now, the group commit runs before the reply leaves
+            self._wal_append((g, slot, vid, batch))
+            if batch is not None:
+                mine = (g, vid) in self.origin
+                for client, req in batch:
+                    res = apply_command(self.statemach._kv, req.cmd)
+                    if mine:
+                        self._reply_queue.append((client, ApiReply(
+                            "reply", req_id=req.req_id, result=res,
+                        )))
+                self.metrics.counter_add(
+                    "commits_applied_total", len(batch)
+                )
+            self.applied[g] = slot + 1
+
+    def _flush_durability(self) -> None:
+        """Serial group commit: one fsync covers every record appended
+        this tick, then the replies gated on them go out."""
+        if self._wal_dirty:
+            res = self.wal.do_sync_action(LogAction("sync"))
+            if not res.offset_ok:
+                # a failed fsync must NEVER release the replies gated on
+                # it — crash instead; recovery replays what reached disk
+                raise SummersetError(
+                    f"WAL group-commit fsync failed: {res.entry}"
+                )
+            self._wal_dirty = False
+        for client, reply in self._reply_queue:
+            self._reply(client, reply)
+        self._reply_queue.clear()
+
+    def _leader_edges(self, fx: HostEffects) -> None:
+        is_l = self._last_extra.get("is_leader")
+        if is_l is None:
+            return
+        self._is_leader = is_l[:, self.me].astype(bool)
+        if "leader" in self.state:
+            lead = self._np_state("leader")[:, self.me]
+            self._leader_hint = np.where(
+                (lead == self.me) & ~self._is_leader, -1, lead
+            )
+        # manager tracking follows group 0, level-based with a periodic
+        # re-announce (an edge can be lost when leadership bounces
+        # through a third replica while our own flag never flips)
+        g0 = bool(self._is_leader[0])
+        if g0 != self.was_leader:
+            self.ctrl.send_ctrl(CtrlMsg("leader_status", {"step_up": g0}))
+            self.was_leader = g0
+            self._lead_announced = self.tick
+        elif g0 and self.tick - self._lead_announced >= 200:
+            self.ctrl.send_ctrl(CtrlMsg("leader_status", {"step_up": True}))
+            self._lead_announced = self.tick
+
+    # ------------------------------------------------------- control plane
+    def _handle_ctrl(self) -> Optional[bool]:
+        msg = self.ctrl.try_recv_ctrl()
+        if msg is None:
+            return None
+        if msg.kind == "pause":
+            self.paused = True
+            self.ctrl.send_ctrl(CtrlMsg("pause_reply"))
+        elif msg.kind == "resume":
+            self.paused = False
+            self.ctrl.send_ctrl(CtrlMsg("resume_reply"))
+        elif msg.kind == "reset_state":
+            if not msg.payload.get("durable", True):
+                self.wal.stop()
+                try:
+                    os.remove(self.wal_path)
+                except OSError:
+                    pass
+            self.ctrl.send_ctrl(CtrlMsg("reset_reply"))
+            return True
+        elif msg.kind == "leave":
+            return False
+        return None
+
+    def debug_state(self) -> dict:
+        """One-line snapshot for wedge diagnosis."""
+        me = self.me
+        out = {
+            "me": me,
+            "tick": self.tick,
+            "applied": list(self.applied),
+            "kv_need": sorted(self.kv_need),
+            "missing": sorted(self.missing),
+            "paused": self.paused,
+            "peers": self.transport.peers() if self.transport else [],
+            "was_leader": self.was_leader,
+            "wal_size": self.wal.size,
+        }
+        for k in (
+            "leader", "commit_bar", "exec_bar", "vote_bar", "bal_max",
+            "bal_prepared", "next_slot", "dur_bar", "term", "voted_for",
+        ):
+            if k in self.state:
+                out[k] = self._np_state(k)[:, me].tolist()
+        return out
+
+    def shutdown(self) -> None:
+        # idempotent: reachable from both the crash-restart loop and an
+        # external harness stop; tolerates a half-built replica
+        if getattr(self, "_shutdown_done", False):
+            return
+        self._shutdown_done = True
+        for hub, close in (
+            (getattr(self, "external", None), "stop"),
+            (getattr(self, "transport", None), "close"),
+            (getattr(self, "wal", None), "stop"),
+            (getattr(self, "ctrl", None), "close"),
+        ):
+            if hub is not None:
+                getattr(hub, close)()

@@ -1,0 +1,252 @@
+"""TransportHub: the server-to-server TCP mesh, counterpart of
+``summerset_tpu/host/transport.py``.
+
+Parity: reference ``src/server/transport.rs`` — an acceptor thread plus
+one receiver per peer, full mesh built by proactively connecting to
+lower-id peers and accepting from higher ids (transport.rs:388-849).
+
+Lockstep adaptation: a server process owns replica index ``me`` of every
+group.  Each tick it sends one frame per peer carrying (tick number, its
+outbox slices for that destination, the payload piggyback) and assembles
+its inbox from the freshest frame available from each peer.
+
+Delivery is deliberately NOT tick-aligned: replica tick counters skew
+freely, so ``recv_tick`` waits until the deadline for at least one frame
+per peer and returns every frame that arrived, oldest to newest.
+The server unions the payload piggybacks from all frames and takes the
+kernel lanes from the newest (lanes carry cumulative state), keeping an
+older frame owed where its event bits are missing from the newest
+(``ServerReplica._peer_lanes``).  A peer with no frame by the deadline
+is a drop, which the kernels' loss machinery recovers.
+
+Frames are pickle bodies; the JAX hub's wire codec, fault verdicts,
+health hooks and delivery samples are not ported.
+"""
+
+from __future__ import annotations
+
+import queue
+import socket
+import struct
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
+
+from ..utils import safetcp
+from ..utils.errors import SummersetError
+from ..utils.logging import pf_info, pf_logger, pf_warn
+
+logger = pf_logger("transport")
+
+
+def hard_close(sock: socket.socket) -> None:
+    """Abortive close (SO_LINGER 0 -> RST): releases the local port at
+    once, which an in-process crash-restart rebinding it needs; frames
+    are idempotent cumulative snapshots, so a lost tail is a drop."""
+    try:
+        sock.setsockopt(
+            socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0)
+        )
+    except OSError:
+        pass
+    try:
+        # wake any thread blocked in recv() on this socket
+        sock.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+class TransportHub:
+    def __init__(self, me: int, population: int, p2p_addr: Tuple[str, int],
+                 registry=None):
+        self.me = me
+        self.population = population
+        self.p2p_addr = p2p_addr
+        # telemetry seam: per-peer frame and byte counters both ways
+        self.registry = registry
+        self._conns: Dict[int, socket.socket] = {}
+        self._wlocks: Dict[int, threading.Lock] = {}
+        # per-peer receive queues of (tick, payload)
+        self._rq: Dict[int, queue.Queue] = {
+            p: queue.Queue() for p in range(population) if p != me
+        }
+        self._listener = None
+        deadline = time.monotonic() + 10.0
+        while True:
+            try:
+                self._listener = socket.create_server(
+                    p2p_addr, reuse_port=False, backlog=population
+                )
+                break
+            except OSError:
+                # transient rebind race after a crash-restart
+                if time.monotonic() > deadline:
+                    pf_warn(logger, f"bind {p2p_addr} failed")
+                    raise
+                time.sleep(0.1)
+        self._accept_thread = threading.Thread(
+            target=self._acceptor, daemon=True
+        )
+        self._accept_thread.start()
+
+    # ---------------------------------------------------------- mesh setup
+    def peers(self) -> list:
+        """Currently connected peer ids."""
+        return sorted(self._conns)
+
+    def connected(self, peer: int) -> bool:
+        return peer in self._conns
+
+    def connect_to_peer(self, peer: int, addr: Tuple[str, int]) -> None:
+        """Proactively connect to a peer (transport.rs:162)."""
+        sock = None
+        for _ in range(50):
+            try:
+                sock = socket.create_connection(tuple(addr), timeout=5.0)
+                break
+            except OSError:
+                time.sleep(0.2)
+        if sock is None:
+            raise SummersetError(f"cannot connect to peer {peer} @ {addr}")
+        sock.settimeout(None)
+        safetcp.send_msg_sync(sock, self.me)  # identify ourselves
+        self._register(peer, sock)
+
+    def wait_for_group(self, timeout: float = 30.0) -> None:
+        """Block until the full mesh is connected (transport.rs:181)."""
+        deadline = time.monotonic() + timeout
+        while len(self._conns) < self.population - 1:
+            if time.monotonic() > deadline:
+                raise SummersetError(
+                    f"mesh incomplete: {sorted(self._conns)} of "
+                    f"{self.population - 1} peers"
+                )
+            time.sleep(0.05)
+        pf_info(logger, f"p2p mesh complete ({self.population} replicas)")
+
+    def _register(self, peer: int, sock: socket.socket) -> None:
+        # close a replaced connection: leaking it would hold the port past
+        # shutdown and wedge an in-process crash-restart on rebind
+        old = self._conns.get(peer)
+        if old is not None and old is not sock:
+            hard_close(old)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._conns[peer] = sock
+        self._wlocks[peer] = threading.Lock()
+        if self.registry is not None:
+            self.registry.counter_add("transport_connects", peer=peer)
+        t = threading.Thread(
+            target=self._messenger_recv, args=(peer, sock), daemon=True
+        )
+        t.start()
+
+    def _acceptor(self) -> None:
+        while True:
+            try:
+                sock, _ = self._listener.accept()
+            except OSError:
+                return
+            try:
+                peer = int(safetcp.recv_msg_sync(sock))
+            except Exception:
+                # a dialer that never completes the id handshake
+                sock.close()
+                continue
+            self._register(peer, sock)
+
+    def _messenger_recv(self, peer: int, sock: socket.socket) -> None:
+        reg = self.registry
+        try:
+            while True:
+                tick, payload = safetcp.recv_msg_sync(sock)
+                if reg is not None:
+                    reg.counter_add("transport_frames_recv", peer=peer)
+                self._rq[peer].put((tick, payload))
+        except Exception:
+            pf_warn(logger, f"peer {peer} connection lost")
+            if self._conns.get(peer) is sock:
+                del self._conns[peer]
+            hard_close(sock)
+
+    # ------------------------------------------------------------ tick I/O
+    def send_tick(self, tick: int, per_peer: Dict[int, Any],
+                  fence=None) -> None:
+        """Send this tick's frame to each connected peer.
+
+        ``fence`` is the pipelined loop's durability gate
+        (``ServerReplica._fence_wait``), called BEFORE the first byte of
+        any frame leaves: the frames carry votes/acks computed by the
+        step whose WAL records the fence covers, and a failed fence
+        raises here, before anything escapes the process."""
+        if fence is not None:
+            fence()
+        reg = self.registry
+        for peer, payload in per_peer.items():
+            sock = self._conns.get(peer)
+            if sock is None:
+                continue
+            buf = safetcp.encode_frame((tick, payload))
+            try:
+                with self._wlocks[peer]:
+                    sock.sendall(buf)
+                if reg is not None:
+                    reg.counter_add("transport_frames_sent", peer=peer)
+                    reg.counter_add("transport_bytes_sent", len(buf),
+                                    peer=peer)
+            except OSError:
+                if self._conns.get(peer) is sock:
+                    self._conns.pop(peer, None)
+                hard_close(sock)
+
+    def recv_tick(
+        self, tick: int, deadline: float
+    ) -> Dict[int, Optional[list]]:
+        """Collect peers' queued frames, waiting until ``deadline``
+        (monotonic seconds) for at least one frame from each connected
+        peer.  Returns ``{peer: [frame, ...] oldest-to-newest}`` with
+        ``None`` for peers that produced nothing (drop semantics)."""
+        out: Dict[int, Optional[list]] = {p: None for p in self._rq}
+
+        def drain() -> None:
+            for p, q in self._rq.items():
+                while True:
+                    try:
+                        _t, payload = q.get_nowait()
+                    except queue.Empty:
+                        break
+                    if out[p] is None:
+                        out[p] = []
+                    out[p].append(payload)
+
+        while True:
+            drain()
+            waiting = [
+                p for p in self._rq
+                if out[p] is None and p in self._conns
+            ]
+            budget = deadline - time.monotonic()
+            if not waiting or budget <= 0:
+                return out
+            # block on one lagging peer's queue, then re-drain all
+            try:
+                _t, payload = self._rq[waiting[0]].get(timeout=budget)
+                if out[waiting[0]] is None:
+                    out[waiting[0]] = []
+                out[waiting[0]].append(payload)
+            except queue.Empty:
+                pass
+
+    def close(self) -> None:
+        # shutdown() first: it forces the acceptor's blocked accept() to
+        # return, so the listening port is really released
+        try:
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._listener.close()
+        for sock in list(self._conns.values()):
+            hard_close(sock)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 _MULT = 1664525
 _INC = 1013904223
 _SEED_MULT = 2654435761
@@ -24,15 +26,16 @@ def _as_i32(v: int) -> int:
     return v - (1 << 32) if v >= 1 << 31 else v
 
 
-def seed_state(seed: int, shape, device="cpu") -> torch.Tensor:
+def seed_state(seed: int, shape, device=None) -> torch.Tensor:
     """Deterministic distinct seeds for an array of generators: generator
-    ``i`` (flat index) starts at ``(i * 2654435761 + seed) | 1`` mod 2^32."""
+    ``i`` (flat index) starts at ``(i * 2654435761 + seed) | 1`` mod 2^32.
+    ``device`` follows the port's device rule (``None`` is the card)."""
     n = int(np.prod(shape, dtype=np.int64))
     base = np.arange(n, dtype=np.uint64)
     st = ((base * np.uint64(_SEED_MULT) + np.uint64(seed & 0xFFFFFFFF))
           & np.uint64(0xFFFFFFFF)) | np.uint64(1)
     st = st.astype(np.uint32).view(np.int32).reshape(tuple(shape))
-    return torch.from_numpy(st.copy()).to(device)
+    return torch.from_numpy(st.copy()).to(resolve_device(device))
 
 
 def lcg_next(state: torch.Tensor) -> torch.Tensor:

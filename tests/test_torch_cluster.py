@@ -1,0 +1,587 @@
+"""Live port clusters in one process: a real manager + N port
+``ServerReplica`` loops over localhost TCP, on ``device="cpu"`` here
+(``chip_smoke.py`` runs the same harness on the card).
+
+``Cluster`` is the counterpart of ``tests/test_cluster.py::Cluster``:
+a manager thread, replica threads under a crash-restart supervisor and
+free ports.  This module imports nothing of JAX at import time, so
+``chip_smoke.py`` and ``tests/test_torch_pipeline.py`` import the harness
+from here.  The JAX package's own checker is imported inside the one test
+that uses it.
+"""
+
+import asyncio
+import os
+import random
+import socket
+import threading
+import time
+
+import pytest
+import torch
+
+from summerset_tpu_torch.client.drivers import DriverClosedLoop
+from summerset_tpu_torch.client.endpoint import GenericEndpoint
+from summerset_tpu_torch.host.messages import CtrlRequest
+from summerset_tpu_torch.host.server import STAGES, ServerReplica
+from summerset_tpu_torch.manager import ClusterManager
+from summerset_tpu_torch.utils.linearize import record_get, record_put
+
+# the suite runs under xdist: one intra-op thread per worker keeps the
+# three replica threads from oversubscribing the cores
+torch.set_num_threads(1)
+
+
+def free_ports(n):
+    """``n`` distinct free localhost ports below Linux's ephemeral range:
+    client connections take their local ports from that range, so a port
+    picked there can be taken by a connection before a restarted replica
+    binds it again."""
+    rng = random.Random()
+    ports = []
+    while len(ports) < n:
+        p = rng.randrange(20000, 32000)
+        if p in ports:
+            continue
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", p))
+        except OSError:
+            continue
+        finally:
+            s.close()
+        ports.append(p)
+    return ports
+
+
+class Cluster:
+    """A manager and ``n`` port replicas, each replica in its own thread
+    under a crash-restart supervisor."""
+
+    def __init__(self, protocol, n, tmpdir, config=None, tick=0.005,
+                 num_groups=1, window=32, device="cpu", settle=1.0):
+        self.protocol = protocol
+        self.n = n
+        self.tmpdir = str(tmpdir)
+        self.config = config or {}
+        self.tick = tick
+        self.num_groups = num_groups
+        self.window = window
+        self.device = device
+        ports = free_ports(2 + 2 * n)
+        self.srv_port, self.cli_port = ports[0], ports[1]
+        self.api_ports = ports[2:2 + n]
+        self.p2p_ports = ports[2 + n:]
+        self.manager_addr = ("127.0.0.1", self.cli_port)
+        self.replicas = {}
+        self._threads = []
+        self._man_loop = None
+        self._stopping = False
+        # supervisor records: {me, error} per crash out of run(), and
+        # {slot, error} per failed constructor (retried); a durable
+        # reset ends run() with True and is neither
+        self.crash_reports = []
+        self.bringup_failures = []
+
+        man = ClusterManager(
+            protocol, ("127.0.0.1", self.srv_port),
+            ("127.0.0.1", self.cli_port), n,
+        )
+        self.manager = man
+
+        def run_man():
+            from summerset_tpu_torch.utils.loops import drain_and_close
+
+            loop = asyncio.new_event_loop()
+            self._man_loop = loop
+            asyncio.set_event_loop(loop)
+            try:
+                loop.run_until_complete(man.run())
+            except Exception:
+                pass
+            finally:
+                drain_and_close(loop)
+
+        t = threading.Thread(target=run_man, daemon=True)
+        t.start()
+        self._threads.append(t)
+        time.sleep(0.3)
+
+        # replicas come up concurrently (mesh barrier)
+        for r in range(n):
+            t = threading.Thread(
+                target=self._replica_loop, args=(r,), daemon=True
+            )
+            t.start()
+            self._threads.append(t)
+        deadline = time.monotonic() + 120
+        while len(self.replicas) < n:
+            assert time.monotonic() < deadline, "cluster failed to start"
+            time.sleep(0.1)
+        time.sleep(settle)  # let the warm-start leader settle
+
+    def _replica_loop(self, slot: int) -> None:
+        """Crash-restart loop: an exception out of run() is a crash (for
+        example the durability gate refusing to ack past a failed fsync)
+        and the replica restarts, recovery replaying what reached disk."""
+        while not self._stopping:
+            try:
+                rep = ServerReplica(
+                    self.protocol,
+                    ("127.0.0.1", self.api_ports[slot]),
+                    ("127.0.0.1", self.p2p_ports[slot]),
+                    ("127.0.0.1", self.srv_port),
+                    config=dict(self.config),
+                    tick_interval=self.tick,
+                    window=self.window,
+                    num_groups=self.num_groups,
+                    backer_dir=self.tmpdir,
+                    device=self.device,
+                )
+            except Exception as e:
+                self.bringup_failures.append({"slot": slot,
+                                              "error": repr(e)})
+                print(f"replica slot {slot} bring-up failed: {e!r}; "
+                      "retrying", flush=True)
+                time.sleep(0.5)
+                continue
+            self.replicas[rep.me] = rep
+            try:
+                restart = rep.run()
+            except Exception as e:
+                self.crash_reports.append({"me": rep.me, "error": repr(e)})
+                print(f"replica {rep.me} crashed: {e!r}; restarting",
+                      flush=True)
+                restart = True
+            rep.shutdown()
+            self.replicas.pop(rep.me, None)
+            if not restart or rep.stopping:
+                return
+            time.sleep(0.2)
+
+    def faults(self):
+        """Every failed bring-up and crash so far.  A run that injects
+        no fault fails on a non-empty list: the supervisor's restart
+        would otherwise hide a replica's error behind the failover."""
+        return self.bringup_failures + self.crash_reports
+
+    def endpoint(self):
+        ep = GenericEndpoint(self.manager_addr)
+        ep.connect()
+        return ep
+
+    def ctrl(self, kind, servers=None, durable=True, timeout=180):
+        """One manager control request through a fresh endpoint."""
+        ep = GenericEndpoint(self.manager_addr)
+        try:
+            return ep.ctrl.request(
+                CtrlRequest(kind, servers=servers, durable=durable),
+                timeout=timeout,
+            )
+        finally:
+            ep.leave()
+
+    def leader_of(self, g=0):
+        """The unpaused replica that currently leads group ``g``, or
+        None (a paused replica's leadership flag is frozen)."""
+        for me, rep in sorted(self.replicas.items()):
+            if not rep.paused and bool(rep._is_leader[g]):
+                return me
+        return None
+
+    def stop(self):
+        self._stopping = True
+        for rep in list(self.replicas.values()):
+            rep.stopping = True
+        deadline = time.monotonic() + 10
+        for t in self._threads[1:]:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        for rep in list(self.replicas.values()):
+            rep.shutdown()
+        if self._man_loop is not None:
+            self._man_loop.call_soon_threadsafe(self._man_loop.stop)
+
+
+def history_worker(cluster, ci, ops, stop, keys=3, timeout=3.0, seed=100):
+    """One closed-loop client recording a put/get history over ``keys``
+    keys until ``stop`` is set (the shape of
+    ``tests/test_cluster.py:257-344``)."""
+    rng = random.Random(seed + ci)
+    ep = cluster.endpoint()
+    drv = DriverClosedLoop(ep, timeout=timeout)
+    seq = 0
+    while not stop.is_set():
+        key = f"lin{seq % keys}"
+        t0 = time.monotonic()
+        if rng.random() < 0.5:
+            val = f"c{ci}-{seq}"
+            rep = drv.put(key, val)
+            t1 = time.monotonic()
+            if rep.kind == "success":
+                ops.append(record_put(ci, key, val, t0, t1, True))
+            elif rep.kind in ("timeout", "failure", "disconnect"):
+                # may or may not have executed
+                ops.append(record_put(ci, key, val, t0, None, False))
+                drv._failover(rep)
+        else:
+            rep = drv.get(key)
+            t1 = time.monotonic()
+            if rep.kind == "success":
+                val = rep.result.value if rep.result else None
+                ops.append(record_get(ci, key, val, t0, t1))
+            elif rep.kind in ("timeout", "failure", "disconnect"):
+                drv._failover(rep)
+        seq += 1
+    try:
+        ep.leave()
+    except Exception:
+        pass
+
+
+def kv_agreement(cluster):
+    """Every replica's applied floors and KV map, after quiescing; the
+    caller asserts they are all equal."""
+    return {
+        me: (list(rep.applied), dict(rep.statemach.snapshot_items()))
+        for me, rep in sorted(cluster.replicas.items())
+    }
+
+
+def norm_batch(batch):
+    """A ReqBatch as plain tuples (either package's message classes)."""
+    if batch is None:
+        return None
+    return [
+        (c, r.kind, r.req_id, None if r.cmd is None else
+         (r.cmd.kind, r.cmd.key, r.cmd.value))
+        for c, r in batch
+    ]
+
+
+def norm_wal(entry):
+    """A WAL record with its batches as plain tuples."""
+    if isinstance(entry, tuple) and entry and entry[0] == "vote":
+        _, g, rec = entry
+        rec = dict(rec)
+        rec["pp"] = {vid: norm_batch(b) for vid, b in rec["pp"].items()}
+        return ("vote", g, rec)
+    g, slot, vid, batch = entry
+    return (g, slot, vid, norm_batch(batch))
+
+
+def read_wal(path, hub_cls=None, action_cls=None):
+    """Every record of a WAL file, normalized (the port's StorageHub
+    unless another package's hub and action classes are given)."""
+    from summerset_tpu_torch.host.storage import LogAction, StorageHub
+
+    hub = (hub_cls or StorageHub)(path)
+    action_cls = action_cls or LogAction
+    out, off = [], 0
+    try:
+        while True:
+            res = hub.do_sync_action(action_cls("read", offset=off))
+            if not res.offset_ok or res.entry is None:
+                break
+            out.append(norm_wal(res.entry))
+            off = res.end_offset
+    finally:
+        hub.stop()
+    return out
+
+
+def durable_digest(kernel, leaf) -> str:
+    """sha256 over the kernel's durable leaves (``leaf(name)`` -> numpy)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tuple(kernel.DURABLE_SCALARS)
+                    + tuple(kernel.DURABLE_WINDOWS)):
+        h.update(k.encode())
+        h.update(leaf(k).tobytes())
+    return h.hexdigest()
+
+
+def sequential_puts(tmpdir, device, pipeline, n=24, groups=2, window=32):
+    """``n`` strictly sequential puts on a 1-replica MultiPaxos port
+    cluster: on one replica the durable state after a sequential history
+    is a pure function of the op stream, so runs on the card and on the
+    CPU, in either loop mode, must agree exactly.  Returns the durable
+    digest, KV, applied floors and every WAL record."""
+    c = Cluster("MultiPaxos", 1, str(tmpdir), config={"pipeline": pipeline},
+                tick=0.004, num_groups=groups, window=window, device=device,
+                settle=0.5)
+    ep = None
+    try:
+        ep = c.endpoint()
+        drv = DriverClosedLoop(ep, timeout=20.0)
+        rep = c.replicas[0]
+        t0, tick0 = time.monotonic(), rep.tick
+        for i in range(n):
+            drv.checked_put(f"k{i % 7}", f"v{i}")
+        secs, ticks = time.monotonic() - t0, rep.tick - tick0
+    finally:
+        if ep is not None:
+            ep.leave()
+        c.stop()
+    assert not c.faults(), f"replica faults: {c.faults()}"
+    # stopped: the in-flight step was retired and the state is final
+    return {
+        "digest": durable_digest(
+            rep.kernel, lambda k: rep.state[k].cpu().numpy()),
+        "kv": dict(rep.statemach._kv),
+        "applied": list(rep.applied),
+        "wal": read_wal(os.path.join(str(tmpdir), "r0.wal")),
+        "ticks_per_s": ticks / secs,
+        "stage_mean_us": {
+            st: h.mean() for st in STAGES
+            for h in [rep.metrics.hist("loop_stage_us", stage=st)] if h
+        },
+    }
+
+
+# ------------------------------------------------------------------ tests
+@pytest.fixture(scope="module", params=["MultiPaxos", "Raft"])
+def cluster(request, tmp_path_factory):
+    """One live 3-replica port cluster per protocol, G=4, W=32."""
+    # shorter election timers than the 30-60 tick defaults: three
+    # replica threads share one interpreter here, so a CPU tick is slow
+    c = Cluster(
+        request.param, 3,
+        tmp_path_factory.mktemp(f"torch_{request.param.lower()}"),
+        num_groups=4, window=32,
+        config={"hear_timeout_lo": 10, "hear_timeout_hi": 20},
+    )
+    c.manager.settle_delay = 0.2
+    yield c
+    c.stop()
+    assert not c.faults(), f"replica faults: {c.faults()}"
+
+
+def _driver(cluster, timeout=3.0):
+    ep = cluster.endpoint()
+    return ep, DriverClosedLoop(ep, timeout=timeout)
+
+
+def _dumps(cluster):
+    return {me: rep.debug_state()
+            for me, rep in sorted(cluster.replicas.items())}
+
+
+class TestTorchCluster:
+    def test_primitive_put_get(self, cluster):
+        ep, drv = _driver(cluster)
+        try:
+            for i in range(5):
+                drv.checked_put(f"p{i}", f"v{i}", retries=40)
+            for i in range(5):
+                drv.checked_get(f"p{i}", f"v{i}", retries=40)
+            drv.checked_get("never-written", None, retries=40)
+        finally:
+            ep.leave()
+
+    def test_follower_redirects_to_leader(self, cluster):
+        leader = None
+        deadline = time.monotonic() + 30
+        while leader is None and time.monotonic() < deadline:
+            leader = cluster.leader_of(0)
+            time.sleep(0.1)
+        assert leader is not None, _dumps(cluster)
+        follower = next(me for me in sorted(cluster.replicas)
+                        if me != leader)
+        ep = GenericEndpoint(cluster.manager_addr, server_id=follower)
+        ep.connect()
+        try:
+            assert ep.current == follower
+            drv = DriverClosedLoop(ep, timeout=3.0)
+            # a key routed to group 0, which the follower does not lead
+            key = next(f"r{i}" for i in range(1000)
+                       if cluster.replicas[follower].group_of(f"r{i}") == 0)
+            rep = drv.put(key, "x")
+            assert rep.kind == "redirect", rep
+            assert rep.redirect == leader
+            # the endpoint followed the hint: the retry lands at the leader
+            assert ep.current == leader
+            drv.checked_put(key, "x", retries=40)
+            drv.checked_get(key, "x", retries=40)
+        finally:
+            ep.leave()
+
+    def test_leader_pause_failover(self, cluster):
+        ep, drv = _driver(cluster)
+        try:
+            drv.checked_put("fo", "before", retries=40)
+            leader = cluster.leader_of(0)
+            assert leader is not None, _dumps(cluster)
+            cluster.ctrl("pause_servers", servers=[leader], timeout=30)
+            try:
+                # the survivors elect a new leader of every group and
+                # serve the key again
+                drv.checked_get("fo", "before", retries=60)
+                drv.checked_put("fo", "during", retries=60)
+                new = cluster.leader_of(0)
+                assert new is not None and new != leader
+            finally:
+                cluster.ctrl("resume_servers", servers=[leader], timeout=30)
+            drv.checked_get("fo", "during", retries=60)
+        finally:
+            ep.leave()
+
+    @pytest.mark.parametrize("which", ["leader", "all"])
+    def test_durable_reset_recovers_acked_keys(self, cluster, which):
+        ep, drv = _driver(cluster)
+        want = {}
+        try:
+            for i in range(4):
+                k, v = f"d{which}{i}", f"v{i}"
+                drv.checked_put(k, v, retries=40)
+                want[k] = v
+        finally:
+            ep.leave()
+        servers = None
+        if which == "leader":
+            leader = cluster.leader_of(0)
+            assert leader is not None, _dumps(cluster)
+            servers = [leader]
+        rep = cluster.ctrl("reset_servers", servers=servers, durable=True)
+        assert sorted(rep.done) == sorted(servers or range(cluster.n))
+        time.sleep(1.0)
+        ep, drv = _driver(cluster)
+        try:
+            for k, v in want.items():
+                drv.checked_get(k, v, retries=60)
+        except AssertionError as e:
+            raise AssertionError(f"{e}\n{_dumps(cluster)}") from e
+        finally:
+            ep.leave()
+
+    def test_linearizable_history_under_faults(self, cluster):
+        """A 3-client, 3-key history under a pause/resume schedule,
+        checked by the port's checker and by the JAX package's."""
+        from summerset_tpu.utils import linearize as jlin
+        from summerset_tpu_torch.utils.linearize import check_history
+
+        ops = []
+        stop = threading.Event()
+        threads = [
+            threading.Thread(target=history_worker,
+                             args=(cluster, ci, ops, stop), daemon=True)
+            for ci in range(3)
+        ]
+        for t in threads:
+            t.start()
+        rng = random.Random(7)
+        try:
+            for _ in range(2):
+                time.sleep(1.5)
+                victim = rng.choice(sorted(cluster.replicas))
+                cluster.ctrl("pause_servers", servers=[victim], timeout=30)
+                time.sleep(1.5)
+                cluster.ctrl("resume_servers", servers=[victim], timeout=30)
+            deadline = time.monotonic() + 30
+            while len(ops) <= 20 and time.monotonic() < deadline:
+                time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=30)
+        assert len(ops) > 20, f"history too small: {len(ops)}"
+        ok, diag = check_history(ops)
+        assert ok, diag
+        jops = [jlin.Op(o.client, o.kind, o.key, o.value, o.t_inv,
+                        o.t_resp, o.acked, o.shed) for o in ops]
+        ok, diag = jlin.check_history(jops)
+        assert ok, diag
+
+
+ADDR = ("127.0.0.1", 1)
+
+
+def test_unserved_protocol_is_refused(tmp_path):
+    from summerset_tpu_torch.utils.errors import SummersetError
+
+    with pytest.raises(SummersetError, match="ROADMAP.md item 6"):
+        ServerReplica("EPaxos", ADDR, ADDR, ADDR, backer_dir=str(tmp_path),
+                      device="cpu")
+
+
+def test_device_mesh_is_refused(tmp_path):
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ServerReplica("MultiPaxos", ADDR, ADDR, ADDR,
+                      config={"device_mesh": "2x1"},
+                      backer_dir=str(tmp_path), device="cpu")
+
+
+def test_default_device_raises_without_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ServerReplica("MultiPaxos", ADDR, ADDR, ADDR,
+                      backer_dir=str(tmp_path))
+
+
+def test_default_wal_dir_is_the_ports_own():
+    """A port replica started with the defaults never opens the JAX
+    CLI's WAL directory (its records would unpickle the JAX package)."""
+    import inspect
+    import tempfile
+
+    from summerset_tpu_torch.host.server import DEFAULT_BACKER_DIR
+
+    default = inspect.signature(ServerReplica).parameters["backer_dir"]
+    assert default.default == DEFAULT_BACKER_DIR
+    assert DEFAULT_BACKER_DIR == os.path.join(tempfile.gettempdir(),
+                                              "summerset_tpu_torch")
+    assert os.path.basename(DEFAULT_BACKER_DIR) != "summerset_tpu"
+
+
+def test_cli_without_device_raises_without_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from summerset_tpu_torch.cli.server import main
+
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        main(["--backer-dir", str(tmp_path)])
+
+
+def test_full_ingress_queue_sheds_with_retry_hint():
+    """The bounded api queue refuses a request arriving at a full queue
+    with a ``shed`` reply (never queued, so never proposed), counted in
+    ``api_shed``; the queued one is still handed to the replica."""
+    from summerset_tpu_torch.client.endpoint import ClientApiStub
+    from summerset_tpu_torch.host.external import ExternalApi
+    from summerset_tpu_torch.host.messages import ApiRequest
+    from summerset_tpu_torch.host.statemach import Command
+    from summerset_tpu_torch.host.telemetry import MetricsRegistry
+
+    reg = MetricsRegistry()
+    port = free_ports(1)[0]
+    api = ExternalApi(("127.0.0.1", port), max_pending=1, registry=reg)
+    stub = ClientApiStub(7, ("127.0.0.1", port))
+    try:
+        for rid in (1, 2):
+            stub.send_req(ApiRequest("req", req_id=rid,
+                                     cmd=Command("put", "k", str(rid))))
+        rep = stub.recv_reply(timeout=10)
+        assert rep.kind == "shed" and rep.req_id == 2
+        assert not rep.success and rep.retry_after_ms > 0
+        assert reg.counter_value("api_shed") == 1
+        batch = api.get_req_batch(timeout=10)
+        assert [(c, r.req_id) for c, r in batch] == [(7, 1)]
+    finally:
+        stub.close()
+        api.stop()
+
+
+def test_api_plane_that_cannot_bind_fails_bring_up():
+    """A taken api port fails the hub's construction (so the replica's
+    supervisor retries) instead of leaving a replica no client reaches."""
+    from summerset_tpu_torch.host.external import ExternalApi
+    from summerset_tpu_torch.utils.errors import SummersetError
+
+    port = free_ports(1)[0]
+    holder = socket.create_server(("127.0.0.1", port))
+    try:
+        with pytest.raises(SummersetError, match="failed to start"):
+            ExternalApi(("127.0.0.1", port))
+    finally:
+        holder.close()

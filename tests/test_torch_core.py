@@ -225,7 +225,8 @@ def test_netmodel_pop_push_digests(net, proto, tally):
     assert jcfg.lanes_packed == tcfg.lanes_packed
     assert jcfg.max_delay_ticks == tcfg.max_delay_ticks
     jm = jnet.NetModel(jcfg, G, R, jk.broadcast_lanes, jk.tally_lanes)
-    tm = tnet.NetModel(tcfg, G, R, tk.broadcast_lanes, tk.tally_lanes)
+    tm = tnet.NetModel(tcfg, G, R, tk.broadcast_lanes, tk.tally_lanes,
+                       device="cpu")
     jns = jm.init_netstate(jk.zero_outbox(), seed=3)
     tns = tm.init_netstate(tk.zero_outbox(), seed=3)
     assert _digest(to_numpy(tns)) == _digest(jns)

@@ -358,3 +358,36 @@ def test_codec_on_card_matches_cpu(cuda_device):
         peer.add_shards(j % 4, j, n, {s: rows[s] for s in sub})
         assert peer.reconstruct_batch(j % 4, j) == batch
         assert peer.have_mask(j % 4, j) == 0b11111
+
+
+# ------------------------------------------------------------ serving path
+@pytest.mark.cuda
+def test_telemetry_block_follows_cuda_state(cuda_device):
+    """The server attaches the lane block after ``init_state`` with no
+    ``device``: it must land on the card beside the state."""
+    from summerset_tpu_torch.core import telemetry
+
+    kernel = make_protocol("multipaxos", 4, 3, 32, device=cuda_device)
+    state = kernel.init_state(seed=0)
+    telemetry.attach(state, 4, 3)
+    assert state[telemetry.TELEM_KEY].device.type == "cuda"
+    assert all(v.device.type == "cuda" for v in state.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True],
+                         ids=["serial", "pipelined"])
+def test_serving_on_card_matches_cpu(cuda_device, tmp_path, pipeline):
+    """24 sequential puts on a 1-replica port cluster on the card and on
+    the CPU: equal durable digests, KV, floors and WAL records."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_cluster import sequential_puts
+
+    card = sequential_puts(tmp_path / "card", "cuda", pipeline)
+    cpu = sequential_puts(tmp_path / "cpu", "cpu", pipeline)
+    assert sum(card["applied"]) == 24
+    for part in ("digest", "kv", "applied", "wal"):
+        assert card[part] == cpu[part], part

@@ -1,5 +1,5 @@
-"""The port stands alone: importing ``summerset_tpu_torch`` (every module)
-and ``chip_smoke`` loads neither ``jax`` nor the JAX package, and no entry
+"""The port stands alone: importing ``summerset_tpu_torch`` (every module),
+``chip_smoke`` and ``serve_upload_ab`` loads neither ``jax`` nor the JAX package, and no entry
 point of the port falls back to the CPU by itself.
 
 The import check runs in a subprocess, because ``tests/conftest.py``
@@ -23,7 +23,7 @@ mods = [pkg.__name__]
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
     mods.append(info.name)
-import chip_smoke
+import chip_smoke, serve_upload_ab
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "summerset_tpu" or m.startswith("summerset_tpu."))
@@ -59,6 +59,35 @@ def test_port_and_chip_smoke_import_no_jax():
               "summerset_tpu_torch.core.engine",
               "summerset_tpu_torch.entry"):
         assert m in got["modules"]
+    for m in SERVING_MODULES:
+        assert m in got["modules"]
+
+
+#: the serving path's modules (each also checked alone below)
+SERVING_MODULES = tuple("summerset_tpu_torch." + m for m in (
+    "utils.errors", "utils.logging", "utils.loops", "utils.timer",
+    "utils.safetcp", "utils.linearize", "host.statemach", "host.messages",
+    "host.payload", "host.storage", "host.control", "host.transport",
+    "host.external", "host.telemetry", "host.server", "manager",
+    "manager.clusman", "client", "client.endpoint", "client.drivers",
+    "cli", "cli.server", "cli.manager",
+))
+
+_ALONE = r"""
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "summerset_tpu" or m.startswith("summerset_tpu."))
+print(json.dumps(bad))
+"""
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_module_alone_imports_no_jax(module):
+    proc = _run(["-c", _ALONE, module])
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -70,14 +99,27 @@ def test_chip_smoke_refuses_without_a_card():
     assert "kernels" not in proc.stdout
 
 
+def test_upload_ab_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: serve_upload_ab.py would run")
+    proc = _run(["serve_upload_ab.py"])
+    assert proc.returncode != 0
+    assert "upload_ab" not in proc.stdout
+
+
 def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     from summerset_tpu_torch.convert import to_torch
     from summerset_tpu_torch.core import ControlInputs, Engine
     from summerset_tpu_torch.entry import entry
     from summerset_tpu_torch.host.codeword import CodewordStore
     from summerset_tpu_torch.ops.rscoding import RSCode
+    from summerset_tpu_torch.core.netmodel import NetConfig, NetModel
+    from summerset_tpu_torch.core.telemetry import zero_block
+    from summerset_tpu_torch.host.server import ServerReplica
+    from summerset_tpu_torch.ops.prng import seed_state
     from summerset_tpu_torch.protocols import make_protocol
 
+    addr = ("127.0.0.1", 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kernel = make_protocol("multipaxos", 2, 3, 32, device="cpu")
     code = RSCode(3, 2, device="cpu")
@@ -104,6 +146,10 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         lambda: CodewordStore(2, code, total=5),
         lambda: entry(),
         lambda: to_torch({"x": [1, 2]}),
+        lambda: zero_block(2, 3),
+        lambda: seed_state(5, (2, 3)),
+        lambda: NetModel(NetConfig(), 2, 3, frozenset()),
+        lambda: ServerReplica("MultiPaxos", addr, addr, addr),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -112,3 +158,34 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     assert eng.init()[0]["commit_bar"].device.type == "cpu"
     assert ControlInputs.all_up(2, 3, device="cpu").alive.device.type == \
         "cpu"
+
+
+def test_helpers_place_tensors_beside_the_state(monkeypatch):
+    """The server attaches the telemetry block after ``init_state`` as
+    the JAX server does, with no ``device``: the block must land on the
+    state's device (``meta`` stands in for the card here), and the
+    other helpers called without ``device`` follow the device rule
+    (the card, or an error without one) instead of the CPU."""
+    from summerset_tpu_torch.core import telemetry
+    from summerset_tpu_torch.core.netmodel import NetConfig, NetModel
+    from summerset_tpu_torch.ops.prng import seed_state
+
+    for dev in ("meta", "cpu"):
+        state = {"commit_bar": torch.zeros((2, 3), dtype=torch.int32,
+                                           device=dev)}
+        telemetry.attach(state, 2, 3)
+        assert state[telemetry.TELEM_KEY].device.type == dev
+        assert tuple(state[telemetry.TELEM_KEY].shape) == (2, 3,
+                                                           telemetry.K)
+    assert telemetry.zero_block(2, 3, device="cpu").device.type == "cpu"
+    assert seed_state(5, (2, 3), device="cpu").device.type == "cpu"
+    # without a device they follow the device rule: no card, no tensor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: telemetry.zero_block(2, 3),
+        lambda: telemetry.attach({}, 2, 3),
+        lambda: seed_state(5, (2, 3)),
+        lambda: NetModel(NetConfig(), 2, 3, frozenset()),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
