@@ -82,8 +82,9 @@ before printing any result.  Phases, each printed as it runs:
              on the card (the harness of ``tests/test_torch_cluster.py``),
              16 closed-loop clients over 1024 keys.  MultiPaxos: a 10 s
              timed window (one ``serving`` JSON line: ops/s, p50/p99,
-             ticks/s per replica, the mean of each ``loop_stage_us`` stage,
-             ``max_memory_allocated``), the group-0 leader paused until
+             ticks/s per replica, the mean of each ``loop_stage_us``
+             stage, ``max_memory_allocated``, the leader's bytes per
+             payload), the group-0 leader paused until
              every client succeeds at a new leader (at least 3 s), a
              durable reset of a follower and then of the leader, every
              acknowledged key read back; then, with the clients stopped,
@@ -96,8 +97,30 @@ before printing any result.  Phases, each printed as it runs:
              agreement, history and fault checks.  Last, 24 sequential puts
              on a 1-replica cluster on the card and on the CPU, serial and
              pipelined: equal durable digests, KV, floors and WAL records.
-Phases 4, 6 and 7 each count their own kernel launches and fail on none;
-phases 8-12 run no codeword plane and launch no hand kernel.
+13. codeword serving — phase 12's harness and shape serving the codeword
+             family, RS(2,1) (``fault_tolerance=0``), puts of 3000 B
+             values: the leader encodes each proposed batch with
+             ``bitslice_gf256`` and ships each peer its shard, followers
+             rebuild from shards.  First MultiPaxos at the same load, 5 s,
+             for the full-copy baseline.  RSPaxos: a
+             10 s window, the leader paused (the new leader rebuilds
+             adopted values from shards), a durable reset of a follower
+             and then of the leader, every acked key read back,
+             agreement, a linearizable 3-client history.  CRaft: 5 s, the
+             leader paused until the new leader ships full copies, then
+             shards again after the resume (both kinds counted).
+             Crossword, adaptive width: 5 s and a leader pause, the widths
+             chosen logged.  The RSPaxos leader's bytes per payload below
+             0.75x the MultiPaxos baseline's, and the wire sizes of one
+             shard send and one full copy at phase 12's values and at
+             3000 B (the finding at small values); three RSPaxos replicas
+             on the card against three on the CPU in per-tick lockstep
+             through a leader change; the kernel's time per launch at the
+             serving encode and decode shapes beside its bound and the
+             plain version; peak device memory and each replica's
+             codeword store at the end.
+Phases 4, 6, 7 and 13 each count their own kernel launches and fail on
+none; phases 8-12 run no codeword plane and launch no hand kernel.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -149,6 +172,13 @@ SERVE_PAUSE_S = 3.0       # a paused leader stays paused at least this
 SERVE_FAILOVER_MAX_S = 30.0
 SERVE_OP_TIMEOUT = 1.0
 SERVE_HISTORY_OPS = 30    # the 3-client history is at least this long
+# phase 13: the codeword family at phase 12's shape, RS(2,1), puts of
+# the value size of the JAX package's shard-economy check
+# (tests/test_codeword_plane.py, TestClusterCodewordPlane: "x" * 3000)
+SERVE_CW_CFG = {"fault_tolerance": 0}
+SERVE_CW_VALUE_BYTES = 3000
+SERVE_CW_SECS = 5.0       # CRaft and Crossword timed load windows
+SERVE_RESUME_MAX_S = 30.0  # after a resume, shard sends must resume by then
 #: the card every phase runs on (a rehearsal on the CPU may override it)
 DEV = "cuda"
 
@@ -1368,15 +1398,17 @@ def _serve_harness():
 class _LoadClient:
     """One closed-loop client thread over its own slice of the keys
     (key ``i`` belongs to client ``i % SERVE_CLIENTS``, so each key has
-    one writer and a last acknowledged put).  Records every success as
+    one writer and a last acknowledged put).  A put's value is its short
+    tag, padded to ``value_bytes`` when given.  Records every success as
     (time, latency, server it was connected to)."""
 
-    def __init__(self, cluster, ci, stop):
+    def __init__(self, cluster, ci, stop, value_bytes=None):
         import random
         import threading
 
         self.ci = ci
         self.stop = stop
+        self.value_bytes = value_bytes
         self.rng = random.Random(SEED + ci)
         self.keys = [f"key{k}" for k in range(SERVE_SHAPE["keys"])
                      if k % SERVE_CLIENTS == ci]
@@ -1399,6 +1431,8 @@ class _LoadClient:
             t0 = time.monotonic()
             if self.rng.random() < 0.5:
                 val = f"c{self.ci}.{seq}"
+                if self.value_bytes:
+                    val = f"{val}.".ljust(self.value_bytes, "x")
                 rep = drv.put(key, val)
                 if rep.kind == "success":
                     self.acked[key] = val
@@ -1450,13 +1484,24 @@ def _stage_marks(reps):
     return marks
 
 
+#: kernel state rows a lagging group's diagnosis reads (those present)
+_LAG_LEAVES = ("vote_bal", "vote_from", "vote_bar", "full_bar", "f2_lo",
+               "f2_hi", "prep_trigger", "next_idx", "match_f", "match_from")
+
+
 def _lag_state(rep, lag):
-    """``debug_state`` of one replica cut to the lagging groups."""
+    """``debug_state`` of one replica cut to the lagging groups, with its
+    kernel rows of ``_LAG_LEAVES`` in those groups."""
     groups = sorted({g for gs in lag.values() for g in gs})
     st = rep.debug_state()
-    return {k: ([v[g] for g in groups] if isinstance(v, list)
-                and len(v) == len(rep.applied) else v)
-            for k, v in st.items()}
+    out = {k: ([v[g] for g in groups] if isinstance(v, list)
+               and len(v) == len(rep.applied) else v)
+           for k, v in st.items()}
+    for k in _LAG_LEAVES:
+        if k in rep.state:
+            rows = rep._np_state(k)[groups, rep.me]
+            out[k] = rows.tolist()
+    return out
 
 
 def _barrier_writes(cluster, what, groups):
@@ -1583,17 +1628,50 @@ def _window(np, cluster, clients, secs, what):
     }
 
 
+def _pp_per_item(rep):
+    """A replica's payload-plane egress bytes per payload sent."""
+    return sum(rep.pp_bytes) / max(1, sum(rep.pp_items))
+
+
+def _store_records(cluster):
+    """Each replica's codeword store at the end of a run: values held,
+    shard bytes held for the values the replicas proposed (walked on the
+    host), and the lane counts of those rows."""
+    keys = set()
+    for rep in cluster.replicas.values():
+        keys |= rep.origin
+    out, lanes = {}, set()
+    for me, rep in sorted(cluster.replicas.items()):
+        store = rep.codewords
+        nbytes = 0
+        for g, vid in keys:
+            held = store.shards_for(g, vid)
+            if held is not None:
+                for row in held[1].values():
+                    nbytes += row.nbytes
+                    lanes.add(int(row.shape[-1]))
+        out[str(me)] = {
+            "values": sum(store.size(g) for g in range(SERVE_SHAPE["G"])),
+            "shard_bytes_of_proposed": nbytes,
+        }
+    return out, sorted(lanes)
+
+
 def _serve_run(torch, np, card, protocol, secs, fault_plan,
-               read_back=False):
-    """One live 3-replica cluster on the card: a timed load window, then
+               read_back=False, config=None, value_bytes=None):
+    """One live 3-replica cluster on the card: a timed load window of
+    clients putting ``value_bytes`` values (``_LoadClient``), then
     ``fault_plan(cluster, clients)`` under load with a 3-client, 3-key
     history recorded, then (``read_back``) every acked key read back, the
-    agreement and the history checks."""
+    agreement and the history checks.  The JSON line also holds the
+    group-0 leader's payload bytes per payload at the end of the window
+    and the ``bitslice_gf256`` launches in the window, per leader tick."""
     import shutil
     import tempfile
     import threading
 
     harness = _serve_harness()
+    from summerset_tpu_torch.ops import rscoding as rs
     from summerset_tpu_torch.utils.linearize import check_history
 
     sh = SERVE_SHAPE
@@ -1601,17 +1679,24 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
     t_up = time.perf_counter()
     cluster = harness.Cluster(
         protocol, sh["R"], tmp, tick=sh["tick"], num_groups=sh["G"],
-        window=sh["W"], device=DEV, settle=2.0,
+        window=sh["W"], device=DEV, settle=2.0, config=config,
     )
     try:
         up_s = time.perf_counter() - t_up
         if DEV == "cuda":
             torch.cuda.reset_peak_memory_stats()
         stop = threading.Event()
-        clients = [_LoadClient(cluster, ci, stop)
+        clients = [_LoadClient(cluster, ci, stop, value_bytes)
                    for ci in range(SERVE_CLIENTS)]
         time.sleep(1.0)  # clients connected and past their first op
+        n0 = rs.bitslice_gf256.launches
         w = _window(np, cluster, clients, secs, f"serving {protocol}")
+        w_launches = rs.bitslice_gf256.launches - n0
+        lead = cluster.leader_of(0)
+        pp_per = (_pp_per_item(cluster.replicas[lead])
+                  if lead is not None else None)
+        lead_ticks = (w["ticks_per_s"].get(str(lead), 0.0) * w["secs"]
+                      if lead is not None else 0.0)
         stages = w["stage_mean_us"]
         host = sum(v for k, v in stages.items() if k != "device_wait")
         peak = (torch.cuda.max_memory_allocated() / 2**20
@@ -1651,10 +1736,14 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         if cluster.faults():
             fail(f"serving {protocol}: replica bring-up failures or "
                  f"crashes: {cluster.faults()}")
+        extra = {}
+        if next(iter(cluster.replicas.values())).codewords is not None:
+            stores, lanes = _store_records(cluster)
+            extra = {"codeword_stores": stores, "shard_lanes": lanes}
         line = {
             "serving": protocol, "groups": sh["G"], "replicas": sh["R"],
             "window": sh["W"], "clients": SERVE_CLIENTS,
-            "keys": sh["keys"], **w,
+            "keys": sh["keys"], "value_bytes": value_bytes, **w,
             "device_wait_share": round(
                 stages.get("device_wait", 0.0)
                 / max(host + stages.get("device_wait", 0.0), 1e-9), 4),
@@ -1662,7 +1751,13 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
             "bring_up_s": round(up_s, 2), "faults": faults,
             "acked_keys_checked": n_keys, "applied_total": applied,
             "quiesce_barrier_writes": writes,
-            "history_ops": len(hist_ops), "card": card,
+            "history_ops": len(hist_ops),
+            "leader_pp_bytes_per_payload": (round(pp_per, 1)
+                                            if pp_per is not None else None),
+            "bitslice_launches_window": w_launches,
+            "launches_per_leader_tick": round(
+                w_launches / max(lead_ticks, 1e-9), 3),
+            **extra, "card": card,
         }
         log(json.dumps(line))
         return line
@@ -1671,10 +1766,11 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _pause_leader(cluster, clients, what):
+def _pause_leader(cluster, clients, what, until=None):
     """Pause the group-0 leader (at least SERVE_PAUSE_S) until every load
-    client has a success from another server, then resume it; returns
-    the seconds until the last client recovered."""
+    client has a success from another server (and ``until()`` holds),
+    then resume it; returns the seconds until the last client
+    recovered."""
     leader = cluster.leader_of(0)
     if leader is None:
         fail(f"{what}: no leader of group 0 before the pause")
@@ -1687,14 +1783,16 @@ def _pause_leader(cluster, clients, what):
                  None) for c in clients
         ]
         if (all(d is not None for d in done)
-                and time.monotonic() - t_pause >= SERVE_PAUSE_S):
+                and time.monotonic() - t_pause >= SERVE_PAUSE_S
+                and (until is None or until())):
             break
         if time.monotonic() > deadline:
             cluster.ctrl("resume_servers", servers=[leader], timeout=60)
             fail(f"{what}: {sum(d is None for d in done)} of "
                  f"{len(clients)} clients got no success from a new "
                  f"leader within {SERVE_FAILOVER_MAX_S} s of pausing "
-                 f"replica {leader}")
+                 f"replica {leader}"
+                 + ("" if until is None else f" (or {until.__doc__})"))
         time.sleep(0.1)
     new = cluster.leader_of(0)
     cluster.ctrl("resume_servers", servers=[leader], timeout=60)
@@ -1703,20 +1801,29 @@ def _pause_leader(cluster, clients, what):
             "recovered_s": round(max(done) - t_pause, 3)}
 
 
-def _mp_faults(cluster, clients):
-    out = {"pause": _pause_leader(cluster, clients, "serving MultiPaxos")}
-    leader = cluster.leader_of(0)
-    follower = next(me for me in sorted(cluster.replicas) if me != leader)
-    for victim in (follower, leader):
-        t = time.monotonic()
-        rep = cluster.ctrl("reset_servers", servers=[victim], timeout=300)
-        if rep.done != [victim]:
-            fail(f"serving MultiPaxos: durable reset of {victim} not "
-                 f"acknowledged ({rep.done})")
-        out[f"reset_{'leader' if victim == leader else 'follower'}_s"] = \
-            round(time.monotonic() - t, 3)
-    time.sleep(2.0)
-    return out
+def _pause_and_resets(protocol):
+    """The fault plan: the group-0 leader paused and resumed, then a
+    durable reset of a follower and then of the leader."""
+    what = f"serving {protocol}"
+
+    def plan(cluster, clients):
+        out = {"pause": _pause_leader(cluster, clients, what)}
+        leader = cluster.leader_of(0)
+        follower = next(me for me in sorted(cluster.replicas)
+                        if me != leader)
+        for victim in (follower, leader):
+            t = time.monotonic()
+            rep = cluster.ctrl("reset_servers", servers=[victim],
+                               timeout=300)
+            if rep.done != [victim]:
+                fail(f"{what}: durable reset of {victim} not "
+                     f"acknowledged ({rep.done})")
+            kind = "leader" if victim == leader else "follower"
+            out[f"reset_{kind}_s"] = round(time.monotonic() - t, 3)
+        time.sleep(2.0)
+        return out
+
+    return plan
 
 
 def _raft_faults(cluster, clients):
@@ -1774,8 +1881,8 @@ def phase_serving(torch, np, card):
         "cpu)")
     t_phase = time.perf_counter()
     rs.bitslice_gf256.launches = 0
-    mp = _serve_run(torch, np, card, "MultiPaxos", SERVE_SECS, _mp_faults,
-                    read_back=True)
+    mp = _serve_run(torch, np, card, "MultiPaxos", SERVE_SECS,
+                    _pause_and_resets("MultiPaxos"), read_back=True)
     raft = _serve_run(torch, np, card, "Raft", SERVE_RAFT_SECS,
                       _raft_faults)
     harness = _serve_harness()
@@ -1812,6 +1919,194 @@ def phase_serving(torch, np, card):
         f"{rs.bitslice_gf256.launches}; phase 12 took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return mp, raft
+
+
+# ------------------------------------------------- codeword serving path --
+def _sends(cluster):
+    """Proposals sent as shard rows and as full copies, summed over the
+    replicas (``proposals_sent{copy}``)."""
+    out = {"shards": 0, "full": 0}
+    for rep in list(cluster.replicas.values()):
+        for k in out:
+            out[k] += rep.metrics.counter_value("proposals_sent", copy=k)
+    return out
+
+
+def _craft_faults(cluster, clients):
+    """CRaft: the group-0 leader paused until the new leaders, seeing a
+    dead peer, ship full copies; after the resume, shard sends again."""
+    what = "serving CRaft"
+    s0 = _sends(cluster)
+
+    def fell_back():
+        """a full-copy send by a new leader"""
+        return _sends(cluster)["full"] > s0["full"]
+
+    pause = _pause_leader(cluster, clients, what, until=fell_back)
+    s1 = _sends(cluster)
+    deadline = time.monotonic() + SERVE_RESUME_MAX_S
+    while _sends(cluster)["shards"] <= s1["shards"]:
+        if time.monotonic() > deadline:
+            fail(f"{what}: no shard send within {SERVE_RESUME_MAX_S} s of "
+                 "the resume")
+        time.sleep(0.2)
+    time.sleep(1.0)
+    s2 = _sends(cluster)
+    return {"pause": pause,
+            "full_copies_in_pause": s1["full"] - s0["full"],
+            "shard_sends_before_pause": s0["shards"],
+            "shard_sends_after_resume": s2["shards"] - s1["shards"]}
+
+
+def _crossword_faults(cluster, clients):
+    """Crossword: the group-0 leader paused and resumed; the widths the
+    replicas' adaptive policies chose, in ticks per width."""
+    pause = _pause_leader(cluster, clients, "serving Crossword")
+    d = next(iter(cluster.replicas.values())).kernel.data_shards
+    widths = {str(w): sum(rep.metrics.counter_value("spr_choice_ticks",
+                                                    spr=w)
+                          for rep in list(cluster.replicas.values()))
+              for w in range(1, d + 1)}
+    if not sum(widths.values()):
+        fail("serving Crossword: no adaptive width was chosen")
+    return {"pause": pause, "spr_choice_ticks": widths}
+
+
+def _wire_sizes(rs, mp, value_bytes):
+    """Pickled bytes of one put's payload sent to a follower as a shard
+    send (RS(2,1) on the card, the mean over the two followers' shards)
+    and as a full copy, at phase 12's values (``mp``, its MultiPaxos
+    line when phase 12 ran, gives the leader's metered bytes per payload
+    beside them) and at ``value_bytes``."""
+    import pickle
+
+    from summerset_tpu_torch.host.messages import ApiRequest, ShardPayload
+    from summerset_tpu_torch.host.statemach import Command
+
+    code = rs.RSCode(2, 1, device=DEV)
+    out = {"phase12_multipaxos_leader_bytes_per_payload":
+           mp["leader_pp_bytes_per_payload"] if mp else None}
+    for name, val in (("phase12_value", "c15.123456"),
+                      (f"{value_bytes}_B", "x" * value_bytes)):
+        reqs = [(15, ApiRequest("req", req_id=123456,
+                                cmd=Command("put", "key1023", val)))]
+        full = len(pickle.dumps({(1023, 70001): reqs},
+                                pickle.HIGHEST_PROTOCOL))
+        n, cw = rs.encode_payload(code, pickle.dumps(reqs))
+        shard = sum(len(pickle.dumps({(1023, 70001): ShardPayload(
+            n, {s: cw[s]})}, pickle.HIGHEST_PROTOCOL)) for s in (1, 2)) / 2
+        out[name] = {"full_copy": full, "shard_send": shard,
+                     "ratio": round(shard / full, 4)}
+    return out
+
+
+def serving_kernel_numbers(torch, np, rs, card, lanes):
+    """The kernel's time per launch at the serving path's shapes: one
+    value's RS(2,1) encode ``[1, 2, L]`` and its decode from shards
+    {1, 2}, at each lane count ``L`` in ``lanes``, each held bit for bit
+    against the plain version, timed with CUDA events beside its bound
+    and the plain version's time.  Returns the max_abs_err."""
+    code = rs.RSCode(2, 1, device=DEV)
+    rng = np.random.default_rng(SEED + 13)
+    err = 0
+    for L in lanes:
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, size=(1, 2, L),
+                                          dtype=np.int32)).to(DEV)
+        for name, tbl in (("encode", code._parity_tbl),
+                          ("decode", code._decode_tbl((1, 2)))):
+            got = rs.bitslice_gf256(tbl, x)
+            want = rs._bitslice_matmul_plain(tbl, x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"serving {name} [1, 2, {L}]: kernel != plain")
+            err = max(err, abs_err(got, want))
+            rows = int(tbl.shape[0])
+            k_ms = time_ms(torch, lambda: rs.bitslice_gf256(tbl, x), 200)
+            p_ms = time_ms(torch, lambda: rs._bitslice_matmul_plain(tbl, x),
+                           50)
+            b_ms, b_by = bound_ms(rows, 2, 1, L)
+            log(f"serving {name} [1,2,{L}] -> [1,{rows},{L}]: kernel "
+                f"{k_ms:.4f} ms/launch plain {p_ms:.4f} ms bound "
+                f"{b_ms:.3e} ms ({b_by}) share {b_ms / k_ms:.2e} | {card}")
+    return err
+
+
+def phase_codeword_serving(torch, np, card, mp=None):
+    """Phase 13: RSPaxos, CRaft and Crossword served by phase 12's
+    harness on the card at 3000 B puts, the codeword plane encoding with
+    ``bitslice_gf256``, beside a MultiPaxos run at the same load; then
+    the card-against-CPU lockstep and the kernel's time per launch at the
+    serving shapes.  ``mp`` is phase 12's MultiPaxos line, if it ran."""
+    import tempfile
+
+    from summerset_tpu_torch.ops import rscoding as rs
+
+    sh = SERVE_SHAPE
+    log(f"== phase 13: codeword serving, {sh['G']} groups x {sh['R']} "
+        f"replicas, W={sh['W']}, {SERVE_CLIENTS} clients, RS(2,1) "
+        f"{SERVE_CW_VALUE_BYTES} B puts (MultiPaxos baseline, RSPaxos, "
+        "CRaft, Crossword, card vs cpu)")
+    t_phase = time.perf_counter()
+    vb = SERVE_CW_VALUE_BYTES
+    base = _serve_run(torch, np, card, "MultiPaxos", SERVE_CW_SECS,
+                      lambda cluster, clients: {}, value_bytes=vb)
+    launches, lines = {}, {}
+    for proto, secs, plan, read_back in (
+            ("RSPaxos", SERVE_SECS, _pause_and_resets("RSPaxos"), True),
+            ("CRaft", SERVE_CW_SECS, _craft_faults, False),
+            ("Crossword", SERVE_CW_SECS, _crossword_faults, False)):
+        rs.bitslice_gf256.launches = 0
+        lines[proto] = _serve_run(torch, np, card, proto, secs, plan,
+                                  read_back=read_back, config=SERVE_CW_CFG,
+                                  value_bytes=vb)
+        launches[proto.lower()] = rs.bitslice_gf256.launches
+        if launches[proto.lower()] == 0:
+            fail(f"serving {proto}: the codeword path never launched "
+                 "bitslice_gf256")
+    launches["serving"] = sum(launches.values())
+    log("bitslice_gf256 launches in phase 13 by path: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    rsp = lines["RSPaxos"]["leader_pp_bytes_per_payload"]
+    full = base["leader_pp_bytes_per_payload"]
+    if rsp is None or full is None:
+        fail(f"serving at {vb} B values: no group-0 leader to meter "
+             f"(RSPaxos {rsp}, MultiPaxos {full})")
+    ratio = rsp / full
+    log(f"shard economy at {vb} B values: RSPaxos leader {rsp} "
+        f"bytes/payload, MultiPaxos leader {full}: {ratio:.3f}x")
+    if not ratio < 0.75:
+        fail(f"serving RSPaxos: {rsp} bytes per payload against "
+             f"MultiPaxos's {full} at {vb} B values: not shard-sized")
+    log("wire bytes of one put's payload, RS(2,1) on the card, shard send "
+        "/ full copy: " + json.dumps(_wire_sizes(rs, mp, vb)))
+
+    harness = _serve_harness()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cwlock_") as d:
+        try:
+            lock = harness.card_cpu_lockstep(d, DEV)
+        except AssertionError as e:
+            fail(f"codeword serving {DEV} vs cpu: {e}")
+    if (not lock["rebuilt"] or not lock["shard_frames"]
+            or len(lock["leaders"]) < 2):
+        fail(f"codeword serving {DEV} vs cpu: the schedule did not move "
+             f"leadership and rebuild from shards: {lock}")
+    if DEV == "cuda" and not lock["launches"]:
+        fail("codeword serving card vs cpu: the card replicas never "
+             "launched bitslice_gf256")
+    log(f"codeword serving: 3 RSPaxos replicas on {DEV} == 3 on cpu for "
+        f"{lock['ticks']} lockstep ticks (state, frames, shard records by "
+        f"batch, WAL, floors, KV, replies), leaders {lock['leaders']}, "
+        f"{lock['rebuilt']} rebuilds from shards, {lock['launches']} card "
+        f"launches (not counted above), "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    # the smallest and the largest shard rows the RSPaxos run held (a
+    # get's batch and a put's)
+    lanes = lines["RSPaxos"].get("shard_lanes") or [128]
+    err = serving_kernel_numbers(torch, np, rs, card,
+                                 sorted({min(lanes), max(lanes)}))
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches["serving"], "max_abs_err": err}
 
 
 def main():
@@ -1852,7 +2147,11 @@ def main():
     phase_epaxos(torch, np, card)
     log(f"bitslice_gf256 launches in phase 11 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
-    phase_serving(torch, np, card)
+    mp, _raft = phase_serving(torch, np, card)
+    serving = phase_codeword_serving(torch, np, card, mp)
+    paths["serving"] = serving
+    log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
+        f"{k} {v['launches']}" for k, v in paths.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "bitslice_gf256",

@@ -161,7 +161,7 @@ class CodewordStore:
         rows = decode_rows(self.code, held)
         buf = unpack_bytes(rows, dlen)
         if len(held) < self.T:
-            # restore every row at the encoder's lane geometry, so restored
+            # restore every row at the encoder's lane count, so restored
             # shards are byte-identical to the originals
             if self.code.p:
                 dev_rows = torch.from_numpy(

@@ -51,9 +51,22 @@ class ApiReply:
 # Server-to-server tick frames are plain dicts (host/server.py builds
 # them, host/transport.py ships them): ``msg`` carries the kernel outbox
 # slices; the payload plane rides alongside:
-#   pp: {(group, vid): ReqBatch}   full-copy piggybacks
-#   need: [(group, vid)]           payloads this replica is missing
+#   pp: {(group, vid): ReqBatch}            full-copy piggybacks
+#   ps: {(group, vid): ShardPayload}        proposer -> peer assigned shards
+#   cw: {(group, vid): ShardPayload}        gossip replies (held shards)
+#   cw_need: [(group, vid, have_mask, urgent)]   shard-gossip requests
+#   need: [(group, vid)]                    payloads this replica is missing
 #   kv_need / kv / kv_floor: the install-snapshot plane
+#   ts: the sender's time.monotonic() (delivery samples)
+@dataclasses.dataclass(frozen=True)
+class ShardPayload:
+    """A subset of one value's RS codeword on the wire (parity role: the
+    shard-subset ``RSCodeword`` carried by Accept and Reconstruct
+    messages, ``rspaxos/mod.rs:597-608``)."""
+
+    data_len: int        # original serialized ReqBatch byte length
+    shards: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    # shard id -> [L] int32 lane array (4 packed bytes per lane)
 
 
 # ------------------------------------------------------------ control plane

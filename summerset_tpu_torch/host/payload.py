@@ -10,9 +10,8 @@ The id space mirrors the synthetic-load convention used by the kernels'
 bench mode (``value_base`` input): ids are positive, 0 is reserved for the
 no-op filler (``protocols/common.py`` NULL_VAL).
 
-This store holds only *full* request batches (the serving path's
-codeword plane, which would keep shard subsets beside it, is not ported
-yet).
+This store holds only *full* request batches; the codeword plane keeps
+shard subsets beside it in ``host/codeword.py::CodewordStore``.
 """
 
 from __future__ import annotations
@@ -60,4 +59,10 @@ class PayloadStore:
         with self._lock:
             if overwrite or vid not in self._data[group]:
                 self._data[group][vid] = batch
+            self._next[group] = max(self._next[group], vid + 1)
+
+    def note_seen(self, group: int, vid: int) -> None:
+        """Bump the minting cursor past an externally observed vid
+        (shard-only ingests hold no batch to install)."""
+        with self._lock:
             self._next[group] = max(self._next[group], vid + 1)

@@ -1,5 +1,6 @@
 """ServerReplica: a networked replica around the port's device kernel,
-counterpart of ``summerset_tpu/host/server.py`` for MultiPaxos and Raft.
+counterpart of ``summerset_tpu/host/server.py`` for MultiPaxos, Raft and
+the codeword family (RSPaxos, CRaft, Crossword).
 
 Parity: reference ``GenericReplica`` + ``summerset_server`` — the replica
 composes ControlHub -> StateMachine -> StorageHub -> TransportHub ->
@@ -35,8 +36,20 @@ group-commit fsync per tick; pipelined loop: a background group commit
 behind the durability fence).  A failed fsync crashes the replica before
 any gated frame or reply leaves.
 
+The codeword plane (RSPaxos, CRaft, Crossword): the leader RS-encodes each
+proposed batch once (``CodewordStore.encode``, the ``bitslice_gf256``
+kernel on the card) and ships each peer only its assigned shard rows
+(``ps``) instead of the full batch; a replica holding fewer than ``d``
+shards of a committed value asks its peers for more (``cw_need``, answered
+with ``cw``) and rebuilds the batch once it holds ``d``.  A voter logs its
+own shard rows (``cw`` in the vote record), so a recovered quorum rebuilds
+every committed value.  CRaft ships full copies while more than
+``fault_tolerance`` peers look dead; Crossword's width per value comes
+from ``host/adaptive.py`` (``spr_override``).  The codec runs on the
+replica's stream at intake and apply, where no step is in flight on it.
+
 Not in this slice (ROADMAP.md item 6 and its queue): snapshots, the
-codeword, lease and conf planes, EPaxos and the basic kernels' serving,
+lease and conf planes, EPaxos and the basic kernels' serving,
 near-quorum reads and scans, health/demotion, resharding, the flight
 recorder and slot traces.
 """
@@ -46,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import pickle
 import queue
 import tempfile
 import time
@@ -57,12 +71,15 @@ import torch
 
 from ..core import telemetry as dev_telemetry
 from ..device import resolve_device
+from ..ops.rscoding import RSCode
 from ..protocols import make_protocol
 from ..utils.errors import SummersetError
 from ..utils.logging import pf_info, pf_logger, pf_warn
+from .adaptive import CrosswordAdaptive
+from .codeword import CodewordStore, assigned_sids
 from .control import ControlHub
 from .external import ExternalApi
-from .messages import ApiReply, CtrlMsg
+from .messages import ApiReply, CtrlMsg, ShardPayload
 from .payload import PayloadStore
 from .statemach import StateMachine, apply_command
 from .storage import LogAction, StorageHub
@@ -72,11 +89,8 @@ from .transport import TransportHub
 logger = pf_logger("server")
 
 #: protocols this slice serves; the rest name the ROADMAP item that will
-SERVED = ("multipaxos", "raft")
+SERVED = ("multipaxos", "raft", "rspaxos", "craft", "crossword")
 _NOT_YET = {
-    "rspaxos": "6 (queue 1: the codeword serving plane)",
-    "craft": "6 (queue 1: the codeword serving plane)",
-    "crossword": "6 (queue 1: the codeword serving plane)",
     "quorumleases": "6 (queue 2: the lease and conf planes)",
     "bodega": "6 (queue 2: the lease and conf planes)",
     "epaxos": "6 (queue 3: EPaxos serving)",
@@ -112,6 +126,14 @@ def _unique_window_keys(val_win: np.ndarray, groups: np.ndarray) -> np.ndarray:
     if not m.any():
         return np.empty(0, np.int64)
     return np.unique((gcol[m] << _VID_BITS) | flat[m])
+
+
+def _sp_size(sp: ShardPayload) -> int:
+    """Approximate pickled wire size of a ShardPayload, without pickling
+    it a second time just for the egress meter."""
+    return 64 + sum(
+        np.asarray(a).nbytes + 144 for a in sp.shards.values()
+    )
 
 
 @dataclasses.dataclass
@@ -248,6 +270,7 @@ class ServerReplica:
         # per peer: frames whose lanes are still owed to some groups
         # (see _peer_lanes)
         self._owed: Dict[int, list] = {}
+        self._setup_codewords()
         self.paused = False
         self.stopping = False  # cooperative stop for embedded harnesses
         self.was_leader = False
@@ -276,13 +299,55 @@ class ServerReplica:
         ker = self.kernel
         cand = set(ker.DURABLE_SCALARS) | set(ker.DURABLE_WINDOWS)
         cand.update((ker.VALUE_WINDOW, "win_abs", "win_cfg", "win_noop",
-                     "leader", dev_telemetry.TELEM_KEY))
+                     "leader", "alive_cnt", dev_telemetry.TELEM_KEY))
         self._prefetch_keys = sorted(k for k in cand if k in self.state)
         self._np_cache = {}
         # outbox register the first tick's frames slice from (host views)
         self._last_out = {
             k: self._host(v) for k, v in self.kernel.zero_outbox().items()
         }
+
+    def _setup_codewords(self) -> None:
+        """The codeword payload plane of the RS-coded family: the kernel
+        runs the coded control plane over value ids, the store holds the
+        shard bytes (none for MultiPaxos and Raft)."""
+        ker = self.kernel
+        # Crossword: the host's predictive width; assignment_adaptive
+        # False pins both it and the kernel's reactive policy to init_spr
+        self._adaptive = None
+        if "cur_spr" in self.state and ker.config.assignment_adaptive:
+            self._adaptive = CrosswordAdaptive(
+                self.population, ker.data_shards, self.me,
+            )
+            self._batch_bytes = 0.0  # EWMA of proposed batch sizes
+            self._spr_tick = [ker.data_shards] * self.G
+        self.codewords = None
+        self._cw_dj = 1
+        self._cw_spr0 = 1
+        if hasattr(ker, "num_data") and "full_bar" in self.state:
+            if "cur_spr" in self.state:  # Crossword: T shards, dj-wide base
+                cw_T, cw_d = ker.total_shards, ker.data_shards
+                self._cw_dj = ker.dj
+                self._cw_spr0 = ker.init_spr
+            else:  # RSPaxos / CRaft: shard r -> replica r
+                cw_T, cw_d = self.population, ker.num_data
+            self.codewords = CodewordStore(
+                self.G, RSCode(cw_d, cw_T - cw_d, device=self.device),
+                cw_T, self._cw_dj, device=self.device,
+            )
+        self._cw_first_missing: Dict[Tuple[int, int], int] = {}
+        self._pending_shards: Dict[int, dict] = {}  # dst -> {(g,vid): sp}
+        self._pending_cw: Dict[int, dict] = {}      # dst -> {(g,vid): sp}
+        # per-peer payload-plane egress (bytes and payload count of the
+        # pp/ps frame parts; gossip replies in cw_bytes): bytes per item
+        # is a full batch for full copies, ~batch/d for shard sends
+        self.pp_bytes = [0] * self.population
+        self.pp_items = [0] * self.population
+        self.cw_bytes = [0] * self.population
+        # CRaft's full-copy fallback reads the last drained step's
+        # liveness countdowns, so it may trail the kernel by one tick
+        # exactly as the JAX server's does (craft/mod.rs:280-283)
+        self._craft_mode = "win_full" in self.state
 
     def _join_mesh(self, protocol: str) -> None:
         """p2p mesh join (multipaxos/mod.rs:717-737): the join is re-sent
@@ -400,6 +465,15 @@ class ServerReplica:
                 for vid, batch in v.get("pp", {}).items():
                     self.payloads.install(g, vid, batch, overwrite=False)
                     self._logged_vids[g].add(vid)
+                for vid, (dlen, sh) in v.get("cw", {}).items():
+                    # a voter's own shard rows: a recovered quorum's
+                    # shards rebuild committed values through gossip
+                    if self.codewords is not None:
+                        self.codewords.add_shards(
+                            g, vid, dlen, sh, assigned=True
+                        )
+                    self.payloads.note_seen(g, vid)
+                    self._logged_vids[g].add(vid)
             elif isinstance(rec, tuple) and len(rec) == 4 \
                     and isinstance(rec[0], int):
                 g, slot, vid, batch = rec
@@ -413,7 +487,7 @@ class ServerReplica:
                 kind = rec[0] if isinstance(rec, tuple) and rec else rec
                 raise SummersetError(
                     f"WAL record {kind!r} is not served by the port "
-                    "(MultiPaxos/Raft slice); refusing to serve"
+                    f"({', '.join(SERVED)}); refusing to serve"
                 )
             off = res.end_offset
             n += 1
@@ -519,14 +593,23 @@ class ServerReplica:
         else:
             cand = keys
         new_pp_by_g: Dict[int, dict] = {}
+        new_cw_by_g: Dict[int, dict] = {}
         taken = []
         for k in cand.tolist():
             g, vid = k >> _VID_BITS, k & ((1 << _VID_BITS) - 1)
-            b = self.payloads.get(g, vid)
-            if b is not None:
-                new_pp_by_g.setdefault(g, {})[vid] = b
-                self._logged_vids[g].add(vid)
-                taken.append(k)
+            # codeword plane: a voter logs the shard rows its vote stands
+            # for (its assigned slice), not the full batch
+            got = (self.codewords.wal_shards(g, vid, self.me)
+                   if self.codewords is not None else None)
+            if got is not None:
+                new_cw_by_g.setdefault(g, {})[vid] = got
+            else:
+                got = self.payloads.get(g, vid)
+                if got is None:
+                    continue
+                new_pp_by_g.setdefault(g, {})[vid] = got
+            self._logged_vids[g].add(vid)
+            taken.append(k)
         if taken:
             # taken is sorted, so a positional insert keeps it sorted
             tk = np.asarray(taken, np.int64)
@@ -539,6 +622,8 @@ class ServerReplica:
             rec: Dict[str, Any] = {k: int(v[g]) for k, v in scal.items()}
             rec.update({k: wins[k][g].tolist() for k in wins})
             rec["pp"] = new_pp_by_g.get(g, {})
+            if g in new_cw_by_g:
+                rec["cw"] = new_cw_by_g[g]
             self._wal_append(("vote", g, rec))
 
     # ----------------------------------------------------------- tick I/O
@@ -572,13 +657,19 @@ class ServerReplica:
         the lanes come from the oldest owed frame holding a flag bit the
         newest frame lacks, else from the newest; the frames after it
         stay owed, one delivered per tick, until a newer frame holds
-        their bits.  With one frame per peer per tick this is the JAX
-        rule exactly."""
+        their bits.  A group that is owed no frame this tick gets zero
+        lanes (``flags`` 0), as a JAX replica's inbox holds zeros in the
+        slot of a peer that sent nothing.  With one frame per peer per
+        tick this is the JAX rule exactly.
+
+        At most ``OWED_FRAMES`` frames stay owed per peer: beyond that
+        the oldest are dropped with their bits, and each drop is counted
+        on the ``owed_frames_dropped`` counter."""
         owed = self._owed.get(src, [])
         cand = owed + [(m, None) for m in msgs]
         if not cand:
             return None
-        if len(cand) == 1:
+        if len(cand) == 1 and cand[0][1] is None:
             self._owed[src] = []
             return cand[0][0]
         G = self.G
@@ -589,19 +680,25 @@ class ServerReplica:
         uniq = ((flags & ~flags[-1]) != 0) & due
         pick = np.where(uniq.any(axis=0), uniq.argmax(axis=0), n - 1)
         cols = np.arange(G)
-        out = {
-            k: np.stack([m[k] for m, _ in cand])[pick, cols]
-            for k in cand[-1][0]
-        }
+        got = due[pick, cols]
+        out = {}
+        for k in cand[-1][0]:
+            lane = np.stack([m[k] for m, _ in cand])[pick, cols]
+            lane[~got] = 0
+            out[k] = lane
         rows = np.arange(n)[:, None]
         keep = (rows > pick[None, :]) & uniq
         keep[-1] = pick < n - 1
-        self._owed[src] = [
-            (cand[i][0], keep[i]) for i in range(n) if keep[i].any()
-        ][-self.OWED_FRAMES:]
+        owed = [(cand[i][0], keep[i]) for i in range(n) if keep[i].any()]
+        if len(owed) > self.OWED_FRAMES:
+            self.metrics.counter_add("owed_frames_dropped",
+                                     len(owed) - self.OWED_FRAMES, peer=src)
+            owed = owed[-self.OWED_FRAMES:]
+        self._owed[src] = owed
         return out
 
-    #: frames per peer kept owed at most (the oldest beyond are dropped)
+    #: frames per peer kept owed at most (the oldest beyond are dropped
+    #: and counted on ``owed_frames_dropped``)
     OWED_FRAMES = 8
 
     def _assemble_inbox(self, own_out, peer_frames) -> Dict[str, Any]:
@@ -679,6 +776,7 @@ class ServerReplica:
                 by_group.setdefault(
                     self.group_of(req.cmd.key), []
                 ).append((client, req))
+        cw_fallback = self._craft_fallback_groups() if by_group else None
         for g, reqs in by_group.items():
             if not self._is_leader[g]:
                 hint = int(self._leader_hint[g])
@@ -694,8 +792,77 @@ class ServerReplica:
             self.origin.add((g, vid))
             n_prop[g] = 1
             vbase[g] = vid
-            piggy[(g, vid)] = reqs
+            if self.codewords is not None and not (
+                cw_fallback is not None and bool(cw_fallback[g])
+            ):
+                # codeword plane: peers get only their assigned shard
+                # rows; the full batch stays at the proposer
+                self._distribute_shards(g, vid, reqs)
+                self.metrics.counter_add("proposals_sent", copy="shards")
+            else:
+                piggy[(g, vid)] = reqs
+                if self.codewords is not None:
+                    self.metrics.counter_add("proposals_sent", copy="full")
+            if self._adaptive is not None:
+                nb = float(len(pickle.dumps(reqs)))
+                self._batch_bytes = 0.9 * self._batch_bytes + 0.1 * nb
         return n_prop, vbase, piggy
+
+    # ---------------------------------------------- codeword payload plane
+    def _craft_fallback_groups(self) -> Optional[np.ndarray]:
+        """Host mirror of CRaft's full-copy fallback (more than
+        ``fault_tolerance`` peers look dead: ship full batches), read
+        from the last drained step's liveness countdowns."""
+        if not (self._craft_mode and self.codewords is not None):
+            return None
+        ac = self._np_state("alive_cnt")[:, self.me]
+        return (ac <= 0).sum(axis=1) > self.kernel.config.fault_tolerance
+
+    def _spr_choice(self, g: int) -> int:
+        """Shards per replica for this tick's sends: the value the kernel
+        receives as ``spr_override``, clipped as the kernel clips it, so
+        its ``win_spr`` stamp matches the bytes on the wire (static
+        without an adaptive policy)."""
+        if self._adaptive is None:
+            return self._cw_spr0
+        d = self.kernel.data_shards
+        return int(min(max(int(self._spr_tick[g]), self._cw_dj), d))
+
+    def _distribute_shards(self, g: int, vid: int, batch: Any) -> None:
+        """Leader-side send plan: encode once, then queue each peer's
+        assigned rows of the codeword for this tick's frame
+        (rspaxos/mod.rs:597-608; Crossword: ``spr``-wide diagonal
+        slices)."""
+        spr = self._spr_choice(g)
+        with self._on_stream():
+            dlen, cw = self.codewords.encode(g, vid, batch, spr)
+        T = self.codewords.T
+        for dst in range(self.population):
+            if dst == self.me:
+                continue
+            sids = assigned_sids(dst, spr, self._cw_dj, T)
+            sp = ShardPayload(dlen, {s: cw[s] for s in sids})
+            self._pending_shards.setdefault(dst, {})[(g, vid)] = sp
+            self.pp_bytes[dst] += _sp_size(sp)
+            self.pp_items[dst] += 1
+
+    def _resolve_payload(self, g: int, vid: int) -> Optional[Any]:
+        """The full batch of ``(g, vid)``: the payload store, else a
+        rebuild from >= d held shards (decoded once, then installed)."""
+        b = self.payloads.get(g, vid)
+        if b is None and vid != 0 and self.codewords is not None:
+            with self._on_stream():
+                b = self.codewords.reconstruct_batch(g, vid)
+            if b is not None:
+                self.payloads.install(g, vid, b, overwrite=False)
+                self.missing.discard((g, vid))
+                self._cw_first_missing.pop((g, vid), None)
+                if bool(self._is_leader[g]):
+                    # a leader that rebuilt an adopted value re-sends
+                    # fresh slices under its own assignment, so the
+                    # followers' votes are backed by shard rows again
+                    self._distribute_shards(g, vid, b)
+        return b
 
     # ---------------------------------------------------------- tick loop
     def run(self) -> bool:
@@ -735,22 +902,94 @@ class ServerReplica:
 
         return stage_us, mark
 
+    def _fold_adaptive(self) -> None:
+        """Fold the delivery samples and pick this tick's shard width
+        BEFORE intake: the same choice slices the shard sends and rides
+        the ``spr_override`` kernel input."""
+        if self._adaptive is None:
+            return
+        samples = self.transport.samples
+        while samples:
+            try:
+                p, nb, dly = samples.popleft()
+            except IndexError:
+                break
+            self._adaptive.observe(p, nb, dly)
+        self._spr_tick = self._adaptive.overrides(self.G, self._batch_bytes)
+        self.metrics.counter_add("spr_choice_ticks", spr=self._spr_tick[0])
+
+    def _cw_needs(self, needs) -> Dict[int, list]:
+        """Shard-gossip requests per peer for the missing values: each
+        asks the fewest peers whose base slices cover the deficit,
+        leaders last; a request unserved for 40 ticks goes to every peer
+        as urgent (answered with any held shard)."""
+        out: Dict[int, list] = {}
+        cw_T, cw_dj = self.codewords.T, self._cw_dj
+        for g, vid in needs:
+            first = self._cw_first_missing.setdefault((g, vid), self.tick)
+            have = self.codewords.have_mask(g, vid)
+            if self.tick - first > 40:
+                for dst in range(self.population):
+                    if dst != self.me:
+                        out.setdefault(dst, []).append((g, vid, have, True))
+                continue
+            lead = int(self._leader_hint[g])
+            order = sorted((d for d in range(self.population)
+                            if d != self.me),
+                           key=lambda d: (d == lead, d))
+            cover = have
+            for dst in order:
+                add = [sid for sid in assigned_sids(dst, cw_dj, cw_dj, cw_T)
+                       if not (cover >> sid) & 1]
+                if not add:
+                    continue
+                out.setdefault(dst, []).append((g, vid, have, False))
+                for sid in add:
+                    cover |= 1 << sid
+                if bin(cover).count("1") >= self.codewords.d:
+                    break
+        return out
+
     def _build_tick_frames(self, frames, piggy) -> Dict[int, dict]:
         """This tick's per-peer frames: kernel lane slices plus the
-        payload piggyback, the need plane and the kv install plane."""
+        payload piggyback, the need plane, the codeword parts (``ps``
+        shard sends, ``cw`` gossip replies, ``cw_need`` requests) and the
+        kv install plane."""
         piggy.update(self._pending_serve)
         self._pending_serve = {}
+        # the full-payload need plane stays on in codeword mode: CRaft's
+        # full-copy values are in no shard store
+        needs = sorted(self.missing)[:64]
         payload_msg: Dict[str, Any] = {
             "pp": piggy,
             "kv_need": bool(self.kv_need),
             "ts": time.monotonic(),
-            "need": sorted(self.missing)[:64],
+            "need": needs,
         }
+        cw_need = self._cw_needs(needs) if self.codewords is not None else {}
         if self._pending_kv_serve:
             payload_msg["kv"] = self.statemach.snapshot_items()
             payload_msg["kv_floor"] = list(self.applied)
             self._pending_kv_serve = False
-        return {dst: {"msg": frames[dst], **payload_msg} for dst in frames}
+        ps_pend, self._pending_shards = self._pending_shards, {}
+        cw_pend, self._pending_cw = self._pending_cw, {}
+        tick_frames = {}
+        for dst in frames:
+            f = {"msg": frames[dst], **payload_msg}
+            for key, part in (("ps", ps_pend), ("cw", cw_pend),
+                              ("cw_need", cw_need)):
+                if dst in part:
+                    f[key] = part[dst]
+            tick_frames[dst] = f
+        if piggy:
+            # full copies are identical per peer, sized as the frame
+            # pickles them; shard sends and gossip replies were sized
+            # when queued
+            pp_len = len(pickle.dumps(piggy, pickle.HIGHEST_PROTOCOL))
+            for dst in tick_frames:
+                self.pp_bytes[dst] += pp_len
+                self.pp_items[dst] += len(piggy)
+        return tick_frames
 
     def _build_inputs(self, n_prop, vbase) -> Dict[str, Any]:
         """This tick's kernel step inputs: ``n_proposals``,
@@ -764,6 +1003,9 @@ class ServerReplica:
                   "exec_floor": floor}
         if self._demote_supported:
             arrays["demote"] = np.zeros((self.G, self.population), bool)
+        if self._adaptive is not None:
+            # the choice that sliced this tick's shard sends
+            arrays["spr_override"] = np.asarray(self._spr_tick, np.int32)
         return self._upload(arrays)
 
     def _dispatch(self, inbox, inputs) -> Dict[str, Any]:
@@ -850,6 +1092,7 @@ class ServerReplica:
         """One strictly ordered tick: intake -> send/recv -> step (waited)
         -> WAL log -> group-commit fsync -> apply/reply."""
         _, _stage = self._stage_clock(t0)
+        self._fold_adaptive()
         n_prop, vbase, piggy = self._intake()
         _stage("intake")
 
@@ -896,6 +1139,7 @@ class ServerReplica:
         _, _stage = self._stage_clock(t0)
         deadline = t0 + self.tick_interval
 
+        self._fold_adaptive()
         n_prop, vbase, piggy = self._intake()
         _stage("intake")
 
@@ -949,12 +1193,20 @@ class ServerReplica:
         """Payload piggybacks are unioned across ALL frames a peer sent
         since our last tick (unlike kernel lanes, they are not
         cumulative); need requests are served next tick."""
-        for _src, fl in got.items():
+        cw = self.codewords
+        for src, fl in got.items():
             for f in fl or ():
                 for (g, vid), batch in f.get("pp", {}).items():
                     self.payloads.install(g, vid, batch, overwrite=False)
                     self.missing.discard((g, vid))
+                    self._cw_first_missing.pop((g, vid), None)
+                if cw is not None:
+                    self._ingest_shards(src, f)
                 for g, vid in f.get("need", []):
+                    # values with shards here heal through the gossip
+                    # plane, not by a full-copy serve
+                    if cw is not None and cw.have_mask(g, vid):
+                        continue
                     b = self.payloads.get(g, vid)
                     if b is not None:
                         self._pending_serve[(g, vid)] = b
@@ -962,6 +1214,27 @@ class ServerReplica:
                     self._pending_kv_serve = True
                 if "kv" in f and self.kv_need:
                     self._merge_kv(f["kv"], f["kv_floor"])
+
+    def _ingest_shards(self, src: int, f: dict) -> None:
+        """One frame's codeword parts: ``ps`` rows are this replica's
+        assignment (vote-loggable), ``cw`` gossip fills are not; the
+        ``cw_need`` requests are answered next tick from held shards
+        (non-urgent ones with our own base slice only, so the heal load
+        stays spread over the peers)."""
+        cw = self.codewords
+        for key in ("ps", "cw"):
+            for (g, vid), sp in (f.get(key) or {}).items():
+                cw.add_shards(g, vid, sp.data_len, sp.shards,
+                              assigned=(key == "ps"))
+                self.payloads.note_seen(g, vid)
+        own = assigned_sids(self.me, self._cw_dj, self._cw_dj, cw.T)
+        for g, vid, have, urgent in f.get("cw_need", ())[:64]:
+            held = cw.shards_for(g, vid, exclude_mask=have,
+                                 only_sids=None if urgent else own)
+            if held is not None:
+                sp = ShardPayload(held[0], held[1])
+                self._pending_cw.setdefault(src, {})[(g, vid)] = sp
+                self.cw_bytes[src] += _sp_size(sp)
 
     def _merge_kv(self, kv: dict, floors: list) -> None:
         """Install-snapshot KV merge, guarded per group: only groups that
@@ -1008,7 +1281,7 @@ class ServerReplica:
                 self.kv_need.add(g)
                 return
             vid = 0 if bool(marker[pos[0]]) else int(win_val[pos[0]])
-            batch = self.payloads.get(g, vid)
+            batch = self._resolve_payload(g, vid)
             if vid != 0 and batch is None:
                 self.missing.add((g, vid))
                 return  # stall the exec floor until the payload arrives
@@ -1103,7 +1376,12 @@ class ServerReplica:
             "peers": self.transport.peers() if self.transport else [],
             "was_leader": self.was_leader,
             "wal_size": self.wal.size,
+            "pp_bytes": list(self.pp_bytes),
+            "pp_items": list(self.pp_items),
+            "cw_bytes": list(self.cw_bytes),
         }
+        if self.codewords is not None:
+            out["cw_vids"] = [self.codewords.size(g) for g in range(self.G)]
         for k in (
             "leader", "commit_bar", "exec_bar", "vote_bar", "bal_max",
             "bal_prepared", "next_slot", "dur_bar", "term", "voted_for",

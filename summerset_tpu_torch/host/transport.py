@@ -19,8 +19,14 @@ older frame owed where its event bits are missing from the newest
 (``ServerReplica._peer_lanes``).  A peer with no frame by the deadline
 is a drop, which the kernels' loss machinery recovers.
 
-Frames are pickle bodies; the JAX hub's wire codec, fault verdicts,
-health hooks and delivery samples are not ported.
+Each received frame stamped with its sender's ``ts`` (``time.monotonic``)
+from a peer on this machine leaves a delivery sample ``(peer, body bytes,
+delay ms)`` in ``samples``, which Crossword's adaptive shard assignment
+folds (``host/adaptive.py``); monotonic clocks of two machines are not
+comparable, so other peers leave none.
+
+Frames are pickle bodies; the JAX hub's wire codec, fault verdicts and
+health hooks are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import socket
 import struct
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
 from ..utils import safetcp
@@ -60,6 +67,20 @@ def hard_close(sock: socket.socket) -> None:
         pass
 
 
+def _same_host(sock: socket.socket) -> bool:
+    """Loopback, or the peer's source address equals our own address on
+    this connection (the same machine through its real address)."""
+    try:
+        rip = sock.getpeername()[0]
+        lip = sock.getsockname()[0]
+    except OSError:
+        return False
+    # dual-stack listeners hand back IPv4-mapped IPv6 addresses
+    rip, lip = (ip[7:] if ip.startswith("::ffff:") else ip
+                for ip in (rip, lip))
+    return rip.startswith("127.") or rip == "::1" or (rip != "" and rip == lip)
+
+
 class TransportHub:
     def __init__(self, me: int, population: int, p2p_addr: Tuple[str, int],
                  registry=None):
@@ -70,6 +91,11 @@ class TransportHub:
         self.registry = registry
         self._conns: Dict[int, socket.socket] = {}
         self._wlocks: Dict[int, threading.Lock] = {}
+        # (peer, frame bytes, delay ms) delivery samples; deque appends
+        # are thread-safe, the replica loop drains them
+        self.samples: deque = deque(maxlen=4096)
+        # per peer: does its send stamp share our monotonic clock?
+        self._same_host: Dict[int, bool] = {}
         # per-peer receive queues of (tick, payload)
         self._rq: Dict[int, queue.Queue] = {
             p: queue.Queue() for p in range(population) if p != me
@@ -134,6 +160,7 @@ class TransportHub:
         old = self._conns.get(peer)
         if old is not None and old is not sock:
             hard_close(old)
+        self._same_host[peer] = _same_host(sock)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._conns[peer] = sock
         self._wlocks[peer] = threading.Lock()
@@ -162,10 +189,16 @@ class TransportHub:
         reg = self.registry
         try:
             while True:
-                tick, payload = safetcp.recv_msg_sync(sock)
+                body = safetcp.recv_body_sync(sock)
+                tick, payload = safetcp.decode_body(body)
                 if reg is not None:
                     reg.counter_add("transport_frames_recv", peer=peer)
                 self._rq[peer].put((tick, payload))
+                ts = payload.get("ts") if isinstance(payload, dict) else None
+                if ts is not None and self._same_host.get(peer, False):
+                    self.samples.append(
+                        (peer, len(body), (time.monotonic() - ts) * 1e3)
+                    )
         except Exception:
             pf_warn(logger, f"peer {peer} connection lost")
             if self._conns.get(peer) is sock:

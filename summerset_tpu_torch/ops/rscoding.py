@@ -224,14 +224,13 @@ class RSCode:
     """Batched GF(2^8) Reed-Solomon codec for scheme ``(d, p)``.
 
     Shards are ``[..., shard, L]`` int32 tensors with 4 packed bytes per
-    lane.  ``use_kernel`` sets the lane geometry the JAX codec's
-    ``use_pallas`` sets (:func:`encode_payload` pads to 128 lanes when
-    on); it defaults to ``device`` being a CUDA device.  Which arithmetic
-    runs follows the tensors: the kernel on the card, the plain version
-    on the CPU."""
+    lane.  Which arithmetic runs follows the tensors: the kernel on the
+    card, the plain version on the CPU.  The CUDA kernel takes any ``L``
+    (a masked tail), so both devices use one lane geometry: the JAX
+    codec's on the CPU (``use_pallas`` off), whose TPU kernel alone needs
+    128-lane rows."""
 
-    def __init__(self, num_data: int, num_parity: int,
-                 use_kernel: bool | None = None, device=None):
+    def __init__(self, num_data: int, num_parity: int, device=None):
         self.d = num_data
         self.p = num_parity
         self.device = resolve_device(device)
@@ -239,9 +238,6 @@ class RSCode:
         self._parity_tbl = torch.from_numpy(
             _bitslice_coeffs(self.matrix[num_data:])
         ).to(self.device)
-        if use_kernel is None:
-            use_kernel = self.device.type == "cuda"
-        self.use_kernel = bool(use_kernel)
         self._decode_cache = {}
 
     # -- encode ----------------------------------------------------------
@@ -317,9 +313,9 @@ def unpack_bytes(shards: np.ndarray, data_len: int) -> bytes:
 # -------------------------------------------------- serving entry points --
 def encode_payload(code: RSCode, buf: bytes) -> Tuple[int, np.ndarray]:
     """Serialized payload -> ``(data_len, [d + p, L] int32 codeword)``;
-    rows ``[0, d)`` are the padded data split, ``[d, d + p)`` parity."""
-    lane = 128 if code.use_kernel else 1
-    data = pack_bytes(buf, code.d, lane_multiple=lane)
+    rows ``[0, d)`` are the data split (``L`` lanes of 4 bytes, the last
+    row zero-padded), ``[d, d + p)`` parity, on every device alike."""
+    data = pack_bytes(buf, code.d)
     if code.p == 0:
         return len(buf), data
     dev_data = torch.from_numpy(data).to(code.device)

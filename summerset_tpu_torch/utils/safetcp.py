@@ -99,8 +99,8 @@ def _recv_exact_into(sock, view: memoryview, consumed_before: int) -> None:
         got += k
 
 
-def recv_msg_sync(sock) -> Any:
-    """Receive and decode one frame from a blocking socket."""
+def recv_body_sync(sock) -> bytearray:
+    """Receive one frame's body (undecoded) from a blocking socket."""
     hdr = bytearray(_LEN.size)
     _recv_exact_into(sock, memoryview(hdr), 0)
     (length,) = _LEN.unpack(hdr)
@@ -108,7 +108,12 @@ def recv_msg_sync(sock) -> Any:
         raise SummersetError(f"frame length {length} exceeds cap {MAX_FRAME}")
     body = bytearray(length)
     _recv_exact_into(sock, memoryview(body), _LEN.size)
-    return decode_body(body)
+    return body
+
+
+def recv_msg_sync(sock) -> Any:
+    """Receive and decode one frame from a blocking socket."""
+    return decode_body(recv_body_sync(sock))
 
 
 async def tcp_bind_with_retry(

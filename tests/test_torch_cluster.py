@@ -4,19 +4,27 @@
 
 ``Cluster`` is the counterpart of ``tests/test_cluster.py::Cluster``:
 a manager thread, replica threads under a crash-restart supervisor and
-free ports.  This module imports nothing of JAX at import time, so
-``chip_smoke.py`` and ``tests/test_torch_pipeline.py`` import the harness
-from here.  The JAX package's own checker is imported inside the one test
-that uses it.
+free ports.  The lockstep harness below (``FakeNet`` and the other
+in-memory stand-ins, ``build``, ``lockstep_sides``, ``lockstep_tick``)
+steps replicas built by their own constructors tick by tick with no
+sockets.  This module imports nothing of JAX at import time, so
+``chip_smoke.py``, ``tests/test_torch_server.py`` and
+``tests/test_torch_pipeline.py`` import the harnesses from here.  The JAX
+package's own checker is imported inside the one test that uses it.
 """
 
 import asyncio
+import hashlib
 import os
+import pickle
 import random
 import socket
 import threading
 import time
+import types
+from collections import deque
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,15 +40,31 @@ from summerset_tpu_torch.utils.linearize import record_get, record_put
 torch.set_num_threads(1)
 
 
+def _port_window():
+    """A window of localhost ports outside this host's ephemeral range
+    (``ip_local_port_range``; 32768-60999 by default): client connections
+    take their local ports from that range, so a port picked there can be
+    taken by a connection before a restarted replica binds it again."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+    except (OSError, ValueError):
+        lo, hi = 32768, 60999
+    if lo - 1024 >= 4096:
+        return max(1024, lo - 12000), lo
+    if 65535 - hi >= 4096:
+        return hi + 1, 65536
+    return 20000, 32000
+
+
 def free_ports(n):
-    """``n`` distinct free localhost ports below Linux's ephemeral range:
-    client connections take their local ports from that range, so a port
-    picked there can be taken by a connection before a restarted replica
-    binds it again."""
+    """``n`` distinct free localhost ports outside the ephemeral range
+    (``_port_window``)."""
     rng = random.Random()
+    lo, hi = _port_window()
     ports = []
     while len(ports) < n:
-        p = rng.randrange(20000, 32000)
+        p = rng.randrange(lo, hi)
         if p in ports:
             continue
         s = socket.socket()
@@ -258,12 +282,26 @@ def norm_batch(batch):
     ]
 
 
-def norm_wal(entry):
-    """A WAL record with its batches as plain tuples."""
+def norm_shards(dlen, shards):
+    """Shard rows as plain values: ``(data_len, {sid: row bytes})``."""
+    return (int(dlen),
+            {int(sid): np.asarray(r).tobytes() for sid, r in shards.items()})
+
+
+def norm_wal(entry, shard_norm=None):
+    """A WAL record with its batches as plain tuples; a vote record's
+    ``cw`` shard rows through ``shard_norm(g, vid, dlen, shards)``
+    (default: ``norm_shards``)."""
     if isinstance(entry, tuple) and entry and entry[0] == "vote":
         _, g, rec = entry
         rec = dict(rec)
         rec["pp"] = {vid: norm_batch(b) for vid, b in rec["pp"].items()}
+        if "cw" in rec:
+            rec["cw"] = {
+                vid: (shard_norm(g, vid, dlen, sh) if shard_norm
+                      else norm_shards(dlen, sh))
+                for vid, (dlen, sh) in rec["cw"].items()
+            }
         return ("vote", g, rec)
     g, slot, vid, batch = entry
     return (g, slot, vid, norm_batch(batch))
@@ -337,6 +375,402 @@ def sequential_puts(tmpdir, device, pipeline, n=24, groups=2, window=32):
             for h in [rep.metrics.hist("loop_stage_us", stage=st)] if h
         },
     }
+
+
+# ------------------------------------------------------ lockstep harness
+class FakeNet:
+    """In-memory tick mesh: frames sent in round t are delivered at the
+    start of round t + 1; ``mute`` withholds one replica's frames.  Each
+    frame is pickled and unpickled on send, as the TCP mesh does: a card
+    replica's frames are views of pinned host buffers that its later
+    prefetches overwrite.
+    ``drops`` lists ``((src, dst), lo, hi)``: that link loses its frames
+    in rounds lo..hi-1.  ``holds`` lists ``(src, dst, round)``: that frame
+    is delivered a round late, in one batch with the link's next frame,
+    which supersedes it under the newest-frame rule."""
+
+    def __init__(self, R, drops=(), holds=()):
+        self.R = R
+        self.pending = []
+        self.held = []
+        self.delivered = {r: {} for r in range(R)}
+        self.sent = []
+        self.mute = None
+        self.drops = list(drops)
+        self.holds = set(holds)
+        self.round = 0
+
+    def send(self, src, per_peer):
+        for dst, f in per_peer.items():
+            f = pickle.loads(pickle.dumps(f, pickle.HIGHEST_PROTOCOL))
+            self.sent.append((src, dst, f))
+            if src == self.mute or any(
+                    lo <= self.round < hi and link == (src, dst)
+                    for link, lo, hi in self.drops):
+                continue
+            if (src, dst, self.round) in self.holds:
+                self.held.append((src, dst, f))
+            else:
+                self.pending.append((src, dst, f))
+
+    def recv(self, me):
+        got = {p: None for p in range(self.R) if p != me}
+        for src, fl in self.delivered[me].items():
+            got[src] = fl
+        self.delivered[me] = {}
+        return got
+
+    def flush(self):
+        for src, dst, f in self.pending:
+            self.delivered[dst].setdefault(src, []).append(f)
+        self.pending, self.held = self.held, []
+        self.round += 1
+        sent, self.sent = self.sent, []
+        return sent
+
+
+class FakeCtrl:
+    def __init__(self, me, population):
+        self.me = me
+        self.population = population
+        self.sent = []
+
+    def send_ctrl(self, msg):
+        self.sent.append((msg.kind, dict(msg.payload)))
+
+    def recv_ctrl(self, timeout=None):
+        return types.SimpleNamespace(
+            kind="connect_to_peers",
+            payload={"population": self.population, "to_peers": {}},
+        )
+
+    def try_recv_ctrl(self):
+        return None
+
+    def close(self):
+        pass
+
+
+class FakeTransport:
+    def __init__(self, me, net):
+        self.me = me
+        self.net = net
+        self.health = None
+        self.samples = deque()
+        self.bytes_sent = {}
+
+    def connected(self, peer):
+        return True
+
+    def connect_to_peer(self, peer, addr):
+        pass
+
+    def wait_for_group(self, timeout=None):
+        pass
+
+    def peers(self):
+        return []
+
+    def send_tick(self, tick, per_peer, fence=None):
+        if fence is not None:
+            fence()
+        self.net.send(self.me, per_peer)
+
+    def recv_tick(self, tick, deadline):
+        return self.net.recv(self.me)
+
+    def close(self):
+        pass
+
+
+class FakeExternal:
+    def __init__(self):
+        self.batches = []
+        self.replies = []
+        self.max_batch_size = 5000
+
+    def get_req_batch(self, timeout=None):
+        return self.batches.pop(0) if self.batches else []
+
+    def send_reply(self, reply, client):
+        self.replies.append((client, reply))
+
+    def send_replies(self, items, fence=None):
+        if fence is not None:
+            fence()
+        for client, reply in items:
+            self.send_reply(reply, client)
+
+    def has_client(self, client):
+        return True
+
+    def stop(self):
+        pass
+
+
+ADDR = ("127.0.0.1", 1)
+
+
+def build(mod, protocol, me, R, G, W, backer_dir, config, net=None,
+          **kw):
+    """Run ``mod.ServerReplica.__init__`` with the stand-ins patched into
+    the module (restored afterwards); returns the replica."""
+    saved = (mod.ControlHub, mod.TransportHub, mod.ExternalApi)
+    ctrl = FakeCtrl(me, R)
+    mod.ControlHub = lambda *a, **k: ctrl
+    mod.TransportHub = lambda *a, **k: FakeTransport(me, net or FakeNet(R))
+    mod.ExternalApi = lambda *a, **k: FakeExternal()
+    try:
+        rep = mod.ServerReplica(
+            protocol, ADDR, ADDR, ADDR, config=dict(config),
+            num_groups=G, window=W, tick_interval=0.0,
+            backer_dir=str(backer_dir), **kw,
+        )
+    finally:
+        mod.ControlHub, mod.TransportHub, mod.ExternalApi = saved
+    return rep
+
+
+def norm_reply(client, rep):
+    res = rep.result
+    return (client, rep.kind, rep.req_id, rep.success, rep.redirect,
+            None if res is None else (res.kind, res.value, res.old_value))
+
+
+def leaf_digests(state):
+    out = {}
+    for k, v in state.items():
+        a = (v.cpu().numpy() if isinstance(v, torch.Tensor)
+             else np.asarray(v))
+        out[k] = (a.shape, hashlib.sha256(a.tobytes()).hexdigest())
+    return out
+
+
+def requests(pkg, t, r):
+    """Replica ``r``'s intake batch at tick ``t`` (``pkg`` names the
+    package's ``msg`` and ``sm`` modules): a put, a get and, every fifth
+    tick, a request with no command (answered error)."""
+    base = 1000 * t + 10 * r
+    out = [
+        (100 + r, pkg.msg.ApiRequest("req", req_id=base, cmd=pkg.sm.Command(
+            "put", f"k{(3 * t + r) % 5}", f"v{t}.{r}"))),
+        (200 + r, pkg.msg.ApiRequest("req", req_id=base + 1,
+                                     cmd=pkg.sm.Command(
+                                         "get", f"k{(t + 2 * r) % 5}"))),
+    ]
+    if t % 5 == 0:
+        out.append((300 + r, pkg.msg.ApiRequest("req", req_id=base + 2)))
+    return out
+
+
+class ShardNorm:
+    """Normalizes one side's shard records (``ps``/``cw`` frame parts,
+    ``cw`` WAL records) to ``(shard ids, the batch they encode)``.
+
+    Shard bytes differ between packages (the pickled class paths differ).
+    So each record is first checked exact against its own side: the
+    value's batch is taken from a replica's payload store (the proposer's
+    holds it), pickled as the proposer pickled it and encoded by the
+    side's own ``encode(buf) -> (data_len, rows)``; the record's
+    ``data_len`` and every row must equal that encoding.  Two sides of one
+    package (the card and the CPU share one lane geometry) also compare
+    the rows' bytes: ``exact=True`` adds them to the normalized record."""
+
+    def __init__(self, reps, encode, exact=False):
+        self.reps = reps
+        self.encode = encode
+        self.exact = exact
+        self._rows = {}
+
+    def batch(self, g, vid):
+        for rep in self.reps:
+            b = rep.payloads.get(g, vid)
+            if b is not None:
+                return b
+        raise AssertionError(f"no replica holds the batch of ({g}, {vid})")
+
+    def __call__(self, g, vid, dlen, shards):
+        b = self.batch(g, vid)
+        if (g, vid) not in self._rows:
+            self._rows[(g, vid)] = self.encode(pickle.dumps(b))
+        want_len, rows = self._rows[(g, vid)]
+        assert int(dlen) == want_len, (g, vid, dlen, want_len)
+        for sid, row in shards.items():
+            assert np.array_equal(np.asarray(row), rows[sid]), (g, vid, sid)
+        out = (tuple(sorted(int(s) for s in shards)), norm_batch(b))
+        if self.exact:
+            out += (tuple(np.asarray(shards[s]).tobytes()
+                          for s in sorted(shards)),)
+        return out
+
+
+def norm_frame(f, shard_norm, port=True):
+    """A tick frame as plain values: kernel lanes as (dtype, shape,
+    bytes) (the port's int32 ``flags`` viewed as the JAX uint32), the
+    payload parts, the codeword parts through ``shard_norm``; not the
+    ``ts`` stamp."""
+    msg = {}
+    for k, v in f["msg"].items():
+        a = np.asarray(v)
+        if port and k == "flags":
+            a = a.view(np.uint32)
+        msg[k] = (a.dtype.str, a.shape, a.tobytes())
+    out = {
+        "msg": msg,
+        "pp": {k: norm_batch(b) for k, b in f["pp"].items()},
+        "need": [tuple(x) for x in f["need"]],
+        "kv_need": f["kv_need"],
+        "kv": f.get("kv"),
+        "cw_need": [tuple(x) for x in f.get("cw_need", ())],
+    }
+    for key in ("ps", "cw"):
+        out[key] = {(g, vid): shard_norm(g, vid, sp.data_len, sp.shards)
+                    for (g, vid), sp in (f.get(key) or {}).items()}
+    return out
+
+
+def record_wal(rep):
+    """Capture every WAL record the replica appends (raw)."""
+    log = []
+    orig = rep._wal_append
+
+    def wrapped(entry):
+        log.append(entry)
+        orig(entry)
+
+    rep._wal_append = wrapped
+    return log
+
+
+def lockstep_sides(base, protocol, sides, cfg, G, R, W, exact_rows=False,
+                   **net_kw):
+    """Three replicas per side on their own in-memory mesh: ``sides``
+    holds ``(name, server module, pkg, encode, ServerReplica keywords)``,
+    ``encode(code, buf)`` the side's codec entry (``encode_payload``);
+    ``exact_rows`` compares shard rows byte for byte (one package)."""
+    out = {}
+    for name, mod, pkg, encode, kw in sides:
+        net = FakeNet(R, **net_kw)
+        reps = [build(mod, protocol, r, R, G, W,
+                      os.path.join(str(base), name, str(r)), cfg, net=net,
+                      **kw) for r in range(R)]
+        code = reps[0].codewords.code if reps[0].codewords else None
+        norm = ShardNorm(reps, lambda buf, c=code, e=encode: e(c, buf),
+                         exact=exact_rows)
+        out[name] = (reps, net, pkg, [record_wal(rep) for rep in reps],
+                     norm)
+    return out
+
+
+def lockstep_tick(sides, t, mute=None, port_sides=None):
+    """One scripted serial tick on every side; returns per side what the
+    gates compare (``port_sides`` names the sides whose ``flags`` lane is
+    the port's int32; default every side but ``"jax"``)."""
+    seen = {}
+    for name, (reps, net, pkg, wals, norm) in sides.items():
+        net.mute = mute
+        for r, rep in enumerate(reps):
+            rep.external.batches.append(requests(pkg, t, r))
+            rep._tick_serial(time.monotonic())
+        sent = net.flush()
+        port = (name != "jax") if port_sides is None else name in port_sides
+        seen[name] = {
+            "frames": [(s, d, norm_frame(f, norm, port)) for s, d, f in sent],
+            "state": [leaf_digests(rep.state) for rep in reps],
+            "wal": [[norm_wal(e, norm) for e in w] for w in wals],
+            "applied": [list(rep.applied) for rep in reps],
+            "kv": [dict(rep.statemach.snapshot_items()) for rep in reps],
+            "replies": [[norm_reply(c, x) for c, x in
+                         rep.external.replies] for rep in reps],
+            "ctrl": [list(rep.ctrl.sent) for rep in reps],
+        }
+        for rep in reps:
+            rep.external.replies.clear()
+        for w in wals:
+            w.clear()
+    return seen
+
+
+def shutdown_sides(sides):
+    for reps, *_ in sides.values():
+        for rep in reps:
+            rep.shutdown()
+
+
+#: the card-against-CPU codeword lockstep: replica 0 leads, then is muted
+#: for ticks 8..29, so a new leader adopts values it holds as shards
+CARD_CPU_LOCK = dict(G=16, R=3, W=32, ticks=40, mute=(8, 30))
+CARD_CPU_CFG = {"pipeline": False, "hear_timeout_lo": 8,
+                "hear_timeout_hi": 16, "fault_tolerance": 0}
+
+
+def card_cpu_lockstep(base, device, protocol="RSPaxos", **shape):
+    """Three port replicas on ``device`` and three on the CPU, each trio
+    on its own in-memory mesh, step the same scripted serial ticks; per
+    tick the state digests, frames (lanes, payload parts, shard records
+    by the batch they encode and byte for byte), WAL records,
+    ``applied``, KV, replies and manager notices must be equal.  Returns what the run did: the
+    device side's rebuilds from shards, shard sends, leaders seen, its
+    ``bitslice_gf256`` launches and the ticks run.  Raises
+    AssertionError at the first difference."""
+    import summerset_tpu_torch.host.server as srv
+    from summerset_tpu_torch.host import messages, statemach
+    from summerset_tpu_torch.ops import rscoding
+
+    sh = dict(CARD_CPU_LOCK, **shape)
+    pkg = types.SimpleNamespace(msg=messages, sm=statemach)
+    sides = lockstep_sides(base, protocol, (
+        ("card", srv, pkg, rscoding.encode_payload, {"device": device}),
+        ("cpu", srv, pkg, rscoding.encode_payload, {"device": "cpu"}),
+    ), CARD_CPU_CFG, sh["G"], sh["R"], sh["W"], exact_rows=True)
+    reps = sides["card"][0]
+    rebuilt, launches = [0], [0]
+    for rep in reps:
+        orig = rep.codewords.reconstruct_batch
+
+        def counted(g, vid, orig=orig):
+            out = orig(g, vid)
+            rebuilt[0] += out is not None
+            return out
+
+        rep.codewords.reconstruct_batch = counted
+        tick = rep._tick_serial
+
+        def stepped(t0, tick=tick):
+            # the replicas' own launches (not the checks' re-encodings)
+            n0 = rscoding.bitslice_gf256.launches
+            tick(t0)
+            launches[0] += rscoding.bitslice_gf256.launches - n0
+
+        rep._tick_serial = stepped
+    leaders, shard_frames = set(), 0
+    try:
+        lo, hi = sh["mute"]
+        for t in range(sh["ticks"]):
+            seen = lockstep_tick(sides, t, mute=0 if lo <= t < hi else None,
+                                 port_sides=("card", "cpu"))
+            a, b = seen["card"], seen["cpu"]
+            for part in a:
+                if a[part] != b[part]:
+                    where = ""
+                    if part == "state":
+                        where = ": " + ", ".join(
+                            f"replica {r} leaf {k}"
+                            for r, (x, y) in enumerate(zip(a[part], b[part]))
+                            for k in x if x[k] != y.get(k))
+                    raise AssertionError(f"{protocol} tick {t}: {part} "
+                                         f"differs between {device} and "
+                                         f"cpu{where}")
+            shard_frames += sum(1 for _s, _d, f in a["frames"] if f["ps"])
+            for rep in reps:
+                leaders.update((g, rep.me) for g in
+                               np.nonzero(rep._is_leader)[0].tolist())
+    finally:
+        shutdown_sides(sides)
+    return {"ticks": sh["ticks"], "rebuilt": rebuilt[0],
+            "shard_frames": shard_frames,
+            "leaders": sorted({me for _g, me in leaders}),
+            "launches": launches[0]}
 
 
 # ------------------------------------------------------------------ tests
@@ -492,8 +926,6 @@ class TestTorchCluster:
         ok, diag = jlin.check_history(jops)
         assert ok, diag
 
-
-ADDR = ("127.0.0.1", 1)
 
 
 def test_unserved_protocol_is_refused(tmp_path):

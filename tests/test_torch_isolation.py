@@ -66,9 +66,10 @@ def test_port_and_chip_smoke_import_no_jax():
 #: the serving path's modules (each also checked alone below)
 SERVING_MODULES = tuple("summerset_tpu_torch." + m for m in (
     "utils.errors", "utils.logging", "utils.loops", "utils.timer",
-    "utils.safetcp", "utils.linearize", "host.statemach", "host.messages",
-    "host.payload", "host.storage", "host.control", "host.transport",
-    "host.external", "host.telemetry", "host.server", "manager",
+    "utils.safetcp", "utils.linearize", "utils.linreg", "utils.qdisc",
+    "host.statemach", "host.messages", "host.payload", "host.storage",
+    "host.control", "host.transport", "host.external", "host.telemetry",
+    "host.adaptive", "host.codeword", "host.server", "manager",
     "manager.clusman", "client", "client.endpoint", "client.drivers",
     "cli", "cli.server", "cli.manager",
 ))
@@ -150,6 +151,9 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         lambda: seed_state(5, (2, 3)),
         lambda: NetModel(NetConfig(), 2, 3, frozenset()),
         lambda: ServerReplica("MultiPaxos", addr, addr, addr),
+        lambda: ServerReplica("RSPaxos", addr, addr, addr),
+        lambda: ServerReplica("CRaft", addr, addr, addr),
+        lambda: ServerReplica("Crossword", addr, addr, addr),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

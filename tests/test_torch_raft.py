@@ -270,3 +270,28 @@ def test_kernel_declarations_match_jax():
         assert tk.DURABLE_WINDOWS == jk.DURABLE_WINDOWS
         assert tk.PHASES == jk.PHASES
         assert type(tk).name == type(jk).name
+
+
+@pytest.mark.parametrize("proto", ["raft", "craft"])
+def test_restore_durable_matches_jax_across_terms(proto):
+    """The warm-start leader (replica 0) restoring a record of the
+    warm-start term and of a later term whose vote went to replica 1:
+    every leaf equals the JAX kernel's.  Both kernels keep the boot
+    leader flag in the later term too, so a restarted replica 0 leads a
+    term replica 1 won (the open fault in ROADMAP Queue 3); this pins
+    the shared behaviour until both packages are repaired together."""
+    jk, tk = _kernels(proto, {})
+    jeng, teng = JEngine(jk, seed=3), TEngine(tk, seed=3, device="cpu")
+    base = {k: np.asarray(jeng._boot[k][1, 0]).tolist()
+            for k in jk.DURABLE_SCALARS + jk.DURABLE_WINDOWS}
+    for term in (1, 2):
+        rec = dict(base, term=term, voted_for=0 if term == 1 else 1)
+        jst, tst = dict(jeng._boot), dict(teng._boot)
+        jk.restore_durable(jst, 1, 0, rec, floor=0)
+        tk.restore_durable(tst, 1, 0, rec, floor=0)
+        tn = to_numpy(tst)
+        assert bool(tn["is_leader"][1, 0])
+        assert int(tn["term"][1, 0]) == term
+        for k in jst:
+            np.testing.assert_array_equal(tn[k], np.asarray(jst[k]),
+                                          err_msg=k)

@@ -123,7 +123,7 @@ def test_kernel_wrapper_rejects(bad):
 
 @pytest.mark.parametrize("d,p", [(3, 2), (2, 1), (5, 3), (4, 0)])
 def test_parity_matches_byte_oracle(d, p):
-    code = trs.RSCode(d, p, use_kernel=False, device="cpu")
+    code = trs.RSCode(d, p, device="cpu")
     rng = np.random.default_rng(d * 10 + p)
     raw = rng.integers(0, 256, size=(d, 32), dtype=np.uint8)
     data = torch.from_numpy(trs.pack_bytes(raw.tobytes(), d))
@@ -145,7 +145,7 @@ def test_parity_matches_byte_oracle(d, p):
 
 @pytest.mark.parametrize("present", SUBSETS)
 def test_reconstruct_from_any_quorum(present):
-    code = trs.RSCode(3, 2, use_kernel=False, device="cpu")
+    code = trs.RSCode(3, 2, device="cpu")
     data = torch.from_numpy(_lanes(sum(present), (2, 3, 16)))
     full = torch.cat([data, code.compute_parity(data)], dim=-2)
     got = code.reconstruct_data(full[:, list(present)], present)
@@ -160,7 +160,7 @@ def test_reconstruct_from_any_quorum(present):
 
 
 def test_verify_parity_detects_corruption():
-    code = trs.RSCode(3, 2, use_kernel=False, device="cpu")
+    code = trs.RSCode(3, 2, device="cpu")
     data = torch.from_numpy(_lanes(11, (4, 3, 8)))
     parity = code.compute_parity(data)
     assert code.verify_parity(data, parity).tolist() == [True] * 4
@@ -172,32 +172,32 @@ def test_verify_parity_detects_corruption():
 @pytest.mark.parametrize("size", [0, 1, 37, 4096, 70001])
 @pytest.mark.parametrize("kernel_geometry", [False, True])
 def test_payload_codec_byte_identical(size, kernel_geometry):
+    """The port encodes at the JAX codec's CPU geometry on every device;
+    its decode also takes rows at the JAX TPU kernel's geometry (128-lane
+    padding, parity of the padded rows)."""
     buf = np.random.default_rng(size).integers(
         0, 256, size=size, dtype=np.uint8).tobytes()
-    tcode = trs.RSCode(3, 2, use_kernel=kernel_geometry, device="cpu")
+    tcode = trs.RSCode(3, 2, device="cpu")
     jcode = jrs.RSCode(3, 2, use_pallas=False)
     tlen, tcw_ = trs.encode_payload(tcode, buf)
-    if kernel_geometry:
-        # the kernel geometry is the JAX use_pallas one: 128-lane padding,
-        # parity of the padded rows
-        data = jrs.pack_bytes(buf, 3, lane_multiple=128)
-        want = np.concatenate(
-            [data, np.asarray(jcode.compute_parity(data))], axis=0)
-        assert tcw_.shape[1] % 128 == 0
-    else:
-        want = jrs.encode_payload(jcode, buf)[1]
     assert tlen == len(buf)
     assert tcw_.dtype == np.int32
-    np.testing.assert_array_equal(tcw_, want)
+    np.testing.assert_array_equal(tcw_, jrs.encode_payload(jcode, buf)[1])
+    cw = tcw_
+    if kernel_geometry:
+        data = jrs.pack_bytes(buf, 3, lane_multiple=128)
+        cw = np.concatenate(
+            [data, np.asarray(jcode.compute_parity(data))], axis=0)
+        assert cw.shape[1] % 128 == 0
     for sub in SUBSETS:
-        held = {i: tcw_[i] for i in sub}
+        held = {i: cw[i] for i in sub}
         assert trs.decode_payload(tcode, held, tlen) == buf
         np.testing.assert_array_equal(
             trs.decode_rows(tcode, held), jrs.decode_rows(jcode, held))
 
 
 def test_codeword_store_matches_jax():
-    tcode = trs.RSCode(3, 2, use_kernel=False, device="cpu")
+    tcode = trs.RSCode(3, 2, device="cpu")
     jcode = jrs.RSCode(3, 2, use_pallas=False)
     tstore = tcw.CodewordStore(4, tcode, total=5, device="cpu")
     jstore = jcw.CodewordStore(4, jcode, total=5)
@@ -244,7 +244,7 @@ ASSIGNMENTS = [(5, 1), (5, 2), (5, 3), (10, 2), (10, 4)]
 
 def _codes(T):
     d, p = (3, 2) if T == 5 else (6, 4)
-    return (trs.RSCode(d, p, use_kernel=False, device="cpu"),
+    return (trs.RSCode(d, p, device="cpu"),
             jrs.RSCode(d, p, use_pallas=False))
 
 

@@ -7,13 +7,19 @@ digests, equal Python records):
     built by its own constructor with in-memory stand-ins for the
     manager, the p2p mesh and the client plane (no sockets, no threads
     beyond the WAL logger), step the same scripted serial ticks for
-    MultiPaxos and Raft at G=2, R=3, W=16.  Intake batches are fixed per
-    tick; frames move in memory, sent in one round and delivered in the
-    next; replica 0's frames are withheld for a stretch so leadership
-    moves.  Per tick: every state leaf's sha256, each frame's kernel
+    MultiPaxos, Raft, RSPaxos, CRaft and Crossword at G=2, R=3, W=16.
+    Intake batches are fixed per tick; frames move in memory, sent in one
+    round and delivered in the next; replica 0's frames are withheld for
+    a stretch so leadership moves (and, on the codeword family, the new
+    leader rebuilds adopted values from shards; CRaft falls back to full
+    copies).  Per tick: every state leaf's sha256, each frame's kernel
     lanes (``flags`` as uint32) and payload parts (``pp``, ``need``,
-    ``kv_need``; not the ``ts`` stamp), the WAL records, ``applied``, the
-    KV, the replies and the manager notices.
+    ``kv_need``, ``cw_need``; not the ``ts`` stamp), the WAL records,
+    ``applied``, the KV, the replies and the manager notices.  Shard
+    records (``ps``/``cw`` frame parts, ``cw`` in vote records) compare
+    as their shard ids and the batch they encode, each first checked
+    byte-exact against its own package's encoding of that batch: the two
+    packages pickle different class paths, so their shard bytes differ.
 (b) Single replica.  24 sequential puts on a 1-replica JAX cluster and a
     1-replica port cluster, in both loop modes: durable-state digests, KV,
     ``applied`` and the WAL entries equal.
@@ -21,13 +27,10 @@ digests, equal Python records):
     rebuilds the same state, KV and floors.
 """
 
-import hashlib
 import os
 import shutil
 import sys
-import time
 import types
-from collections import deque
 
 import numpy as np
 import pytest
@@ -39,21 +42,24 @@ from summerset_tpu.host import messages as jmsg
 from summerset_tpu.host import statemach as jsm
 from summerset_tpu.host.storage import LogAction as JLogAction
 from summerset_tpu.host.storage import StorageHub as JStorageHub
+from summerset_tpu.ops import rscoding as jrs
 from summerset_tpu.protocols.multipaxos import AR_NACK
 from summerset_tpu_torch.host import messages as tmsg
 from summerset_tpu_torch.host import statemach as tsm
 from summerset_tpu_torch.host.storage import LogAction as TLogAction
 from summerset_tpu_torch.host.storage import StorageHub as TStorageHub
+from summerset_tpu_torch.ops import rscoding as trs
 from summerset_tpu_torch.utils.errors import SummersetError
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_cluster import (  # noqa: E402
-    durable_digest, norm_batch, norm_wal, read_wal,
+    build, durable_digest, leaf_digests, read_wal, shutdown_sides,
 )
+from test_torch_cluster import lockstep_sides as _lockstep_sides  # noqa: E402
+from test_torch_cluster import lockstep_tick  # noqa: E402
 
 torch.set_num_threads(1)
 
-ADDR = ("127.0.0.1", 1)
 # JAX-only host planes off (health beacons, watch frames, the flight
 # recorder, slot traces, the wire codec); the port ignores these keys
 BASE_CFG = {
@@ -62,275 +68,65 @@ BASE_CFG = {
 }
 
 
-# ------------------------------------------------------------ stand-ins
-class FakeNet:
-    """In-memory tick mesh: frames sent in round t are delivered at the
-    start of round t + 1; ``mute`` withholds one replica's frames.
-    ``drops`` lists ``((src, dst), lo, hi)``: that link loses its frames
-    in rounds lo..hi-1.  ``holds`` lists ``(src, dst, round)``: that frame
-    is delivered a round late, in one batch with the link's next frame,
-    which supersedes it under the newest-frame rule."""
-
-    def __init__(self, R, drops=(), holds=()):
-        self.R = R
-        self.pending = []
-        self.held = []
-        self.delivered = {r: {} for r in range(R)}
-        self.sent = []
-        self.mute = None
-        self.drops = list(drops)
-        self.holds = set(holds)
-        self.round = 0
-
-    def send(self, src, per_peer):
-        for dst, f in per_peer.items():
-            self.sent.append((src, dst, f))
-            if src == self.mute or any(
-                    lo <= self.round < hi and link == (src, dst)
-                    for link, lo, hi in self.drops):
-                continue
-            if (src, dst, self.round) in self.holds:
-                self.held.append((src, dst, f))
-            else:
-                self.pending.append((src, dst, f))
-
-    def recv(self, me):
-        got = {p: None for p in range(self.R) if p != me}
-        for src, fl in self.delivered[me].items():
-            got[src] = fl
-        self.delivered[me] = {}
-        return got
-
-    def flush(self):
-        for src, dst, f in self.pending:
-            self.delivered[dst].setdefault(src, []).append(f)
-        self.pending, self.held = self.held, []
-        self.round += 1
-        sent, self.sent = self.sent, []
-        return sent
-
-
-class FakeCtrl:
-    def __init__(self, me, population):
-        self.me = me
-        self.population = population
-        self.sent = []
-
-    def send_ctrl(self, msg):
-        self.sent.append((msg.kind, dict(msg.payload)))
-
-    def recv_ctrl(self, timeout=None):
-        return types.SimpleNamespace(
-            kind="connect_to_peers",
-            payload={"population": self.population, "to_peers": {}},
-        )
-
-    def try_recv_ctrl(self):
-        return None
-
-    def close(self):
-        pass
-
-
-class FakeTransport:
-    def __init__(self, me, net):
-        self.me = me
-        self.net = net
-        self.health = None
-        self.samples = deque()
-        self.bytes_sent = {}
-
-    def connected(self, peer):
-        return True
-
-    def connect_to_peer(self, peer, addr):
-        pass
-
-    def wait_for_group(self, timeout=None):
-        pass
-
-    def peers(self):
-        return []
-
-    def send_tick(self, tick, per_peer, fence=None):
-        if fence is not None:
-            fence()
-        self.net.send(self.me, per_peer)
-
-    def recv_tick(self, tick, deadline):
-        return self.net.recv(self.me)
-
-    def close(self):
-        pass
-
-
-class FakeExternal:
-    def __init__(self):
-        self.batches = []
-        self.replies = []
-        self.max_batch_size = 5000
-
-    def get_req_batch(self, timeout=None):
-        return self.batches.pop(0) if self.batches else []
-
-    def send_reply(self, reply, client):
-        self.replies.append((client, reply))
-
-    def send_replies(self, items, fence=None):
-        if fence is not None:
-            fence()
-        for client, reply in items:
-            self.send_reply(reply, client)
-
-    def has_client(self, client):
-        return True
-
-    def stop(self):
-        pass
-
-
-def build(mod, protocol, me, R, G, W, backer_dir, config, net=None,
-          **kw):
-    """Run ``mod.ServerReplica.__init__`` with the stand-ins patched into
-    the module (restored afterwards); returns the replica."""
-    saved = (mod.ControlHub, mod.TransportHub, mod.ExternalApi)
-    ctrl = FakeCtrl(me, R)
-    mod.ControlHub = lambda *a, **k: ctrl
-    mod.TransportHub = lambda *a, **k: FakeTransport(me, net or FakeNet(R))
-    mod.ExternalApi = lambda *a, **k: FakeExternal()
-    try:
-        rep = mod.ServerReplica(
-            protocol, ADDR, ADDR, ADDR, config=dict(config),
-            num_groups=G, window=W, tick_interval=0.0,
-            backer_dir=str(backer_dir), **kw,
-        )
-    finally:
-        mod.ControlHub, mod.TransportHub, mod.ExternalApi = saved
-    return rep
-
-
-# -------------------------------------------------------- normalization
-
-
-def norm_reply(client, rep):
-    res = rep.result
-    return (client, rep.kind, rep.req_id, rep.success, rep.redirect,
-            None if res is None else (res.kind, res.value, res.old_value))
-
-
-def norm_frame(f, port):
-    msg = {}
-    for k, v in f["msg"].items():
-        a = np.asarray(v)
-        if port and k == "flags":
-            a = a.view(np.uint32)
-        msg[k] = (a.dtype.str, a.shape, a.tobytes())
-    return {
-        "msg": msg,
-        "pp": {k: norm_batch(b) for k, b in f["pp"].items()},
-        "need": [tuple(x) for x in f["need"]],
-        "kv_need": f["kv_need"],
-        "kv": f.get("kv"),
-    }
-
-
-def leaf_digests(state):
-    out = {}
-    for k, v in state.items():
-        a = v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        out[k] = (a.shape, hashlib.sha256(a.tobytes()).hexdigest())
-    return out
-
-
-def record_wal(rep):
-    """Capture every WAL record the replica appends."""
-    log = []
-    orig = rep._wal_append
-
-    def wrapped(entry):
-        log.append(norm_wal(entry))
-        orig(entry)
-
-    rep._wal_append = wrapped
-    return log
-
-
-def requests(pkg, t, r):
-    """Replica ``r``'s intake batch at tick ``t``: a put, a get and,
-    every fifth tick, a request with no command (answered error)."""
-    msg, sm = pkg
-    base = 1000 * t + 10 * r
-    out = [
-        (100 + r, msg.ApiRequest("req", req_id=base, cmd=sm.Command(
-            "put", f"k{(3 * t + r) % 5}", f"v{t}.{r}"))),
-        (200 + r, msg.ApiRequest("req", req_id=base + 1, cmd=sm.Command(
-            "get", f"k{(t + 2 * r) % 5}"))),
-    ]
-    if t % 5 == 0:
-        out.append((300 + r, msg.ApiRequest("req", req_id=base + 2)))
-    return out
-
-
 # ------------------------------------------------------ (a) lockstep gate
 LOCK = dict(G=2, R=3, W=16, ticks=60, mute=(12, 40))
 LOCK_CFG = dict(BASE_CFG, pipeline=False, hear_timeout_lo=8,
                 hear_timeout_hi=16)
-SIDES = (("jax", jsrv, (jmsg, jsm), {}),
-         ("torch", tsrv, (tmsg, tsm), {"device": "cpu"}))
+#: the codeword family: commit at a majority (RS(2,1) at R=3), CRaft's
+#: peers declared dead 8 ticks after their last reply and a wider
+#: election spread (so the mute elects a new leader that falls back to
+#: full copies), Crossword's width pinned
+CW_CFG = {"fault_tolerance": 0, "alive_timeout": 8, "hear_timeout_hi": 24,
+          "assignment_adaptive": False}
+CODEWORD = ("RSPaxos", "CRaft", "Crossword")
+SIDES = (
+    ("jax", jsrv, types.SimpleNamespace(msg=jmsg, sm=jsm), jrs.encode_payload,
+     {}),
+    ("torch", tsrv, types.SimpleNamespace(msg=tmsg, sm=tsm),
+     trs.encode_payload, {"device": "cpu"}),
+)
+
+
+def lock_cfg(protocol):
+    return dict(LOCK_CFG, **(CW_CFG if protocol in CODEWORD else {}))
 
 
 def lockstep_sides(tmp_path, protocol, sides=SIDES, **net_kw):
     """Three replicas per package on their own in-memory mesh."""
-    G, R, W = LOCK["G"], LOCK["R"], LOCK["W"]
-    out = {}
-    for name, mod, pkg, kw in sides:
-        net = FakeNet(R, **net_kw)
-        reps = [build(mod, protocol, r, R, G, W, tmp_path / name / str(r),
-                      LOCK_CFG, net=net, **kw) for r in range(R)]
-        out[name] = (reps, net, pkg, [record_wal(rep) for rep in reps])
-    return out
+    return _lockstep_sides(tmp_path, protocol, sides, lock_cfg(protocol),
+                           LOCK["G"], LOCK["R"], LOCK["W"], **net_kw)
 
 
-def lockstep_tick(sides, t, mute=None):
-    """One scripted serial tick on every side; returns per side what the
-    gate compares."""
-    seen = {}
-    for name, (reps, net, pkg, wals) in sides.items():
-        net.mute = mute
-        for r, rep in enumerate(reps):
-            rep.external.batches.append(requests(pkg, t, r))
-            rep._tick_serial(time.monotonic())
-        sent = net.flush()
-        port = name == "torch"
-        seen[name] = {
-            "frames": [(s, d, norm_frame(f, port)) for s, d, f in sent],
-            "state": [leaf_digests(rep.state) for rep in reps],
-            "wal": [list(w) for w in wals],
-            "applied": [list(rep.applied) for rep in reps],
-            "kv": [dict(rep.statemach.snapshot_items()) for rep in reps],
-            "replies": [[norm_reply(c, x) for c, x in
-                         rep.external.replies] for rep in reps],
-            "ctrl": [list(rep.ctrl.sent) for rep in reps],
-        }
-        for rep in reps:
-            rep.external.replies.clear()
-        for w in wals:
-            w.clear()
-    return seen
+def count_calls(obj, name, pred=bool):
+    """Wrap ``obj.name`` to count the calls whose result ``pred`` holds."""
+    box = [0]
+    orig = getattr(obj, name)
+
+    def wrapped(*a, **k):
+        out = orig(*a, **k)
+        if pred(out):
+            box[0] += 1
+        return out
+
+    setattr(obj, name, wrapped)
+    return box
 
 
-def shutdown_sides(sides):
-    for reps, *_ in sides.values():
-        for rep in reps:
-            rep.shutdown()
-
-
-@pytest.mark.parametrize("protocol", ["MultiPaxos", "Raft"])
+@pytest.mark.parametrize("protocol", ["MultiPaxos", "Raft"] + list(CODEWORD))
 def test_seam_lockstep(tmp_path, protocol):
     G = LOCK["G"]
     sides = lockstep_sides(tmp_path, protocol)
     leaders = set()
     replies = redirects = 0
+    # the port's rebuilds from shards and CRaft's full-copy intakes
+    reps = sides["torch"][0]
+    rebuilt = [count_calls(r.codewords, "reconstruct_batch",
+                           lambda b: b is not None)
+               for r in reps if r.codewords is not None]
+    fallback = [count_calls(r, "_craft_fallback_groups",
+                            lambda m: m is not None and bool(m.any()))
+                for r in reps]
+    shard_frames = 0
     try:
         for t in range(LOCK["ticks"]):
             lo, hi = LOCK["mute"]
@@ -338,18 +134,26 @@ def test_seam_lockstep(tmp_path, protocol):
             j, p = seen["jax"], seen["torch"]
             for part in j:
                 assert j[part] == p[part], f"tick {t}: {part} differs"
-            for rep in sides["torch"][0]:
+            for rep in reps:
                 for g in range(G):
                     if rep._is_leader[g]:
                         leaders.add((g, rep.me))
             for rr in p["replies"]:
                 replies += sum(1 for x in rr if x[1] == "reply")
                 redirects += sum(1 for x in rr if x[1] == "redirect")
+            shard_frames += sum(1 for _s, _d, f in p["frames"] if f["ps"])
         # the schedule did what it is for: leadership moved, writes
         # committed and were answered, followers redirected
         assert any(me != 0 for _g, me in leaders), leaders
-        assert min(sum(rep.applied) for rep in sides["torch"][0]) > 10
+        assert min(sum(rep.applied) for rep in reps) > 10
         assert replies > 20 and redirects > 20
+        if protocol in CODEWORD:
+            # shards went out, and the new leader rebuilt values it held
+            # only as shards
+            assert shard_frames > 10
+            assert sum(b[0] for b in rebuilt) > 0
+        if protocol == "CRaft":
+            assert sum(b[0] for b in fallback) > 0
     finally:
         shutdown_sides(sides)
 
@@ -509,7 +313,9 @@ def test_event_bits_of_superseded_frames_are_delivered(tmp_path):
     """Two frames from one peer in one tick: a group whose older frame
     holds a flag bit the newer lacks (an AR_NACK) gets the older frame's
     lanes this tick and the newer frame's next tick; the other groups
-    get the newest frame at once (the JAX rule)."""
+    get the newest frame at once (the JAX rule), and zero lanes on the
+    next tick, when they are owed nothing (a JAX replica's inbox slot
+    of a peer that sent nothing)."""
     rep = build(tsrv, "MultiPaxos", 0, 3, 2, 16, tmp_path, {},
                 device="cpu")
     try:
@@ -526,13 +332,223 @@ def test_event_bits_of_superseded_frames_are_delivered(tmp_path):
         assert got["flags"].tolist() == [2 | 64, 2]
         assert got["ar_hint"].tolist() == [5, 0]
         assert got["ar_f"].tolist() == [0, 9]
-        # the newer frame is still owed to group 0 only
+        # the newer frame is still owed to group 0 only: group 1 gets
+        # zero lanes
         nxt = rep._peer_lanes(1, [])
-        assert nxt["flags"].tolist() == [2, 2]
-        assert nxt["ar_f"].tolist() == [9, 9]
+        assert nxt["flags"].tolist() == [2, 0]
+        assert nxt["ar_f"].tolist() == [9, 0]
+        assert all(not v[1].any() for v in nxt.values())
         assert rep._peer_lanes(1, []) is None
         # one frame per tick is the newest-frame rule, nothing owed
         assert rep._peer_lanes(1, [old])["ar_hint"].tolist() == [5, 0]
         assert rep._owed[1] == []
     finally:
         rep.shutdown()
+
+
+def test_owed_frames_beyond_the_cap_are_dropped_and_counted(tmp_path):
+    """Ten frames from one peer in one tick, each with a flag bit the
+    newest lacks in group 0: nine stay owed, one beyond the cap of
+    eight.  The oldest owed frame is dropped and counted on
+    ``owed_frames_dropped``; the eight kept are delivered one per tick
+    to group 0 only, group 1 getting zero lanes."""
+    rep = build(tsrv, "MultiPaxos", 0, 3, 2, 16, tmp_path, {},
+                device="cpu")
+    try:
+        zero = {k: np.asarray(v)[:, 0, 1] if k not in
+                rep.kernel.broadcast_lanes else np.asarray(v)[:, 0]
+                for k, v in rep._last_out.items()}
+        frames = []
+        for i in range(10):
+            f = {k: v.copy() for k, v in zero.items()}
+            # frame i carries bit 8 + i in group 0 (none in the newest)
+            f["flags"][:] = [2 | ((1 << (8 + i)) if i < 9 else 0), 2]
+            f["ar_f"][:] = [i, i]
+            frames.append(f)
+        got = rep._peer_lanes(1, frames)
+        assert got["ar_f"].tolist() == [0, 9]
+        assert len(rep._owed[1]) == rep.OWED_FRAMES == 8
+        assert rep.metrics.counter_value("owed_frames_dropped", peer=1) == 1
+        # frame 1 was dropped with its bit; 2..8 and then the newest
+        for i in list(range(2, 9)) + [9]:
+            nxt = rep._peer_lanes(1, [])
+            assert nxt["ar_f"].tolist() == [i, 0], i
+            assert nxt["flags"][1] == 0
+        assert rep._peer_lanes(1, []) is None
+        assert rep.metrics.counter_value("owed_frames_dropped", peer=1) == 1
+    finally:
+        rep.shutdown()
+
+
+#: MultiPaxos: the leader's (0) frame to 1 in round 5 holds a flag bit in
+#: group 0 that its round-6 frame lacks; it is held a round, and the
+#: round-7 frame on that link is lost
+FRAMELESS = dict(src=0, dst=1, rnd=5)
+
+
+def test_frameless_tick_after_superseded_frames_lockstep(tmp_path):
+    """Two frames from one peer in one tick, the older with a flag bit
+    the newer lacks in one group only, then a tick with no frame from
+    that peer: the port delivers the owed newer frame in that group and
+    zero lanes in every other group, exactly the JAX replica's inbox
+    there (a slot of zeros)."""
+    src, dst, rnd = (FRAMELESS[k] for k in ("src", "dst", "rnd"))
+    sides = lockstep_sides(
+        tmp_path, "MultiPaxos",
+        drops=[((src, dst), rnd + 2, rnd + 3)], holds=[(src, dst, rnd)],
+    )
+    inboxes = {}
+    for name, (reps, *_rest) in sides.items():
+        rep = reps[dst]
+        orig = rep._assemble_inbox
+
+        def wrapped(own, got, rep=rep, orig=orig, name=name):
+            out = orig(own, got)
+            inboxes[(name, rep.tick)] = {
+                k: np.asarray(v)[:, src] if k in rep.kernel.broadcast_lanes
+                else np.asarray(v)[:, dst, src] for k, v in out.items()
+            }
+            return out
+
+        rep._assemble_inbox = wrapped
+    owed = None
+    try:
+        for t in range(rnd + 4):
+            if t == rnd + 3:
+                port = sides["torch"][0][dst]
+                owed = [m for _f, m in port._owed.get(src, [])]
+            lockstep_tick(sides, t)
+    finally:
+        shutdown_sides(sides)
+    # the two frames arrived at tick rnd + 2; at rnd + 3 none did
+    assert owed, "no frame was owed after the superseded pair"
+    due = np.logical_or.reduce(owed)
+    assert due.any() and not due.all(), due
+    j, p = inboxes[("jax", rnd + 3)], inboxes[("torch", rnd + 3)]
+    for k in j:
+        assert not np.asarray(j[k]).any(), k  # JAX: a slot of zeros
+        pk = np.asarray(p[k])
+        if k == "flags":
+            pk = pk.view(np.uint32)
+        np.testing.assert_array_equal(pk[~due], np.asarray(j[k])[~due])
+    # the owed group got the newer frame
+    assert np.asarray(p["flags"])[due].all()
+
+
+class _PinnedQdisc:
+    """A QdiscInfo stand-in with fixed netem readings (no ``tc``)."""
+
+    def __init__(self, delay_ms, rate_gbps):
+        self.delay_ms, self.jitter_ms, self.rate_gbps = delay_ms, 0.0, \
+            rate_gbps
+
+    def update(self):
+        return False
+
+
+def test_crossword_adaptive_width_equals_jax(tmp_path, monkeypatch):
+    """Crossword with the adaptive width on, one replica per package:
+    the same delivery-sample stream, batch-size EWMA and netem readings
+    under one pinned clock give equal ``overrides()`` and an equal
+    ``spr_override`` kernel input, round after round, while the choice
+    moves between shards (a slow peer: full copies; peers alike:
+    narrow shards)."""
+    from summerset_tpu.host import adaptive as jad
+    from summerset_tpu_torch.host import adaptive as tad
+
+    clock = [100.0]
+    for mod in (jad, tad):
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            monotonic=lambda: clock[0]))
+    cfg = dict(BASE_CFG, pipeline=False, fault_tolerance=0)
+    reps = [build(jsrv, "Crossword", 0, 3, 2, 16, tmp_path / "j", cfg),
+            build(tsrv, "Crossword", 0, 3, 2, 16, tmp_path / "t", cfg,
+                  device="cpu")]
+    rng = np.random.default_rng(7)
+    seen = []
+    try:
+        for rep in reps:
+            assert rep._adaptive is not None
+            rep._adaptive._qdisc = _PinnedQdisc(0.5, 1.0)
+        for rnd in range(12):
+            clock[0] += 0.6  # past the refit interval
+            slow = 1 if rnd % 3 else 2  # peer 1 slow in most rounds
+            samples = [
+                (p, float(nb), float(nb) * 1e-4 * (40.0 if p == slow and
+                                                   rnd % 2 else 1.0))
+                for p in (1, 2) for nb in rng.integers(500, 50000, 6)
+            ]
+            bb = float(rng.integers(1000, 100000))
+            got = []
+            for rep in reps:
+                rep.transport.samples.extend(samples)
+                rep._batch_bytes = bb
+                rep._fold_adaptive()
+                inputs = rep._build_inputs(np.zeros(2, np.int32),
+                                           np.zeros(2, np.int32))
+                got.append((list(rep._spr_tick),
+                            np.asarray(inputs["spr_override"]).tolist()))
+            assert got[0] == got[1], (rnd, got)
+            assert got[1][0] == got[1][1]
+            seen.append(got[1][1][0])
+        assert len(set(seen)) > 1, seen  # the width moved
+    finally:
+        for rep in reps:
+            rep.shutdown()
+
+
+NETEM = (
+    "qdisc netem 8001: root refcnt 2 limit 1000 delay 10ms 2ms rate 1Gbit",
+    "qdisc netem 8002: root refcnt 2 limit 1000 delay 250us",
+    "qdisc fq_codel 0: root refcnt 2 limit 10240p flows 1024",
+    "qdisc netem 8003: root rate 500Mbit\nqdisc netem 8004: delay 1s",
+)
+
+
+def test_qdisc_and_linreg_equal_jax_and_degrade(monkeypatch):
+    """The port's copies parse netem lines and fit delivery samples as
+    the JAX modules do, and ``QdiscInfo.update`` degrades to False with
+    its fields untouched (never raising) without a device, without
+    ``tc`` or when ``tc`` cannot run."""
+    import subprocess
+
+    from summerset_tpu.utils import linreg as jlr
+    from summerset_tpu.utils import qdisc as jqd
+    from summerset_tpu_torch.utils import linreg as tlr
+    from summerset_tpu_torch.utils import qdisc as tqd
+
+    for out in NETEM:
+        j, t = jqd.QdiscInfo("lo"), tqd.QdiscInfo("lo")
+        assert j.parse_output(out) == t.parse_output(out)
+        assert (j.delay_ms, j.jitter_ms, j.rate_gbps) == \
+            (t.delay_ms, t.jitter_ms, t.rate_gbps)
+    rng = np.random.default_rng(3)
+    regs = (jlr.LinearRegressor(window=16), tlr.LinearRegressor(window=16))
+    for i in range(40):
+        x, y = float(rng.integers(1, 1 << 16)), float(rng.random() * 9)
+        for reg in regs:
+            reg.append_sample(float(i), x, y)
+            reg.discard_before(float(i - 20))
+        assert regs[0].calc_model() == regs[1].calc_model()
+    assert tlr.PerfModel(1.0, 2.0, 0.5, 0.25).predict(4.0) == \
+        jlr.PerfModel(1.0, 2.0, 0.5, 0.25).predict(4.0)
+
+    q = tqd.QdiscInfo()
+    assert q.update() is False                    # no device named
+    q = tqd.QdiscInfo("lo")
+    monkeypatch.setattr(tqd.shutil, "which", lambda name: None)
+    assert q.update() is False                    # no tc
+    monkeypatch.setattr(tqd.shutil, "which", lambda name: "/sbin/tc")
+
+    def broken(*a, **k):
+        raise OSError("tc cannot run")
+
+    monkeypatch.setattr(tqd.subprocess, "run", broken)
+    assert q.update() is False                    # tc fails to run
+
+    def slow(*a, **k):
+        raise subprocess.TimeoutExpired("tc", 2.0)
+
+    monkeypatch.setattr(tqd.subprocess, "run", slow)
+    assert q.update() is False
+    assert (q.delay_ms, q.jitter_ms, q.rate_gbps) == (0.0, 0.0, 0.0)
