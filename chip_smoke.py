@@ -93,10 +93,15 @@ before printing any result.  Phases, each printed as it runs:
              history recorded through the faults passes the port's
              ``check_history``; a replica that failed a bring-up or
              crashed at any point fails the phase (durable resets are
-             neither).  Raft: 5 s of load, one leader pause, the same
-             agreement, history and fault checks.  Last, 24 sequential puts
-             on a 1-replica cluster on the card and on the CPU, serial and
-             pipelined: equal durable digests, KV, floors and WAL records.
+             neither).  After MultiPaxos's window, 8 ticks of the group-0
+             leader are recorded and, once the cluster has stopped,
+             replayed alone under ``torch.profiler`` (uploads, step,
+             prefetch): device busy ms, kernels and host CUDA runtime ms
+             per tick (one ``serving_profile`` JSON line).  Raft: 5 s of
+             load, one leader pause, the same agreement, history and fault
+             checks.  Last, 24 sequential puts on a 1-replica cluster on
+             the card and on the CPU, serial and pipelined: equal durable
+             digests, KV, floors and WAL records.
 13. codeword serving — phase 12's harness and shape serving the codeword
              family, RS(2,1) (``fault_tolerance=0``), puts of 3000 B
              values: the leader encodes each proposed batch with
@@ -119,8 +124,39 @@ before printing any result.  Phases, each printed as it runs:
              serving encode and decode shapes beside its bound and the
              plain version; peak device memory and each replica's
              codeword store at the end.
+14. lease serving — phase 12's harness and shape serving the lease planes
+             to 16 read-mostly clients (95% gets, 5% puts: YCSB workload
+             B) pinned to the three replicas in turn, so followers take
+             gets.  QuorumLeases: responders {0, 1, 2} installed by a
+             client ``conf_change`` at the leader (timed), a 10 s window,
+             a leader pause.  MultiPaxos with ``leader_leases``: 5 s.
+             Bodega (the JAX cluster config, lease_len 40): a roster conf
+             announced at a non-leader (timed), 5 s.  Per protocol one
+             ``lease_serving`` JSON line: ops/s, the share of gets
+             answered locally per replica, p50/p99 of local and of logged
+             gets, peak device memory, failover.  Checks: every acked key
+             read back, agreement, a linearizable 3-client history (the
+             clients pinned to the replicas) holding local reads, local
+             gets at followers (QuorumLeases, Bodega) or at the leader
+             only (leader leases), no replica fault; then three
+             QuorumLeases replicas on the card against three on the CPU
+             in per-tick lockstep through the conf change and the first
+             local gets (replies compared with their ``local`` flags).
+15. process cluster — phase 12's MultiPaxos cluster as one process per
+             replica: ``python -m summerset_tpu_torch.cli.manager`` and
+             three ``python -m summerset_tpu_torch.cli.server ... --device
+             cuda`` on the one card, 16 closed-loop clients over the
+             manager's address for a 10 s window (ops/s, p50/p99 beside
+             phase 12's), every acked key read back, then the processes
+             stopped and their WALs' apply records equal slot by slot.  A
+             process that dies or never logs readiness fails the phase;
+             every process is killed on every exit path.
+16. bench — ``python -m summerset_tpu_torch.bench`` at 256-tick windows
+             (4096 groups x 5, W=128, P=32): one JSON line with ``ok``
+             true, the backend ``cuda`` and this card's stamp.
 Phases 4, 6, 7 and 13 each count their own kernel launches and fail on
-none; phases 8-12 run no codeword plane and launch no hand kernel.
+none; phases 8-12 and 14-16 run no codeword plane and launch no hand
+kernel.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -179,6 +215,21 @@ SERVE_CW_CFG = {"fault_tolerance": 0}
 SERVE_CW_VALUE_BYTES = 3000
 SERVE_CW_SECS = 5.0       # CRaft and Crossword timed load windows
 SERVE_RESUME_MAX_S = 30.0  # after a resume, shard sends must resume by then
+# phase 14: the lease planes at phase 12's shape, read-mostly (YCSB
+# workload B: 95% reads, 5% updates), clients pinned to the replicas in
+# turn; Bodega with the JAX cluster config (tests/test_cluster.py:871)
+SERVE_LEASE_PUT_SHARE = 0.05
+SERVE_LEASE_SECS = {"QuorumLeases": 10.0, "MultiPaxos": 5.0, "Bodega": 5.0}
+SERVE_BODEGA_CFG = {"lease_len": 40, "lease_margin": 8, "grant_interval": 4,
+                    "conf_timeout": 80}
+LEASE_HISTORY_PUT_SHARE = 0.1  # the history clients' puts (3 keys)
+# a logged op at 1024 groups takes ~5 ticks, and the lease planes tick at
+# 3.6-6.2/s on an H100 at this shape: a 1 s budget timed out every Bodega put
+SERVE_LEASE_OP_TIMEOUT = 5.0
+# phase 15: one process per replica; readiness within this many seconds
+PROC_READY_S = 240.0
+# phase 16: the bench entry point's window at chip_smoke time
+BENCH_SMOKE_ENV = {"BENCH_TICKS": "256", "BENCH_RUNS": "3"}
 #: the card every phase runs on (a rehearsal on the CPU may override it)
 DEV = "cuda"
 
@@ -326,32 +377,47 @@ def _union_us(intervals):
 
 
 def profile_ticks(torch, eng, state, ns, ticks, P, what, card):
-    """Where a tick's time goes: ``ticks`` synthetic ticks timed on the
-    host clock without the profiler, then the same number of ticks under
+    """Where a synthetic tick's time goes (``profile_run`` over
+    ``ticks`` ticks of ``run_synthetic``)."""
+    box = [state, ns]
+
+    def run():
+        box[0], box[1] = eng.run_synthetic(box[0], box[1], ticks, P)
+
+    return profile_run(torch, run, ticks, what, card)
+
+
+def profile_run(torch, run, ticks, what, card):
+    """Where a tick's time goes: ``run()`` (``ticks`` ticks) timed on the
+    host clock without the profiler, then once more under
     ``torch.profiler`` for the device busy time (the union of kernel
-    intervals), kernel launches per tick and device time per phase.  The
-    idle share is one less busy time over the unprofiled wall time."""
+    intervals), kernel launches per tick, device time per phase and the
+    host's CUDA runtime calls.  The idle share is one less busy time
+    over the unprofiled wall time.  Returns the per-tick numbers (None
+    where the profiler saw no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, ns = eng.run_synthetic(state, ns, ticks, P)
+    run()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, ns = eng.run_synthetic(state, ns, ticks, P)
+        run()
         torch.cuda.synchronize()
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     # device events minus the phase ranges mirrored onto the device
     # timeline (those span idle gaps too)
     kernels = [e for e in prof.events() if e.device_type == cuda
                and not getattr(e, "is_user_annotation", False)]
+    out = {"wall_ms_per_tick": round(wall_us / ticks / 1e3, 4)}
     if not kernels:
         log(f"profile {what}: wall {wall_us / ticks / 1e3:.3f} ms/tick; the "
             f"profiler saw no device activity, so device busy time and idle "
             f"share are not measured | {card}")
-        return
+        return dict(out, device_busy_ms_per_tick=None,
+                    kernels_per_tick=None, runtime_ms_per_tick=None)
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
                          for e in kernels])
     log(f"profile {what}: {ticks} ticks, wall {wall_us / ticks / 1e3:.3f} "
@@ -371,10 +437,16 @@ def profile_ticks(torch, eng, state, ns, ticks, P, what, card):
     api = sorted(((e.key, e.count, e.cpu_time_total)
                   for e in prof.key_averages()
                   if e.device_type == cpu and e.key.startswith("cu")),
-                 key=lambda r: -r[2])[:6]
+                 key=lambda r: -r[2])
     log("  runtime calls per tick: " + ", ".join(
         f"{k} {n / ticks:.1f}x {us / ticks / 1e3:.4f} ms"
-        for k, n, us in api))
+        for k, n, us in api[:6]))
+    return dict(out,
+                device_busy_ms_per_tick=round(busy_us / ticks / 1e3, 4),
+                idle_share=round(1 - busy_us / wall_us, 4),
+                kernels_per_tick=round(len(kernels) / ticks, 1),
+                runtime_ms_per_tick=round(
+                    sum(us for _k, _n, us in api) / ticks / 1e3, 4))
 
 
 def run_window(torch, eng, st, ns, t0, ticks, P, alive=None, spr=None,
@@ -1398,42 +1470,76 @@ def _serve_harness():
 class _LoadClient:
     """One closed-loop client thread over its own slice of the keys
     (key ``i`` belongs to client ``i % SERVE_CLIENTS``, so each key has
-    one writer and a last acknowledged put).  A put's value is its short
-    tag, padded to ``value_bytes`` when given.  Records every success as
-    (time, latency, server it was connected to)."""
+    one writer and a last acknowledged put), putting with probability
+    ``put_share``.  A put's value is its short tag, padded to
+    ``value_bytes`` when given.  Records every success as (time,
+    latency, server it was connected to) in ``ok``, and every successful
+    get as (time, latency, server, answered as a local read) in
+    ``gets``.  With ``pin`` the client works against that server: a
+    redirected put is issued again at the leader, then the client
+    returns (after a timeout or refusal it stays where the failover took
+    it for ``PIN_RETURN_S``)."""
 
-    def __init__(self, cluster, ci, stop, value_bytes=None):
+    PIN_RETURN_S = 5.0
+
+    def __init__(self, cluster, ci, stop, value_bytes=None, put_share=0.5,
+                 pin=None, op_timeout=SERVE_OP_TIMEOUT):
         import random
         import threading
 
         self.ci = ci
         self.stop = stop
         self.value_bytes = value_bytes
+        self.put_share = put_share
+        self.pin = pin
+        self.op_timeout = op_timeout
         self.rng = random.Random(SEED + ci)
         self.keys = [f"key{k}" for k in range(SERVE_SHAPE["keys"])
                      if k % SERVE_CLIENTS == ci]
         self.acked = {}      # key -> last acknowledged put value
         self.later = {}      # key -> puts unacknowledged since then
         self.ok = []         # (t_done, latency_s, server)
+        self.gets = []       # (t_done, latency_s, server, local)
         self.errors = 0
         self.cluster = cluster
         self.thread = threading.Thread(target=self.run, daemon=True)
         self.thread.start()
 
+    def _endpoint(self):
+        from summerset_tpu_torch.client.endpoint import GenericEndpoint
+
+        if self.pin is None:
+            return self.cluster.endpoint()
+        ep = GenericEndpoint(self.cluster.manager_addr, server_id=self.pin)
+        ep.connect()
+        return ep
+
     def run(self):
         from summerset_tpu_torch.client.drivers import DriverClosedLoop
 
-        ep = self.cluster.endpoint()
-        drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT)
+        ep = self._endpoint()
+        drv = DriverClosedLoop(ep, timeout=self.op_timeout)
         seq = 0
+        t_fail = -1e9
         while not self.stop.is_set():
+            if (self.pin is not None and ep.current != self.pin
+                    and time.monotonic() - t_fail > self.PIN_RETURN_S):
+                try:
+                    ep.reconnect(self.pin)
+                except Exception:
+                    t_fail = time.monotonic()
             key = self.rng.choice(self.keys)
             t0 = time.monotonic()
-            if self.rng.random() < 0.5:
+            is_put = self.rng.random() < self.put_share
+            if is_put:
                 val = f"c{self.ci}.{seq}"
                 if self.value_bytes:
                     val = f"{val}.".ljust(self.value_bytes, "x")
                 rep = drv.put(key, val)
+                if rep.kind == "redirect" and self.pin is not None:
+                    # a pinned client's put starts at a follower: it
+                    # follows the redirect to the leader once
+                    rep = drv.put(key, val)
                 if rep.kind == "success":
                     self.acked[key] = val
                     self.later[key] = set()
@@ -1445,8 +1551,11 @@ class _LoadClient:
             t1 = time.monotonic()
             if rep.kind == "success":
                 self.ok.append((t1, t1 - t0, ep.current))
+                if not is_put:
+                    self.gets.append((t1, t1 - t0, ep.current, rep.local))
             elif rep.kind != "redirect":
                 self.errors += 1
+                t_fail = time.monotonic()
                 drv._failover(rep)
             seq += 1
         ep.leave()
@@ -1504,7 +1613,7 @@ def _lag_state(rep, lag):
     return out
 
 
-def _barrier_writes(cluster, what, groups):
+def _barrier_writes(cluster, what, groups, timeout=SERVE_OP_TIMEOUT):
     """One put into each of ``groups``, through up to 16 client threads.
     Followers learn commits lazily: one whose vote run at the leader's
     ballot starts above its commit bar (a restarted or resumed replica)
@@ -1529,7 +1638,7 @@ def _barrier_writes(cluster, what, groups):
 
     def writer(part):
         ep = cluster.endpoint()
-        drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT)
+        drv = DriverClosedLoop(ep, timeout=timeout)
         try:
             for k in part:
                 drv.checked_put(k, "b", retries=60)
@@ -1549,7 +1658,7 @@ def _barrier_writes(cluster, what, groups):
     return len(todo)
 
 
-def _quiesce(cluster, what, rounds=4, settle=5.0):
+def _quiesce(cluster, what, rounds=4, settle=5.0, timeout=SERVE_OP_TIMEOUT):
     """With the clients stopped, wait until every replica has applied the
     same floors; a group still differing after ``settle`` seconds gets
     one barrier write, up to ``rounds`` times.  Returns the floors and
@@ -1570,7 +1679,7 @@ def _quiesce(cluster, what, rounds=4, settle=5.0):
                       enumerate(zip(f, top)) if a != b})
         if r == rounds:
             break
-        writes += _barrier_writes(cluster, what, lag)
+        writes += _barrier_writes(cluster, what, lag, timeout)
     lagmap = {me: [g for g, (a, b) in enumerate(zip(r.applied, top))
                    if a != b][:8]
               for me, r in cluster.replicas.items()}
@@ -1579,11 +1688,11 @@ def _quiesce(cluster, what, rounds=4, settle=5.0):
          f"states: {[_lag_state(r, lagmap) for r in cluster.replicas.values()]}")
 
 
-def _check_agreement(cluster, clients, what):
+def _check_agreement(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
     """Every replica's floors and KV are equal, and every key's value is
     its last acknowledged put (or a put issued after it that timed out:
     it may have executed)."""
-    _floors, writes = _quiesce(cluster, what)
+    _floors, writes = _quiesce(cluster, what, timeout=timeout)
     views = {me: (list(rep.applied), dict(rep.statemach.snapshot_items()))
              for me, rep in sorted(cluster.replicas.items())}
     first = next(iter(views.values()))
@@ -1657,15 +1766,70 @@ def _store_records(cluster):
     return out, sorted(lanes)
 
 
+def _record_leader_ticks(np, cluster, n, what):
+    """The host inputs of ``n`` consecutive ticks of the group-0 leader
+    under load: per tick the state its step reads and the inbox and
+    input arrays it uploads (copied).  Returns (replica, records)."""
+    import threading
+
+    lead = cluster.leader_of(0)
+    if lead is None:
+        fail(f"{what}: no group-0 leader to profile")
+    rep = cluster.replicas[lead]
+    recs, ups, done = [], [], threading.Event()
+    orig_up, orig_disp = rep._upload, rep._dispatch
+
+    def upload(arrays):
+        ups.append({k: np.array(v, copy=True) for k, v in arrays.items()})
+        return orig_up(arrays)
+
+    def dispatch(inbox, inputs):
+        if len(recs) < n and len(ups) >= 2:
+            recs.append((rep.state, ups[-2], ups[-1]))
+            if len(recs) == n:
+                done.set()
+        ups.clear()
+        return orig_disp(inbox, inputs)
+
+    rep._upload, rep._dispatch = upload, dispatch
+    ok = done.wait(60)
+    del rep._upload, rep._dispatch
+    if not ok:
+        fail(f"{what}: the leader ran fewer than {n} ticks in 60 s")
+    return rep, recs
+
+
+def _profile_serving_step(torch, rep, recs, card):
+    """The recorded leader ticks' device seam replayed alone (the cluster
+    stopped): each tick's inbox and inputs uploaded, the step and the
+    prefetch of its host views, on the replica's stream, through
+    ``profile_run``."""
+
+    def run():
+        for state, inbox_np, inputs_np in recs:
+            inbox = rep._upload(inbox_np)
+            inputs = rep._upload(inputs_np)
+            with rep._on_stream(), torch.inference_mode():
+                new_state, out, fx = rep.kernel.step(state, inbox, inputs)
+                rep._prefetch_async(new_state, out, fx)
+
+    return profile_run(torch, run, len(recs),
+                       "serving step (group-0 leader, replayed)", card)
+
+
 def _serve_run(torch, np, card, protocol, secs, fault_plan,
-               read_back=False, config=None, value_bytes=None):
+               read_back=False, config=None, value_bytes=None,
+               profile=False):
     """One live 3-replica cluster on the card: a timed load window of
     clients putting ``value_bytes`` values (``_LoadClient``), then
     ``fault_plan(cluster, clients)`` under load with a 3-client, 3-key
     history recorded, then (``read_back``) every acked key read back, the
     agreement and the history checks.  The JSON line also holds the
     group-0 leader's payload bytes per payload at the end of the window
-    and the ``bitslice_gf256`` launches in the window, per leader tick."""
+    and the ``bitslice_gf256`` launches in the window, per leader tick.
+    With ``profile``, ``PROFILE_TICKS`` leader ticks after the window are
+    recorded and, once the cluster has stopped, replayed under the
+    profiler (``_profile_serving_step``; ``line["profile"]``)."""
     import shutil
     import tempfile
     import threading
@@ -1692,6 +1856,9 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         n0 = rs.bitslice_gf256.launches
         w = _window(np, cluster, clients, secs, f"serving {protocol}")
         w_launches = rs.bitslice_gf256.launches - n0
+        prof = (_record_leader_ticks(np, cluster, PROFILE_TICKS,
+                                     f"serving {protocol}")
+                if profile else None)
         lead = cluster.leader_of(0)
         pp_per = (_pp_per_item(cluster.replicas[lead])
                   if lead is not None else None)
@@ -1760,10 +1927,15 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
             **extra, "card": card,
         }
         log(json.dumps(line))
-        return line
     finally:
         cluster.stop()
         shutil.rmtree(tmp, ignore_errors=True)
+    if prof is not None:
+        line["profile"] = _profile_serving_step(torch, *prof, card)
+        log(json.dumps({"serving_profile": protocol,
+                        "ticks": PROFILE_TICKS, **line["profile"],
+                        "card": card}))
+    return line
 
 
 def _pause_leader(cluster, clients, what, until=None):
@@ -1830,7 +2002,7 @@ def _raft_faults(cluster, clients):
     return {"pause": _pause_leader(cluster, clients, "serving Raft")}
 
 
-def _read_back(cluster, clients, what):
+def _read_back(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
     """Every key's last acknowledged value reads back through the
     cluster (after the durable resets)."""
     import threading
@@ -1841,7 +2013,7 @@ def _read_back(cluster, clients, what):
 
     def reader(c):
         ep = cluster.endpoint()
-        drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT)
+        drv = DriverClosedLoop(ep, timeout=timeout)
         for key, val in c.acked.items():
             for _ in range(40):
                 rep = drv.get(key)
@@ -1882,7 +2054,8 @@ def phase_serving(torch, np, card):
     t_phase = time.perf_counter()
     rs.bitslice_gf256.launches = 0
     mp = _serve_run(torch, np, card, "MultiPaxos", SERVE_SECS,
-                    _pause_and_resets("MultiPaxos"), read_back=True)
+                    _pause_and_resets("MultiPaxos"), read_back=True,
+                    profile=True)
     raft = _serve_run(torch, np, card, "Raft", SERVE_RAFT_SECS,
                       _raft_faults)
     harness = _serve_harness()
@@ -2109,6 +2282,420 @@ def phase_codeword_serving(torch, np, card, mp=None):
     return {"launches": launches["serving"], "max_abs_err": err}
 
 
+# ------------------------------------------------------ lease serving --
+def _get_records(np, clients, t0, t1, leader):
+    """The window's successful gets: per server the share answered as a
+    local read, and p50/p99 of local and of logged gets."""
+    gets = [g for c in clients for g in c.gets if t0 <= g[0] < t1]
+    per = {}
+    for _t, _lat, srv, loc in gets:
+        n, k = per.get(srv, (0, 0))
+        per[srv] = (n + 1, k + int(loc))
+
+    def pct(lats):
+        if not lats:
+            return None
+        return [round(float(np.percentile(lats, q)) * 1e3, 3)
+                for q in (50, 99)]
+
+    return {
+        "gets": len(gets),
+        "local_share_by_server": {
+            str(srv): round(k / n, 4) for srv, (n, k) in sorted(per.items())
+        },
+        "local_gets_by_server": {
+            str(srv): k for srv, (n, k) in sorted(per.items())
+        },
+        "local_get_p50_p99_ms": pct([g[1] for g in gets if g[3]]),
+        "logged_get_p50_p99_ms": pct([g[1] for g in gets if not g[3]]),
+        "leader": leader,
+    }
+
+
+def _lease_run(torch, np, card, protocol, config, conf_at, pause):
+    """One live 3-replica lease-plane cluster on the card at phase 12's
+    shape: the conf change (``conf_at``: "leader", "follower" or None)
+    by a client, timed; 16 read-mostly clients pinned to the replicas in
+    turn for a timed window; 3 pinned history clients through the
+    leader pause (``pause``) or a quiet stretch; then every acked key
+    read back, agreement, the history (with local reads in it)
+    linearizable, local reads where the protocol serves them, no
+    replica fault."""
+    import shutil
+    import tempfile
+    import threading
+
+    harness = _serve_harness()
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import GenericEndpoint
+    from summerset_tpu_torch.utils.linearize import check_history
+
+    what = f"lease serving {protocol}"
+    sh = SERVE_SHAPE
+    tmp = tempfile.mkdtemp(prefix="lease_")
+    cluster = harness.Cluster(
+        protocol, sh["R"], tmp, tick=sh["tick"], num_groups=sh["G"],
+        window=sh["W"], device=DEV, settle=2.0, config=config,
+    )
+    try:
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        leader = None
+        deadline = time.monotonic() + SERVE_FAILOVER_MAX_S
+        while leader is None:
+            leader = cluster.leader_of(0)
+            if time.monotonic() > deadline:
+                fail(f"{what}: no leader of group 0")
+            time.sleep(0.1)
+        conf_s, conf = None, None
+        if conf_at is not None:
+            sid = leader if conf_at == "leader" else next(
+                s for s in sorted(cluster.replicas) if s != leader)
+            ep = GenericEndpoint(cluster.manager_addr, server_id=sid)
+            ep.connect()
+            try:
+                t = time.monotonic()
+                rep = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT) \
+                    .conf_change({"responders": [0, 1, 2]})
+                conf_s = round(time.monotonic() - t, 3)
+                if rep.kind != "success":
+                    fail(f"{what}: conf change failed: {rep}")
+                conf = harness.query_conf(ep).conf
+            finally:
+                ep.leave()
+            if not conf or sorted(conf["responders"]) != [0, 1, 2]:
+                fail(f"{what}: the manager holds conf {conf}")
+        stop = threading.Event()
+        clients = [_LoadClient(cluster, ci, stop,
+                               put_share=SERVE_LEASE_PUT_SHARE,
+                               pin=ci % sh["R"],
+                               op_timeout=SERVE_LEASE_OP_TIMEOUT)
+                   for ci in range(SERVE_CLIENTS)]
+        time.sleep(1.0)
+        t0 = time.monotonic()
+        w = _window(np, cluster, clients, SERVE_LEASE_SECS[protocol], what)
+        gets = _get_records(np, clients, t0, t0 + w["secs"], leader)
+        peak = (torch.cuda.max_memory_allocated() / 2**20
+                if DEV == "cuda" else 0.0)
+        hist_ops, hist_stop, hist_local = [], threading.Event(), [0]
+        hist = [threading.Thread(
+            target=harness.history_worker,
+            args=(cluster, ci, hist_ops, hist_stop),
+            kwargs={"timeout": SERVE_LEASE_OP_TIMEOUT, "seed": SEED,
+                    "pin": ci % sh["R"],
+                    "put_share": LEASE_HISTORY_PUT_SHARE,
+                    "n_local": hist_local},
+            daemon=True) for ci in range(3)]
+        for t in hist:
+            t.start()
+        faults = {}
+        if pause:
+            faults["pause"] = _pause_leader(cluster, clients, what)
+        else:
+            time.sleep(2.0)
+        stop.set()
+        for c in clients:
+            c.thread.join(timeout=30)
+        deadline = time.monotonic() + 60
+        while ((len(hist_ops) < SERVE_HISTORY_OPS or not hist_local[0])
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+        hist_stop.set()
+        for t in hist:
+            t.join(timeout=30)
+        n_read = _read_back(cluster, clients, what, SERVE_LEASE_OP_TIMEOUT)
+        if not n_read:
+            fail(f"{what}: no put was acknowledged, so no key reads back")
+        n_keys, applied, writes = _check_agreement(
+            cluster, clients, what, SERVE_LEASE_OP_TIMEOUT)
+        if len(hist_ops) < SERVE_HISTORY_OPS:
+            fail(f"{what}: history of {len(hist_ops)} ops, fewer than "
+                 f"{SERVE_HISTORY_OPS}")
+        if not hist_local[0]:
+            fail(f"{what}: the history holds no local read")
+        ok, diag = check_history(hist_ops)
+        if not ok:
+            fail(f"{what}: history not linearizable: {diag}")
+        if cluster.faults():
+            fail(f"{what}: replica bring-up failures or crashes: "
+                 f"{cluster.faults()}")
+        loc = {int(k): v for k, v in gets["local_gets_by_server"].items()}
+        at_leader = loc.get(leader, 0)
+        at_followers = sum(v for k, v in loc.items() if k != leader)
+        if protocol == "MultiPaxos":
+            if not at_leader or at_followers:
+                fail(f"{what}: local gets {loc}: want them at the leader "
+                     f"{leader} only")
+        elif not at_followers:
+            fail(f"{what}: no follower served a local get ({loc})")
+        line = {
+            "lease_serving": protocol, "groups": sh["G"],
+            "replicas": sh["R"], "window": sh["W"],
+            "clients": SERVE_CLIENTS, "keys": sh["keys"],
+            "put_share": SERVE_LEASE_PUT_SHARE, "config": config,
+            "conf_change_s": conf_s, "conf": conf, **w, **gets,
+            "max_memory_allocated_mib": round(peak, 1), "faults": faults,
+            "read_back_keys": n_read, "acked_keys_checked": n_keys,
+            "applied_total": applied, "quiesce_barrier_writes": writes,
+            "history_ops": len(hist_ops),
+            "history_local_gets": hist_local[0], "card": card,
+        }
+        log(json.dumps(line))
+        return line
+    finally:
+        cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_lease_serving(torch, np, card):
+    """Phase 14: QuorumLeases, MultiPaxos with leader leases and Bodega
+    served on the card, read-mostly, then QuorumLeases' card-against-CPU
+    lockstep through the conf change and the first local gets."""
+    import tempfile
+
+    from summerset_tpu_torch.ops import rscoding as rs
+
+    sh = SERVE_SHAPE
+    log(f"== phase 14: lease serving, {sh['G']} groups x {sh['R']} "
+        f"replicas, W={sh['W']}, {SERVE_CLIENTS} pinned clients, "
+        f"{int(SERVE_LEASE_PUT_SHARE * 100)}% puts (QuorumLeases, "
+        "MultiPaxos leader leases, Bodega, card vs cpu)")
+    t_phase = time.perf_counter()
+    rs.bitslice_gf256.launches = 0
+    lines = {
+        "QuorumLeases": _lease_run(torch, np, card, "QuorumLeases", None,
+                                   "leader", pause=True),
+        "MultiPaxos": _lease_run(torch, np, card, "MultiPaxos",
+                                 {"leader_leases": True}, None,
+                                 pause=False),
+        "Bodega": _lease_run(torch, np, card, "Bodega", SERVE_BODEGA_CFG,
+                             "follower", pause=False),
+    }
+    harness = _serve_harness()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="leaselock_") as d:
+        try:
+            lock = harness.card_cpu_lease_lockstep(d, DEV)
+        except AssertionError as e:
+            fail(f"lease serving {DEV} vs cpu: {e}")
+    if lock["conf_ok"] != 1 or not sum(lock["local"][1:]):
+        fail(f"lease serving {DEV} vs cpu: no conf change or no follower "
+             f"local get in the schedule: {lock}")
+    log(f"lease serving: 3 QuorumLeases replicas on {DEV} == 3 on cpu for "
+        f"{lock['ticks']} lockstep ticks through the conf change (state, "
+        f"frames, WAL, floors, KV, replies with local flags), local gets "
+        f"per replica {lock['local']}, {time.perf_counter() - t0:.1f} s "
+        f"| {card}")
+    if rs.bitslice_gf256.launches:
+        fail(f"lease serving launched bitslice_gf256 "
+             f"{rs.bitslice_gf256.launches} times (no codeword plane)")
+    log(f"bitslice_gf256 launches in phase 14 (no codeword plane): 0; "
+        f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
+# ------------------------------------------------ process per replica --
+def _wal_applies(harness, path):
+    """A replica's apply records from its WAL: {group: {slot: batch}}."""
+    out = {}
+    for e in harness.read_wal(path):
+        if e and e[0] == "vote":
+            continue
+        g, slot, _vid, batch = e
+        out.setdefault(g, {})[slot] = batch
+    return out
+
+
+def phase_process_cluster(np, card, mp=None):
+    """Phase 15: phase 12's MultiPaxos cluster as one process per
+    replica: ``python -m summerset_tpu_torch.cli.manager`` and three
+    ``python -m summerset_tpu_torch.cli.server ... --device cuda``, 16
+    closed-loop clients through the manager's address for a timed
+    window, every acked key read back, then the processes stopped and
+    their WALs' apply records held against each other slot by slot.
+    ``mp`` is phase 12's MultiPaxos line, set beside."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import types
+
+    harness = _serve_harness()
+    from summerset_tpu_torch.client.endpoint import GenericEndpoint
+
+    sh = SERVE_SHAPE
+    what = "process cluster MultiPaxos"
+    log(f"== phase 15: one process per replica, MultiPaxos {sh['G']} groups "
+        f"x {sh['R']}, W={sh['W']}, tick {sh['tick']} s, {SERVE_CLIENTS} "
+        "clients")
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    ports = harness.free_ports(2 + 2 * sh["R"])
+    tmp = tempfile.mkdtemp(prefix="proc_")
+    env = dict(os.environ, PYTHONPATH=here)
+    procs = []
+
+    def spawn(name, args):
+        path = os.path.join(tmp, f"{name}.log")
+        with open(path, "w") as f:
+            p = subprocess.Popen([sys.executable, "-m", *args], cwd=here,
+                                 env=env, stdout=f, stderr=subprocess.STDOUT,
+                                 start_new_session=True)
+        procs.append((name, p, path))
+
+    def tail(path):
+        try:
+            with open(path) as f:
+                return " | ".join(f.read().strip().splitlines()[-6:])
+        except OSError:
+            return ""
+
+    def alive(when):
+        for name, p, path in procs:
+            if p.poll() is not None:
+                fail(f"{what}: {name} exited with {p.returncode} {when}: "
+                     f"{tail(path)}")
+
+    def ready(name, p, path, needle, deadline):
+        while True:
+            with open(path) as f:
+                if needle in f.read():
+                    return
+            if p.poll() is not None:
+                fail(f"{what}: {name} exited with {p.returncode} before it "
+                     f"logged readiness: {tail(path)}")
+            if time.monotonic() > deadline:
+                fail(f"{what}: {name} never logged readiness "
+                     f"({needle!r}) in {PROC_READY_S} s: {tail(path)}")
+            time.sleep(0.2)
+
+    try:
+        t_up = time.monotonic()
+        spawn("manager", ["summerset_tpu_torch.cli.manager", "-p",
+                          "MultiPaxos", "--srv-port", str(ports[0]),
+                          "--cli-port", str(ports[1]), "-n",
+                          str(sh["R"])])
+        ready(*procs[0], "manager up", t_up + PROC_READY_S)
+        for r in range(sh["R"]):
+            spawn(f"server{r}", [
+                "summerset_tpu_torch.cli.server", "-p", "MultiPaxos",
+                "-a", str(ports[2 + r]), "-i", str(ports[2 + sh["R"] + r]),
+                "-m", f"127.0.0.1:{ports[0]}", "-g", str(sh["G"]),
+                "--window", str(sh["W"]), "--tick-interval",
+                str(sh["tick"]), "--device", DEV, "--backer-dir", tmp])
+            time.sleep(1.0)  # staggered joins
+        for name, p, path in procs[1:]:
+            ready(name, p, path, "ready on", t_up + PROC_READY_S)
+        up_s = time.monotonic() - t_up
+        time.sleep(2.0)  # the warm-start leader settles
+        mgr = ("127.0.0.1", ports[1])
+
+        def endpoint():
+            ep = GenericEndpoint(mgr)
+            ep.connect()
+            return ep
+
+        cluster = types.SimpleNamespace(manager_addr=mgr, endpoint=endpoint)
+        stop = threading.Event()
+        clients = [_LoadClient(cluster, ci, stop)
+                   for ci in range(SERVE_CLIENTS)]
+        time.sleep(1.0)
+        t0 = time.monotonic()
+        time.sleep(SERVE_SECS)
+        t1 = time.monotonic()
+        alive("during the window")
+        lats = sorted(lat for c in clients for (t, lat, _s) in c.ok
+                      if t0 <= t < t1)
+        if not lats:
+            fail(f"{what}: no operation succeeded in the window")
+        stop.set()
+        for c in clients:
+            c.thread.join(timeout=30)
+        n_read = _read_back(cluster, clients, what)
+        alive("after the read-back")
+        time.sleep(2.0)  # the followers' last applies land
+        for _name, p, _path in procs:
+            os.killpg(p.pid, signal.SIGTERM)
+        for _name, p, _path in procs:
+            p.wait(timeout=30)
+        views = [_wal_applies(harness, os.path.join(tmp, f"r{r}.wal"))
+                 for r in range(sh["R"])]
+        slots = 0
+        for g in range(sh["G"]):
+            merged = {}
+            for r, v in enumerate(views):
+                applied = sorted(v.get(g, {}))
+                if applied != list(range(len(applied))):
+                    fail(f"{what}: replica {r}'s applied slots of group {g}"
+                         f" have a gap: {applied[:12]}")
+                for slot, batch in v.get(g, {}).items():
+                    if merged.setdefault(slot, batch) != batch:
+                        fail(f"{what}: group {g} slot {slot} differs "
+                             "between replicas' WALs")
+            slots += len(merged)
+        floors = [sum(len(v.get(g, {})) for g in range(sh["G"]))
+                  for v in views]
+        line = {
+            "process_cluster": "MultiPaxos", "groups": sh["G"],
+            "replicas": sh["R"], "window": sh["W"],
+            "clients": SERVE_CLIENTS,
+            "secs": round(t1 - t0, 3),
+            "ops_per_s": round(len(lats) / (t1 - t0), 1),
+            "p50_ms": round(float(np.percentile(lats, 50)) * 1e3, 3),
+            "p99_ms": round(float(np.percentile(lats, 99)) * 1e3, 3),
+            "bring_up_s": round(up_s, 2), "read_back_keys": n_read,
+            "slots_agreed": slots, "applied_per_replica": floors,
+            "phase12_one_interpreter": (
+                {k: mp[k] for k in ("ops_per_s", "p50_ms", "p99_ms")}
+                if mp else None),
+            "card": card,
+        }
+        log(json.dumps(line))
+    finally:
+        for _name, p, _path in procs:
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                p.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return line
+
+
+# ------------------------------------------------------- bench entry --
+def phase_bench(card):
+    """Phase 16: ``python -m summerset_tpu_torch.bench`` as a subprocess
+    at ``BENCH_SMOKE_ENV``'s window (the default shape otherwise): one
+    JSON line with ``ok`` true, this card's backend and stamp."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    log("== phase 16: bench entry point, "
+        + ", ".join(f"{k}={v}" for k, v in BENCH_SMOKE_ENV.items()))
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=here, **BENCH_SMOKE_ENV)
+    args = [sys.executable, "-m", "summerset_tpu_torch.bench"]
+    if DEV != "cuda":
+        args += ["--device", DEV]
+    proc = subprocess.run(args, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"bench exited with {proc.returncode}: "
+             f"{proc.stderr.strip()[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        fail(f"bench printed {len(lines)} lines, not one")
+    doc = json.loads(lines[0])
+    want = {"cuda": card}.get(DEV)
+    if (doc.get("ok") is not True or doc.get("backend") != DEV
+            or doc.get("card") != want):
+        fail(f"bench line: ok {doc.get('ok')}, backend "
+             f"{doc.get('backend')}, card {doc.get('card')}")
+    log(json.dumps({"bench": doc}))
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return doc
+
+
 def main():
     import torch
 
@@ -2150,6 +2737,12 @@ def main():
     mp, _raft = phase_serving(torch, np, card)
     serving = phase_codeword_serving(torch, np, card, mp)
     paths["serving"] = serving
+    rs.bitslice_gf256.launches = 0
+    phase_lease_serving(torch, np, card)
+    phase_process_cluster(np, card, mp)
+    phase_bench(card)
+    log(f"bitslice_gf256 launches in phases 14-16 (no codeword plane): "
+        f"{rs.bitslice_gf256.launches}")
     log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")

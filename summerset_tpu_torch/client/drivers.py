@@ -3,8 +3,9 @@
 
 Parity: reference ``summerset_client/src/drivers/closed_loop.rs`` — one
 outstanding request with a timeout (``DriverReply::{Success{latency},
-Redirect, Timeout}``, drivers/mod.rs:12-40).  The open-loop drivers are
-not ported yet.
+Redirect, Timeout}``, drivers/mod.rs:12-40); a success carries the
+reply's ``local`` flag (a leased local read), and ``conf_change`` drives a
+ConfChange to completion.  The open-loop drivers are not ported yet.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ class DriverReply:
     latency: float = 0.0          # seconds (success)
     result: Optional[CommandResult] = None
     redirect: Optional[int] = None
+    local: bool = False           # served as a leased local read
     retry_after: float = 0.0      # seconds (shed backoff hint)
 
 
@@ -99,11 +101,12 @@ class DriverClosedLoop:
                 return DriverReply(
                     "shed", retry_after=max(rep.retry_after_ms, 1) / 1e3,
                 )
-            if rep.kind == "reply" and rep.success:
+            if rep.kind in ("reply", "conf") and rep.success:
                 return DriverReply(
                     "success",
                     latency=time.monotonic() - t0,
                     result=rep.result,
+                    local=rep.local,
                 )
             return DriverReply("failure")
 
@@ -112,6 +115,53 @@ class DriverClosedLoop:
 
     def put(self, key: str, value: str) -> DriverReply:
         return self._issue(Command("put", key, value))
+
+    def conf_change(self, conf_delta: dict, retries: int = 20
+                    ) -> DriverReply:
+        """Drive a ConfChange to completion through redirects and
+        timeouts (parity: the reference mess/tester clients' conf flow,
+        clients/mess.rs:16-45); each attempt waits at least 15 s, since
+        the change rides the log."""
+        for _ in range(retries):
+            rid = self.next_req
+            self.next_req += 1
+            t0 = time.monotonic()
+            try:
+                self.ep.send_conf(rid, conf_delta)
+            except Exception:
+                self._failover(DriverReply("disconnect"))
+                self.backoff.sleep()
+                continue
+            deadline = t0 + max(self.timeout, 15.0)
+            rep = None
+            while True:
+                budget = deadline - time.monotonic()
+                if budget <= 0:
+                    rep = DriverReply("timeout")
+                    break
+                try:
+                    raw = self.ep.recv_reply(timeout=budget)
+                except socket.timeout:
+                    rep = DriverReply("timeout")
+                    break
+                except Exception:
+                    rep = DriverReply("disconnect")
+                    break
+                if raw.req_id != rid:
+                    continue
+                if raw.kind == "redirect":
+                    self.ep.follow_redirect(raw.redirect, deadline=deadline)
+                    rep = DriverReply("redirect", redirect=raw.redirect)
+                    break
+                rep = (DriverReply("success", latency=time.monotonic() - t0)
+                       if raw.success else DriverReply("failure"))
+                break
+            if rep.kind == "success":
+                self.backoff.reset()
+                return rep
+            self._failover(rep)
+            self.backoff.sleep()
+        raise AssertionError("conf_change failed after retries")
 
     def _failover(self, rep: DriverReply) -> None:
         """A timeout, refusal or dead connection rotates the endpoint to

@@ -217,6 +217,14 @@ class GenericEndpoint:
         assert self.api is not None, "connect() first"
         self.api.send_req(ApiRequest("req", req_id=req_id, cmd=cmd))
 
+    def send_conf(self, req_id: int, conf_delta: dict) -> None:
+        """Issue a ConfChange (parity: ApiRequest::Conf,
+        external.rs:106-121)."""
+        assert self.api is not None, "connect() first"
+        self.api.send_req(
+            ApiRequest("conf", req_id=req_id, conf_delta=conf_delta)
+        )
+
     def recv_reply(self, timeout: Optional[float] = None) -> ApiReply:
         assert self.api is not None
         return self.api.recv_reply(timeout=timeout)

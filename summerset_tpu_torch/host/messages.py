@@ -22,13 +22,15 @@ from .statemach import Command, CommandResult
 class ApiRequest:
     """Client -> server (parity: ``ApiRequest::{Req, Conf, Leave}``).
 
-    The port's server serves ``"req"`` puts and gets; every other kind is
-    answered with an ``"error"`` reply (``"leave"`` is answered by the api
-    plane itself)."""
+    The port's server serves ``"req"`` puts and gets and ``"conf"``
+    changes (``conf_delta``: ``responders``, a list of replica ids, and on
+    Bodega an optional ``leader``); every other kind is answered with an
+    ``"error"`` reply (``"leave"`` is answered by the api plane itself)."""
 
-    kind: str                      # "req" | "leave" | anything else: error
+    kind: str                      # "req" | "conf" | "leave" | else: error
     req_id: int = 0
     cmd: Optional[Command] = None  # kind == "req"
+    conf_delta: Optional[dict] = None  # kind == "conf"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,12 +42,14 @@ class ApiReply:
     entering it, so it was never proposed; ``retry_after_ms`` hints when
     to retry."""
 
-    kind: str   # "reply" | "redirect" | "error" | "shed" | "leave"
+    kind: str   # "reply" | "conf" | "redirect" | "error" | "shed"
+    #             | "leave"
     req_id: int = 0
     result: Optional[CommandResult] = None
     redirect: Optional[int] = None  # hinted leader id
     success: bool = True
     retry_after_ms: int = 0         # shed: suggested client backoff
+    local: bool = False             # served as a leased local read
 
 
 # Server-to-server tick frames are plain dicts (host/server.py builds
@@ -76,8 +80,12 @@ class CtrlMsg:
 
     Kinds: new_server_join (protocol, api_addr, p2p_addr) ->
     connect_to_peers (population, to_peers {id: p2p_addr});
-    leader_status (step_up); pause / resume / reset_state (durable) and
-    their ``_reply`` forms; leave / leave_reply."""
+    leader_status (step_up); responders_conf (new_conf: the installed
+    ``responders`` and, on Bodega, ``leader``); conf_forward (delta: a
+    client ConfChange a server that does not lead every group relays) ->
+    install_conf (delta, seq: the manager's total order, newest wins) to
+    every server; pause / resume / reset_state (durable) and their
+    ``_reply`` forms; leave / leave_reply."""
 
     kind: str
     payload: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -87,8 +95,8 @@ class CtrlMsg:
 class CtrlRequest:
     """Client -> manager (parity: ``CtrlRequest``, reactor.rs:29-64).
 
-    Kinds: query_info | pause_servers | resume_servers | reset_servers |
-    leave."""
+    Kinds: query_info | query_conf | pause_servers | resume_servers |
+    reset_servers | leave."""
 
     kind: str
     servers: Optional[List[int]] = None  # None = all
@@ -106,5 +114,7 @@ class CtrlReply:
     )  # id -> (api_addr, p2p_addr)
     leader: Optional[int] = None
     done: Optional[List[int]] = None
+    # query_conf: the last conf a server reported installed
+    conf: Optional[dict] = None
     # fan-out targets that did not answer (or could not be reached)
     missing: Optional[List[int]] = None

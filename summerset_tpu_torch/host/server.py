@@ -1,6 +1,7 @@
 """ServerReplica: a networked replica around the port's device kernel,
-counterpart of ``summerset_tpu/host/server.py`` for MultiPaxos, Raft and
-the codeword family (RSPaxos, CRaft, Crossword).
+counterpart of ``summerset_tpu/host/server.py`` for MultiPaxos (with or
+without leader leases), Raft, the codeword family (RSPaxos, CRaft,
+Crossword) and the lease planes (QuorumLeases, Bodega).
 
 Parity: reference ``GenericReplica`` + ``summerset_server`` — the replica
 composes ControlHub -> StateMachine -> StorageHub -> TransportHub ->
@@ -48,10 +49,32 @@ every committed value.  CRaft ships full copies while more than
 from ``host/adaptive.py`` (``spr_override``).  The codec runs on the
 replica's stream at intake and apply, where no step is in flight on it.
 
-Not in this slice (ROADMAP.md item 6 and its queue): snapshots, the
-lease and conf planes, EPaxos and the basic kernels' serving,
-near-quorum reads and scans, health/demotion, resharding, the flight
-recorder and slot traces.
+The lease and conf planes (QuorumLeases, Bodega; MultiPaxos with
+``leader_leases``): a client ``conf`` request (``conf_delta``) is queued,
+one in flight, and fed to the kernel's conf inputs each tick
+(``conf_target`` on QuorumLeases, ``conf_init``/``conf_leader_target``/
+``conf_resp_target``/``conf_bucket`` on Bodega) until every group's
+installed conf equals the target; then the client gets a ``conf`` reply
+and the manager a ``responders_conf`` notice.  A QuorumLeases server
+that does not lead every group relays the change through the manager
+(``conf_forward``), which re-announces it to every server
+(``install_conf``, newest sequence number wins).  A get at a replica whose
+lease holds and whose key buckets are all quiescent (``_can_local_read``)
+is answered from applied state with ``local=True``; a leader holding a
+leader lease (``leader_read_ok``) does the same for a key with no write in
+its voted tail (``_tail_writes_key``).  Everything else redirects or goes
+through the log.  The conf state rides the vote records the kernel
+declares durable (QuorumLeases' ``conf_cur``/``conf_slot``); Bodega's
+conf is lease-installed and re-learned after a restart, as in the JAX
+package.  Unlike the JAX server, ``_can_local_read`` has no health
+mitigation branch (health is not ported), and a resumed replica serves
+no local read until every lease from before its pause has run out in
+its own tick count (``_resume``).
+
+Not in this slice (ROADMAP.md, Queue 1): EPaxos and the basic kernels'
+serving, snapshots, near-quorum reads and scans, probes and
+subscriptions, health/demotion and the autopilot's conf revokes,
+resharding, the flight recorder and slot traces.
 """
 
 from __future__ import annotations
@@ -79,7 +102,7 @@ from .adaptive import CrosswordAdaptive
 from .codeword import CodewordStore, assigned_sids
 from .control import ControlHub
 from .external import ExternalApi
-from .messages import ApiReply, CtrlMsg, ShardPayload
+from .messages import ApiReply, ApiRequest, CtrlMsg, ShardPayload
 from .payload import PayloadStore
 from .statemach import StateMachine, apply_command
 from .storage import LogAction, StorageHub
@@ -88,15 +111,14 @@ from .transport import TransportHub
 
 logger = pf_logger("server")
 
-#: protocols this slice serves; the rest name the ROADMAP item that will
-SERVED = ("multipaxos", "raft", "rspaxos", "craft", "crossword")
+#: protocols this slice serves; the rest name their ROADMAP Queue 1 item
+SERVED = ("multipaxos", "raft", "rspaxos", "craft", "crossword",
+          "quorumleases", "bodega")
 _NOT_YET = {
-    "quorumleases": "6 (queue 2: the lease and conf planes)",
-    "bodega": "6 (queue 2: the lease and conf planes)",
-    "epaxos": "6 (queue 3: EPaxos serving)",
-    "chainrep": "6 (queue 4: ChainRep, SimplePush and RepNothing)",
-    "simplepush": "6 (queue 4: ChainRep, SimplePush and RepNothing)",
-    "repnothing": "6 (queue 4: ChainRep, SimplePush and RepNothing)",
+    "epaxos": "1 (EPaxos serving)",
+    "chainrep": "2 (ChainRep, SimplePush and RepNothing serving)",
+    "simplepush": "2 (ChainRep, SimplePush and RepNothing serving)",
+    "repnothing": "2 (ChainRep, SimplePush and RepNothing serving)",
 }
 
 # loop_stage_us stage names: the serial loop emits intake / exchange /
@@ -194,7 +216,7 @@ class ServerReplica:
             raise SummersetError(
                 f"protocol {protocol} is not served by the port's "
                 "ServerReplica yet"
-                + (f" (ROADMAP.md item {item})" if item else "")
+                + (f" (ROADMAP.md Queue 1 item {item})" if item else "")
                 + f"; served: {', '.join(SERVED)}"
             )
         cfg = dict(config or {})
@@ -271,6 +293,25 @@ class ServerReplica:
         # (see _peer_lanes)
         self._owed: Dict[int, list] = {}
         self._setup_codewords()
+        # client ConfChange plane (QuorumLeases, Bodega): one in flight;
+        # queue entries are (client id, request) from the data plane or
+        # (None, request) for manager-relayed installs
+        self._conf_kind = (
+            "ql" if "ql_out" in self.state
+            else "bodega" if "conf_resp" in self.state
+            else None
+        )
+        self._conf_active: Optional[dict] = None
+        self._conf_queue: List[Tuple[Optional[int], ApiRequest]] = []
+        self._conf_seq_seen = 0
+        # leases count ticks, and a paused replica's ticks stop: after a
+        # resume no local read is served until any lease held before the
+        # pause has run out in this replica's own count (see _resume)
+        kc = self.kernel.config
+        self._lease_ticks = max(getattr(kc, "lease_len", 0),
+                                getattr(kc, "leader_lease_len", 0)) \
+            + getattr(kc, "lease_margin", 0)
+        self._lease_hold_off = 0
         self.paused = False
         self.stopping = False  # cooperative stop for embedded harnesses
         self.was_leader = False
@@ -298,8 +339,9 @@ class ServerReplica:
         self._pf_slot = 0
         ker = self.kernel
         cand = set(ker.DURABLE_SCALARS) | set(ker.DURABLE_WINDOWS)
-        cand.update((ker.VALUE_WINDOW, "win_abs", "win_cfg", "win_noop",
-                     "leader", "alive_cnt", dev_telemetry.TELEM_KEY))
+        cand.update((ker.VALUE_WINDOW, "win_abs", "win_bal", "win_cfg",
+                     "win_noop", "leader", "alive_cnt", "conf_cur",
+                     "conf_resp", "conf_leader", dev_telemetry.TELEM_KEY))
         self._prefetch_keys = sorted(k for k in cand if k in self.state)
         self._np_cache = {}
         # outbox register the first tick's frames slice from (host views)
@@ -456,7 +498,7 @@ class ServerReplica:
                 raise SummersetError(
                     "WAL starts with a snap_floor marker: it was compacted "
                     "by a snapshot, and snapshots are not ported to "
-                    "summerset_tpu_torch yet (ROADMAP.md item 6, queue 5); "
+                    "summerset_tpu_torch yet (ROADMAP.md Queue 1 item 3); "
                     "refusing to serve"
                 )
             if isinstance(rec, tuple) and rec and rec[0] == "vote":
@@ -756,9 +798,10 @@ class ServerReplica:
             self.external.send_replies(q, fence=self._fence_wait)
 
     def _intake(self) -> Tuple[np.ndarray, np.ndarray, Dict]:
-        """Drain the client plane: route puts and gets to groups, redirect
-        what we don't lead, answer every other request kind with an
-        error (request.rs:16-216 redirects)."""
+        """Drain the client plane: queue conf changes, route puts and gets
+        to groups, serve leased local gets, redirect what we don't lead,
+        answer every other request kind with an error (request.rs:16-216
+        redirects)."""
         n_prop = np.zeros((self.G,), np.int32)
         vbase = np.zeros((self.G,), np.int32)
         piggy: Dict[Tuple[int, int], Any] = {}
@@ -767,7 +810,9 @@ class ServerReplica:
             return n_prop, vbase, piggy
         by_group: Dict[int, list] = {}
         for client, req in batch:
-            if (req.kind != "req" or req.cmd is None
+            if req.kind == "conf":
+                self._handle_conf_req(client, req)
+            elif (req.kind != "req" or req.cmd is None
                     or req.cmd.kind not in ("put", "get")):
                 self._reply(client, ApiReply(
                     "error", req_id=req.req_id, success=False,
@@ -779,13 +824,37 @@ class ServerReplica:
         cw_fallback = self._craft_fallback_groups() if by_group else None
         for g, reqs in by_group.items():
             if not self._is_leader[g]:
-                hint = int(self._leader_hint[g])
+                # a lease holder with every key bucket quiescent answers
+                # gets from applied state; the rest redirect
+                local_ok = self._can_local_read(g)
+                pending = []
                 for client, req in reqs:
+                    if local_ok and req.cmd.kind == "get":
+                        self._reply_local(client, req)
+                    else:
+                        pending.append((client, req))
+                hint = int(self._leader_hint[g])
+                for client, req in pending:
                     self._reply(client, ApiReply(
                         "redirect", req_id=req.req_id, redirect=hint,
                         success=False,
                     ))
                 continue
+            if self._leader_read_ok(g):
+                # stable-leader lease: a get whose key has no write in
+                # the voted tail is answered from applied state (acks
+                # ride execution, and under a held lease no other
+                # proposer can have committed newer state)
+                to_log = []
+                for client, req in reqs:
+                    if (req.cmd.kind == "get"
+                            and not self._tail_writes_key(g, req.cmd.key)):
+                        self._reply_local(client, req)
+                    else:
+                        to_log.append((client, req))
+                reqs = to_log
+                if not reqs:
+                    continue
             vid = self.payloads.put(
                 g, reqs, stride=self.population, residue=self.me
             )
@@ -807,6 +876,183 @@ class ServerReplica:
                 nb = float(len(pickle.dumps(reqs)))
                 self._batch_bytes = 0.9 * self._batch_bytes + 0.1 * nb
         return n_prop, vbase, piggy
+
+    def _reply_local(self, client: int, req: ApiRequest) -> None:
+        """Answer a get from applied state, marked as a leased local
+        read."""
+        res = apply_command(self.statemach._kv, req.cmd)
+        self._reply(client, ApiReply(
+            "reply", req_id=req.req_id, result=res, local=True,
+        ))
+
+    # ------------------------------------------------------ lease reads
+    def _can_local_read(self, g: int) -> bool:
+        """May this replica serve a linearizable read of group ``g``
+        locally right now?  The host form of the kernel's per-bucket
+        rule: the lease condition holds and every key bucket is
+        quiescent (quorumlease.rs is_local_reader, bodega
+        localread.rs:8-26)."""
+        ex = self._last_extra
+        if not ex or self.tick < self._lease_hold_off:
+            return False
+        K = getattr(self.kernel.config, "num_key_buckets", 0)
+        if "lease_held" in ex:      # QuorumLeases
+            return bool(ex["lease_held"][g, self.me]) and int(
+                ex["n_local_buckets"][g, self.me]
+            ) == K
+        if "local_read_buckets" in ex:  # Bodega
+            return int(ex["n_local_buckets"][g, self.me]) == K
+        return False
+
+    def _leader_read_ok(self, g: int) -> bool:
+        """May this leader serve reads of group ``g`` locally under a
+        stable-leader lease (a confirmed quorum of follower vote-refusal
+        promises; multipaxos/leaderlease.rs:10-21)?  The per-key
+        freshness check is ``_tail_writes_key``."""
+        ex = self._last_extra
+        return (bool(ex) and self.tick >= self._lease_hold_off
+                and "leader_read_ok" in ex
+                and bool(ex["leader_read_ok"][g, self.me]))
+
+    def _tail_writes_key(self, g: int, key: str) -> bool:
+        """Does our voted-but-unexecuted window tail possibly hold a write
+        to ``key``?  Every voted slot at or above the exec floor counts,
+        with no upper bound (a higher-ballot run reset rewinds
+        ``vote_bar`` without zeroing ``win_bal`` above it); a payload we
+        cannot inspect counts as a hit."""
+        win_abs = self._np_state("win_abs")[g, self.me]
+        win_bal = self._np_state("win_bal")[g, self.me]
+        win_val = self._np_state(self.kernel.VALUE_WINDOW)[g, self.me]
+        tail = (win_bal > 0) & (win_abs >= self.applied[g])
+        for vid in set(int(v) for v in win_val[tail]):
+            if vid == 0:
+                continue
+            batch = self.payloads.get(g, vid)
+            if batch is None:
+                return True
+            for _c, req in batch:
+                if (req.cmd is not None and req.cmd.kind == "put"
+                        and req.cmd.key == key):
+                    return True
+        return False
+
+    # ------------------------------------------------------ conf plane
+    def _handle_conf_req(self, client: int, req: ApiRequest) -> None:
+        """Queue a client ConfChange; a kernel without a conf plane
+        answers it with a failed ``conf`` reply (external.rs:106-121)."""
+        if self._conf_kind is None:
+            self._reply(client, ApiReply(
+                "conf", req_id=req.req_id, success=False,
+            ))
+            return
+        if self._conf_kind == "ql" and not self._is_leader.all():
+            # QuorumLeases conf entries ride the log, so only a group's
+            # leader proposes them: under split leadership the manager
+            # re-announces the delta to every server, and our completion
+            # check waits for conf_cur to reach the target in all groups
+            self.ctrl.send_ctrl(CtrlMsg(
+                "conf_forward", {"delta": dict(req.conf_delta or {})}
+            ))
+        self._conf_queue.append((client, req))
+
+    def _conf_inputs(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Activate the next queued ConfChange and feed the active one
+        into the kernel's conf inputs (host arrays)."""
+        if self._conf_kind is None:
+            return
+        if self._conf_active is None and self._conf_queue:
+            client, req = self._conf_queue.pop(0)
+            d = dict(req.conf_delta or {})
+            resp = 0
+            for r in d.get("responders", []):
+                resp |= 1 << int(r)
+            lead = d.get("leader")
+            if lead is None:
+                # a responders-only change keeps Bodega's current conf
+                # leader; QuorumLeases' conf plane carries no leader
+                if "conf_leader" in self.state:
+                    cur = int(self._np_state("conf_leader")[0, self.me])
+                    lead = cur if cur >= 0 else self.me
+                else:
+                    lead = -1
+            self._conf_active = {
+                "client": client, "req_id": req.req_id, "resp": resp,
+                "leader": int(lead), "deadline": self.tick + 2000,
+            }
+        a = self._conf_active
+        G = self.G
+        if self._conf_kind == "ql":
+            arrays["conf_target"] = np.full(
+                (G,), a["resp"] if a is not None else -1, np.int32)
+        else:
+            arrays["conf_init"] = np.full(
+                (G,), self.me if a is not None else -1, np.int32)
+            arrays["conf_leader_target"] = np.full(
+                (G,), a["leader"] if a else -1, np.int32)
+            arrays["conf_resp_target"] = np.full(
+                (G,), a["resp"] if a else 0, np.int32)
+            arrays["conf_bucket"] = np.full((G,), -1, np.int32)
+
+    def _conf_progress(self) -> None:
+        """Once the active ConfChange is installed in every group, reply
+        to its client and report the new conf to the manager (reigner.rs
+        RespondersConf); past its deadline, fail it."""
+        a = self._conf_active
+        if a is None:
+            return
+        me = self.me
+        if self._conf_kind == "ql":
+            cur = self._np_state("conf_cur")[:, me]
+            done = bool((cur == a["resp"]).all())
+        else:
+            resp = self._np_state("conf_resp")[:, me, :]
+            lead = self._np_state("conf_leader")[:, me]
+            done = bool(
+                (resp == a["resp"]).all() and (lead == a["leader"]).all()
+            )
+        if done:
+            if a["client"] is not None:
+                self._reply(a["client"], ApiReply(
+                    "conf", req_id=a["req_id"], success=True,
+                ))
+            new_conf = {
+                "responders": [
+                    r for r in range(self.population) if a["resp"] >> r & 1
+                ],
+            }
+            if a["leader"] >= 0:
+                new_conf["leader"] = a["leader"]
+            self.ctrl.send_ctrl(CtrlMsg(
+                "responders_conf", {"new_conf": new_conf}
+            ))
+            self._conf_active = None
+        elif self.tick > a["deadline"]:
+            if a["client"] is not None:
+                self._reply(a["client"], ApiReply(
+                    "conf", req_id=a["req_id"], success=False,
+                ))
+            self._conf_active = None
+
+    def _install_conf(self, payload: dict) -> None:
+        """A manager-relayed ConfChange, newest sequence number wins: a
+        stale relay neither queues behind a newer one (it would revert
+        the conf when it activated) nor takes the active slot."""
+        d = payload.get("delta") or {}
+        seq = int(payload.get("seq", 0))
+        if self._conf_kind is None or seq <= self._conf_seq_seen:
+            return
+        self._conf_seq_seen = seq
+        resp = 0
+        for r in d.get("responders", []):
+            resp |= 1 << int(r)
+        a = self._conf_active
+        # superseded manager-relayed entries leave the queue
+        self._conf_queue = [(c, q) for c, q in self._conf_queue
+                            if c is not None]
+        if not (a is not None and a.get("resp") == resp):
+            self._conf_queue.append((None, ApiRequest(
+                "conf", conf_delta=d,
+            )))
 
     # ---------------------------------------------- codeword payload plane
     def _craft_fallback_groups(self) -> Optional[np.ndarray]:
@@ -993,14 +1239,16 @@ class ServerReplica:
 
     def _build_inputs(self, n_prop, vbase) -> Dict[str, Any]:
         """This tick's kernel step inputs: ``n_proposals``,
-        ``value_base``, ``exec_floor`` and (kernels declaring it) an
-        all-false ``demote``, on the step's device."""
+        ``value_base``, ``exec_floor``, the conf plane's inputs and
+        (kernels declaring it) an all-false ``demote``, on the step's
+        device."""
         floor = np.repeat(
             np.asarray(self.applied, np.int32)[:, None],
             self.population, axis=1,
         )
         arrays = {"n_proposals": n_prop, "value_base": vbase,
                   "exec_floor": floor}
+        self._conf_inputs(arrays)
         if self._demote_supported:
             arrays["demote"] = np.zeros((self.G, self.population), bool)
         if self._adaptive is not None:
@@ -1114,6 +1362,7 @@ class ServerReplica:
         _stage("log")
         self._apply_committed(fx)
         self._flush_durability()
+        self._conf_progress()
         self._leader_edges(fx)
         _stage("apply")
         self._tick_end(t0, deadline)
@@ -1129,7 +1378,8 @@ class ServerReplica:
                      fence, frame recv until the deadline
             inbox    inbox lane assembly and upload
             dispatch inputs built, step N launched, prefetch started
-            overlap  peer-payload ingest, coincident with the step
+            overlap  peer-payload ingest and the conf plane's progress
+                     (on step N-1's state), coincident with the step
             device_wait  residual wait on step N's event
             apply    apply N's commits, queue replies
             log      N's durable rows -> background appends, fence N
@@ -1159,6 +1409,7 @@ class ServerReplica:
         _stage("dispatch")
 
         self._ingest_payloads(got)
+        self._conf_progress()
         _stage("overlap")
 
         pl = self._pl
@@ -1348,7 +1599,7 @@ class ServerReplica:
             self.paused = True
             self.ctrl.send_ctrl(CtrlMsg("pause_reply"))
         elif msg.kind == "resume":
-            self.paused = False
+            self._resume()
             self.ctrl.send_ctrl(CtrlMsg("resume_reply"))
         elif msg.kind == "reset_state":
             if not msg.payload.get("durable", True):
@@ -1359,9 +1610,28 @@ class ServerReplica:
                     pass
             self.ctrl.send_ctrl(CtrlMsg("reset_reply"))
             return True
+        elif msg.kind == "install_conf":
+            self._install_conf(msg.payload)
         elif msg.kind == "leave":
             return False
         return None
+
+    def _resume(self) -> None:
+        """Leave a pause.  The kernel's leases count ticks, and while this
+        replica was paused its count stood still while its peers' ran
+        on: a lease it held (or a leader-lease promise it counted on)
+        may have lapsed at the grantor long ago, and another leader may
+        have committed since.  So local reads stay off for
+        ``_lease_ticks`` of its own ticks (the longest lease plus the
+        margin) after the last frame sent during the pause can have been
+        delivered (``OWED_FRAMES`` + 1 ticks: ``_peer_lanes`` hands out
+        owed frames one per tick), by which time every lease granted
+        before the resume has run out in its own count too.  The JAX
+        server keeps serving from its pre-pause lease view (ROADMAP
+        Queue 3)."""
+        self.paused = False
+        self._lease_hold_off = (self.tick + self.OWED_FRAMES + 1
+                                + self._lease_ticks)
 
     def debug_state(self) -> dict:
         """One-line snapshot for wedge diagnosis."""
@@ -1385,6 +1655,7 @@ class ServerReplica:
         for k in (
             "leader", "commit_bar", "exec_bar", "vote_bar", "bal_max",
             "bal_prepared", "next_slot", "dur_bar", "term", "voted_for",
+            "conf_cur", "conf_leader",
         ):
             if k in self.state:
                 out[k] = self._np_state(k)[:, me].tolist()

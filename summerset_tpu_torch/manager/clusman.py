@@ -9,10 +9,14 @@ one event loop; ids are assigned on connect, joins answer with
 leader of group 0 is tracked from ``leader_status`` (cleared when its
 connection drops and nobody steps up within a grace window), and client
 control requests (query_info, pause / resume, the serialized durable
-reset) fan out ``CtrlMsg``s and gather replies.
+reset) fan out ``CtrlMsg``s and gather replies.  The conf plane: a
+server's ``responders_conf`` notice sets the conf ``query_conf`` answers;
+a ``conf_forward`` relay gets the next sequence number and goes to every
+server as ``install_conf``, and the newest one is re-announced to every
+server that joins later.
 
-Not ported yet: watch series, ranges, conf relays, snapshots, fault
-injection, scrapes and the autopilot plane.
+Not ported yet: watch series, ranges, snapshots, fault injection,
+scrapes and the autopilot plane.
 """
 
 from __future__ import annotations
@@ -56,6 +60,13 @@ class ClusterManager:
         self.settle_delay = 0.5
         self.servers: Dict[int, _ServerConn] = {}
         self.leader: Optional[int] = None
+        # the conf plane: the last installed conf a server reported, the
+        # total order over relayed ConfChanges and the newest relay
+        # (re-announced to late joiners; receivers apply newest-seq-wins,
+        # so the replay never regresses a fresher conf)
+        self.conf: Optional[dict] = None
+        self._conf_seq = 0
+        self._conf_last: Optional[dict] = None
         self._next_cid = 1000
         # kind -> list of waiter queues: every waiter sees every reply of
         # that kind (and filters by sid), so concurrent ctrl clients can't
@@ -135,6 +146,15 @@ class ClusterManager:
                     {"population": self.population, "to_peers": to_peers},
                 ),
             )
+            if self._conf_last is not None:
+                # late joiner catch-up: a server restarted after a relayed
+                # ConfChange converges on the same final conf
+                try:
+                    await safetcp.send_msg(
+                        conn.writer, CtrlMsg("install_conf", self._conf_last)
+                    )
+                except (ConnectionError, OSError):
+                    pass
             pf_info(logger, f"server {conn.sid} joined")
         elif msg.kind == "leader_status":
             if p.get("step_up"):
@@ -144,6 +164,26 @@ class ClusterManager:
             elif self.leader == conn.sid:
                 self.leader = None
             pf_info(logger, f"leader status: {self.leader}")
+        elif msg.kind == "responders_conf":
+            self.conf = p.get("new_conf")
+        elif msg.kind == "conf_forward":
+            # a server that does not lead every group relays a client
+            # ConfChange: every server gets it, so each group's leader
+            # proposes it.  The sequence number is assigned on this one
+            # event loop, so concurrent relays are totally ordered.
+            self._conf_seq += 1
+            payload = {"delta": p.get("delta") or {}, "seq": self._conf_seq}
+            self._conf_last = payload
+            for s in list(self.servers.values()):
+                if s.joined and not s.writer.is_closing():
+                    try:
+                        await safetcp.send_msg(
+                            s.writer, CtrlMsg("install_conf", payload)
+                        )
+                    except (ConnectionError, OSError):
+                        pass
+            pf_info(logger, f"conf relayed (seq {self._conf_seq}): "
+                            f"{p.get('delta')}")
         elif msg.kind in ("pause_reply", "resume_reply", "reset_reply"):
             for q in self._pending_replies.get(msg.kind, ()):
                 q.put_nowait((conn.sid, msg.payload))
@@ -280,6 +320,8 @@ class ClusterManager:
                 },
                 leader=self.leader,
             )
+        if req.kind == "query_conf":
+            return CtrlReply("conf", conf=self.conf, leader=self.leader)
         if req.kind == "pause_servers":
             return await self._fanout_wait("pause", "pause_reply", req)
         if req.kind == "resume_servers":

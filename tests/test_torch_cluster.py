@@ -226,18 +226,31 @@ class Cluster:
             self._man_loop.call_soon_threadsafe(self._man_loop.stop)
 
 
-def history_worker(cluster, ci, ops, stop, keys=3, timeout=3.0, seed=100):
+def history_worker(cluster, ci, ops, stop, keys=3, timeout=3.0, seed=100,
+                   pin=None, put_share=0.5, n_local=None):
     """One closed-loop client recording a put/get history over ``keys``
     keys until ``stop`` is set (the shape of
-    ``tests/test_cluster.py:257-344``)."""
+    ``tests/test_cluster.py:257-344``), putting with probability
+    ``put_share``.  With ``pin`` it works against that server and returns
+    to it after a redirect or failover; ``n_local[0]`` counts the gets
+    answered as leased local reads."""
     rng = random.Random(seed + ci)
-    ep = cluster.endpoint()
+    if pin is None:
+        ep = cluster.endpoint()
+    else:
+        ep = GenericEndpoint(cluster.manager_addr, server_id=pin)
+        ep.connect()
     drv = DriverClosedLoop(ep, timeout=timeout)
     seq = 0
     while not stop.is_set():
+        if pin is not None and ep.current != pin:
+            try:
+                ep.reconnect(pin)
+            except Exception:
+                pass
         key = f"lin{seq % keys}"
         t0 = time.monotonic()
-        if rng.random() < 0.5:
+        if rng.random() < put_share:
             val = f"c{ci}-{seq}"
             rep = drv.put(key, val)
             t1 = time.monotonic()
@@ -253,6 +266,8 @@ def history_worker(cluster, ci, ops, stop, keys=3, timeout=3.0, seed=100):
             if rep.kind == "success":
                 val = rep.result.value if rep.result else None
                 ops.append(record_get(ci, key, val, t0, t1))
+                if n_local is not None:
+                    n_local[0] += rep.local
             elif rep.kind in ("timeout", "failure", "disconnect"):
                 drv._failover(rep)
         seq += 1
@@ -534,6 +549,7 @@ def build(mod, protocol, me, R, G, W, backer_dir, config, net=None,
 def norm_reply(client, rep):
     res = rep.result
     return (client, rep.kind, rep.req_id, rep.success, rep.redirect,
+            rep.local,
             None if res is None else (res.kind, res.value, res.old_value))
 
 
@@ -581,11 +597,18 @@ class ShardNorm:
         self.encode = encode
         self.exact = exact
         self._rows = {}
+        self._batches = {}
 
     def batch(self, g, vid):
+        """The value's batch, remembered once seen: a replica restarted
+        by a durable reset holds only its logged shard rows."""
+        b = self._batches.get((g, vid))
+        if b is not None:
+            return b
         for rep in self.reps:
             b = rep.payloads.get(g, vid)
             if b is not None:
+                self._batches[(g, vid)] = b
                 return b
         raise AssertionError(f"no replica holds the batch of ({g}, {vid})")
 
@@ -662,15 +685,29 @@ def lockstep_sides(base, protocol, sides, cfg, G, R, W, exact_rows=False,
     return out
 
 
-def lockstep_tick(sides, t, mute=None, port_sides=None):
+def restart_replica(sides, specs, r, base, protocol, cfg, G, R, W):
+    """A durable reset of replica ``r`` on every side of ``specs`` (the
+    ``sides`` argument of ``lockstep_sides``): the replica shuts down and
+    a new one recovers from its WAL, on the same in-memory mesh."""
+    for name, mod, _pkg, _encode, kw in specs:
+        reps, net, _p, wals, _norm = sides[name]
+        reps[r].shutdown()
+        reps[r] = build(mod, protocol, r, R, G, W,
+                        os.path.join(str(base), name, str(r)), cfg, net=net,
+                        **kw)
+        wals[r] = record_wal(reps[r])
+
+
+def lockstep_tick(sides, t, mute=None, port_sides=None, reqs=requests):
     """One scripted serial tick on every side; returns per side what the
     gates compare (``port_sides`` names the sides whose ``flags`` lane is
-    the port's int32; default every side but ``"jax"``)."""
+    the port's int32; default every side but ``"jax"``; ``reqs(pkg, t,
+    r)`` gives replica ``r``'s intake batch, ``requests`` by default)."""
     seen = {}
     for name, (reps, net, pkg, wals, norm) in sides.items():
         net.mute = mute
         for r, rep in enumerate(reps):
-            rep.external.batches.append(requests(pkg, t, r))
+            rep.external.batches.append(reqs(pkg, t, r))
             rep._tick_serial(time.monotonic())
         sent = net.flush()
         port = (name != "jax") if port_sides is None else name in port_sides
@@ -689,6 +726,48 @@ def lockstep_tick(sides, t, mute=None, port_sides=None):
         for w in wals:
             w.clear()
     return seen
+
+
+#: one case per lease plane: the conf change (QuorumLeases at the leader,
+#: Bodega announced at replica 1, a follower) at ``conf_tick``, puts at
+#: the leader in the first ticks and every ninth, gets at every replica
+#: (Bodega: not at the leader after the conf, so its key buckets go
+#: quiet); MultiPaxos with leader leases gets the key it just put one
+#: tick later, while the put is still in the voted tail
+LEASE_CASES = {
+    "QuorumLeases": dict(cfg={}, conf=(6, 0), ticks=40),
+    "Bodega": dict(cfg={"lease_len": 40, "lease_margin": 8,
+                        "grant_interval": 4, "conf_timeout": 80},
+                   conf=(6, 1), ticks=48),
+    "MultiPaxos": dict(cfg={"leader_leases": True}, conf=None, ticks=30),
+}
+
+
+def lease_requests(protocol, conf):
+    """The lease schedule's intake: ``reqs(pkg, t, r)`` is replica
+    ``r``'s batch at tick ``t`` (``conf``: the (tick, replica) of the
+    conf change, or None)."""
+
+    def reqs(pkg, t, r):
+        base = 1000 * t + 10 * r
+        Req, Cmd = pkg.msg.ApiRequest, pkg.sm.Command
+        out = []
+        if conf is not None and (t, r) == conf:
+            out.append((400 + r, Req("conf", req_id=base + 5,
+                                     conf_delta={"responders": [0, 1, 2]})))
+        if r == 0 and (t < 4 or t % 9 == 0):
+            out.append((100, Req("req", req_id=base, cmd=Cmd(
+                "put", f"k{t % 5}", f"v{t}"))))
+        if protocol == "Bodega" and r == 0 and t >= conf[0]:
+            return out
+        key = (f"k{(t - 1) % 5}" if protocol == "MultiPaxos" and t % 9 == 1
+               else f"k{(t + r) % 5}")
+        out.append((200 + r, Req("req", req_id=base + 1,
+                                 cmd=Cmd("get", key))))
+        return out
+
+    return reqs
+
 
 
 def shutdown_sides(sides):
@@ -771,6 +850,54 @@ def card_cpu_lockstep(base, device, protocol="RSPaxos", **shape):
             "shard_frames": shard_frames,
             "leaders": sorted({me for _g, me in leaders}),
             "launches": launches[0]}
+
+
+#: the card-against-CPU lease lockstep: the schedule of ``LEASE_CASES``
+#: at 16 groups, through the conf change and the first local gets
+CARD_CPU_LEASE = dict(G=16, R=3, W=32)
+
+
+def card_cpu_lease_lockstep(base, device, protocol="QuorumLeases",
+                            **shape):
+    """Three port replicas on ``device`` and three on the CPU step the
+    lease schedule of ``protocol`` (``lease_requests``) in per-tick
+    lockstep; per tick the state digests, frames, WAL records,
+    ``applied``, KV, replies (with their ``local`` flags) and manager
+    notices must be equal.  Returns the ticks run, the local replies per
+    replica and the successful conf replies; raises AssertionError at
+    the first difference."""
+    import summerset_tpu_torch.host.server as srv
+    from summerset_tpu_torch.host import messages, statemach
+    from summerset_tpu_torch.ops import rscoding
+
+    case = LEASE_CASES[protocol]
+    sh = dict(CARD_CPU_LEASE, ticks=case["ticks"], **shape)
+    cfg = dict(pipeline=False, hear_timeout_lo=16, hear_timeout_hi=32,
+               **case["cfg"])
+    pkg = types.SimpleNamespace(msg=messages, sm=statemach)
+    sides = lockstep_sides(base, protocol, (
+        ("card", srv, pkg, rscoding.encode_payload, {"device": device}),
+        ("cpu", srv, pkg, rscoding.encode_payload, {"device": "cpu"}),
+    ), cfg, sh["G"], sh["R"], sh["W"], exact_rows=True)
+    reqs = lease_requests(protocol, case["conf"])
+    local = [0] * sh["R"]
+    conf_ok = 0
+    try:
+        for t in range(sh["ticks"]):
+            seen = lockstep_tick(sides, t, port_sides=("card", "cpu"),
+                                 reqs=reqs)
+            a, b = seen["card"], seen["cpu"]
+            for part in a:
+                if a[part] != b[part]:
+                    raise AssertionError(f"{protocol} tick {t}: {part} "
+                                         f"differs between {device} and "
+                                         "cpu")
+            for r, rr in enumerate(a["replies"]):
+                local[r] += sum(x[5] for x in rr)
+                conf_ok += sum(x[1] == "conf" and x[3] for x in rr)
+    finally:
+        shutdown_sides(sides)
+    return {"ticks": sh["ticks"], "local": local, "conf_ok": conf_ok}
 
 
 # ------------------------------------------------------------------ tests
@@ -888,6 +1015,19 @@ class TestTorchCluster:
         finally:
             ep.leave()
 
+    def test_conf_rejected_without_conf_plane(self, cluster):
+        """A conf request to a protocol with no conf plane gets an
+        explicit failed ``conf`` reply, never silence."""
+        ep = cluster.endpoint()
+        try:
+            ep.send_conf(0, {"responders": [0]})
+            rep = ep.recv_reply(timeout=10)
+            while rep.req_id != 0 or rep.kind == "redirect":
+                rep = ep.recv_reply(timeout=10)
+            assert rep.kind == "conf" and not rep.success
+        finally:
+            ep.leave()
+
     def test_linearizable_history_under_faults(self, cluster):
         """A 3-client, 3-key history under a pause/resume schedule,
         checked by the port's checker and by the JAX package's."""
@@ -931,7 +1071,7 @@ class TestTorchCluster:
 def test_unserved_protocol_is_refused(tmp_path):
     from summerset_tpu_torch.utils.errors import SummersetError
 
-    with pytest.raises(SummersetError, match="ROADMAP.md item 6"):
+    with pytest.raises(SummersetError, match="ROADMAP.md Queue 1 item 1"):
         ServerReplica("EPaxos", ADDR, ADDR, ADDR, backer_dir=str(tmp_path),
                       device="cpu")
 
@@ -1017,3 +1157,340 @@ def test_api_plane_that_cannot_bind_fails_bring_up():
             ExternalApi(("127.0.0.1", port))
     finally:
         holder.close()
+
+
+# ------------------------------------------ lease and conf planes, live
+def query_conf(ep):
+    """The manager's conf, polled: the server's notice races the
+    client's query."""
+    conf = None
+    for _ in range(50):
+        conf = ep.ctrl.request(CtrlRequest("query_conf"), timeout=10)
+        if conf.conf:
+            break
+        time.sleep(0.1)
+    return conf
+
+
+def _local_get(cluster, sid, key, secs):
+    """Gets of ``key`` pinned to server ``sid`` until one is answered as
+    a leased local read (redirects bounce the endpoint off: it comes
+    back), or None after ``secs``."""
+    ep = GenericEndpoint(cluster.manager_addr, server_id=sid)
+    ep.connect()
+    try:
+        drv = DriverClosedLoop(ep, timeout=3.0)
+        deadline = time.monotonic() + secs
+        while time.monotonic() < deadline:
+            r = drv.get(key)
+            if r.kind == "success" and r.local:
+                return r
+            ep.reconnect(sid)
+            time.sleep(0.2)
+        return None
+    finally:
+        ep.leave()
+
+
+@pytest.fixture(scope="class")
+def ql_cluster(tmp_path_factory):
+    c = Cluster("QuorumLeases", 3, tmp_path_factory.mktemp("torch_ql"))
+    yield c
+    c.stop()
+    assert not c.faults(), f"replica faults: {c.faults()}"
+
+
+class TestTorchClusterQuorumLeases:
+    """The shape of ``tests/test_cluster.py::TestClusterQuorumLeases`` on
+    a port cluster."""
+
+    def test_conf_change_and_local_read(self, ql_cluster):
+        ep, drv = _driver(ql_cluster)
+        try:
+            drv.checked_put("lease_key", "v1", retries=40)
+            rep = drv.conf_change({"responders": [0, 1, 2]})
+            assert rep.kind == "success"
+            conf = query_conf(ep)
+            assert conf.conf and sorted(conf.conf["responders"]) == [0, 1, 2]
+            leader = ep.ctrl.request(CtrlRequest("query_info")).leader or 0
+        finally:
+            ep.leave()
+        follower = next(s for s in sorted(ql_cluster.replicas)
+                        if s != leader)
+        got = _local_get(ql_cluster, follower, "lease_key", 30)
+        assert got is not None, "follower never served a local read"
+        assert got.result.value == "v1"
+
+    def test_linearizable_local_reads(self, ql_cluster):
+        """A writer streams unique values while readers pinned to the
+        followers get the key (served locally once the leases are
+        quiescent); the combined history checks out."""
+        from summerset_tpu_torch.utils.linearize import check_history
+
+        ops, stop = [], threading.Event()
+        ep, drv = _driver(ql_cluster)
+        drv.conf_change({"responders": [0, 1, 2]})
+        n_local = [0]
+
+        def reader(ci, sid):
+            ep2 = GenericEndpoint(ql_cluster.manager_addr, server_id=sid)
+            ep2.connect()
+            drv2 = DriverClosedLoop(ep2, timeout=2.0)
+            while not stop.is_set():
+                t0 = time.monotonic()
+                rep = drv2.get("lr_key")
+                t1 = time.monotonic()
+                if rep.kind == "success":
+                    val = rep.result.value if rep.result else None
+                    ops.append(record_get(ci, "lr_key", val, t0, t1))
+                    n_local[0] += rep.local
+                else:
+                    ep2.reconnect(sid)
+                    time.sleep(0.05)
+            try:
+                ep2.leave()
+            except Exception:
+                pass
+
+        leader = ep.ctrl.request(CtrlRequest("query_info")).leader or 0
+        followers = [s for s in sorted(ql_cluster.replicas) if s != leader]
+        threads = [threading.Thread(target=reader, args=(10 + i, sid),
+                                    daemon=True)
+                   for i, sid in enumerate(followers)]
+        for t in threads:
+            t.start()
+        for seq in range(10):
+            val = f"w-{seq}"
+            t0 = time.monotonic()
+            rep = drv.put("lr_key", val)
+            t1 = time.monotonic()
+            if rep.kind == "success":
+                ops.append(record_put(0, "lr_key", val, t0, t1, True))
+            elif rep.kind in ("timeout", "failure", "disconnect"):
+                ops.append(record_put(0, "lr_key", val, t0, None, False))
+                drv._failover(rep)
+            time.sleep(0.4)  # leases need quiescence to serve locally
+        deadline = time.monotonic() + 20
+        while (sum(1 for o in ops if o.kind == "get") <= 5
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=15)
+        ep.leave()
+        reads = [o for o in ops if o.kind == "get"]
+        assert len(reads) > 5, f"too few reads observed: {len(reads)}"
+        assert n_local[0] > 0, "no read was served locally"
+        ok, diag = check_history(ops)
+        assert ok, diag
+
+
+@pytest.fixture(scope="class")
+def bodega_cluster(tmp_path_factory):
+    # long leases relative to the refresh period (the JAX cluster's
+    # config): replicas' ticks skew under load
+    c = Cluster("Bodega", 3, tmp_path_factory.mktemp("torch_bodega"),
+                config={"lease_len": 40, "lease_margin": 8,
+                        "grant_interval": 4, "conf_timeout": 80})
+    yield c
+    c.stop()
+    assert not c.faults(), f"replica faults: {c.faults()}"
+
+
+class TestTorchClusterBodega:
+    """The shape of ``tests/test_cluster.py::TestClusterBodega``."""
+
+    def test_roster_conf_at_a_non_leader_and_local_read(self,
+                                                         bodega_cluster):
+        ep, drv = _driver(bodega_cluster)
+        try:
+            drv.checked_put("bod_key", "v1", retries=40)
+            leader = ep.ctrl.request(CtrlRequest("query_info")).leader or 0
+        finally:
+            ep.leave()
+        # the roster is announced at a non-leader (any replica may
+        # announce: conflease.rs heard_new_conf)
+        follower = next(s for s in sorted(bodega_cluster.replicas)
+                        if s != leader)
+        ep = GenericEndpoint(bodega_cluster.manager_addr, server_id=follower)
+        ep.connect()
+        try:
+            rep = DriverClosedLoop(ep).conf_change({"responders": [0, 1, 2]})
+            assert rep.kind == "success"
+            conf = query_conf(ep)
+            assert conf.conf and sorted(conf.conf["responders"]) == [0, 1, 2]
+            assert conf.conf["leader"] == leader
+        finally:
+            ep.leave()
+        got = _local_get(bodega_cluster, follower, "bod_key", 120)
+        assert got is not None, "responder never served a local read"
+        assert got.result.value == "v1"
+
+
+@pytest.fixture(scope="class")
+def ll_cluster(tmp_path_factory):
+    c = Cluster("MultiPaxos", 3, tmp_path_factory.mktemp("torch_ll"),
+                config={"leader_leases": True})
+    yield c
+    c.stop()
+    assert not c.faults(), f"replica faults: {c.faults()}"
+
+
+class TestTorchClusterLeaderLease:
+    """The shape of ``tests/test_cluster.py::TestClusterLeaderLease``."""
+
+    def test_leader_serves_local_read(self, ll_cluster):
+        ep, drv = _driver(ll_cluster)
+        try:
+            drv.checked_put("llk", "v1", retries=40)
+            got = None
+            for _ in range(30):
+                r = drv.get("llk")
+                if r.kind == "success" and r.local:
+                    got = r
+                    break
+                time.sleep(0.1)
+            assert got is not None, "leader never served a leased read"
+            assert got.result.value == "v1"
+        finally:
+            ep.leave()
+
+    def test_history_linearizable_under_leader_reset(self, ll_cluster):
+        """A writer and two readers stream while the lease-holding
+        leader takes a durable reset mid-run; the merged history
+        linearizes (the lease veto keeps a second leader from serving
+        reads)."""
+        from summerset_tpu_torch.utils.linearize import check_history
+
+        ops, stop = [], threading.Event()
+        ep, drv = _driver(ll_cluster)
+        leader = ep.ctrl.request(CtrlRequest("query_info")).leader or 0
+
+        def reader(ci):
+            ep2 = ll_cluster.endpoint()
+            drv2 = DriverClosedLoop(ep2, timeout=3.0)
+            while not stop.is_set():
+                t0 = time.monotonic()
+                r = drv2.get("ll_hist")
+                t1 = time.monotonic()
+                if r.kind == "success":
+                    val = r.result.value if r.result else None
+                    ops.append(record_get(ci, "ll_hist", val, t0, t1))
+                else:
+                    drv2._failover(r)
+                    time.sleep(0.05)
+            try:
+                ep2.leave()
+            except Exception:
+                pass
+
+        threads = [threading.Thread(target=reader, args=(10 + i,),
+                                    daemon=True) for i in range(2)]
+        for t in threads:
+            t.start()
+        for seq in range(14):
+            if seq == 5:
+                ll_cluster.ctrl("reset_servers", servers=[leader])
+            val = f"w-{seq}"
+            t0 = time.monotonic()
+            rep = drv.put("ll_hist", val)
+            t1 = time.monotonic()
+            if rep.kind == "success":
+                ops.append(record_put(0, "ll_hist", val, t0, t1, True))
+            elif rep.kind in ("timeout", "failure", "disconnect"):
+                ops.append(record_put(0, "ll_hist", val, t0, None, False))
+                drv._failover(rep)
+            time.sleep(0.25)
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=15)
+        ep.leave()
+        assert sum(1 for o in ops if o.kind == "get") > 5
+        ok, diag = check_history(ops)
+        assert ok, diag
+
+
+def _conf_everywhere(cluster, want, secs=20):
+    """Whether every replica's ``conf_cur`` equals ``want`` in every
+    group within ``secs``."""
+    deadline = time.monotonic() + secs
+    while time.monotonic() < deadline:
+        if all((r._np_state("conf_cur")[:, me] == want).all()
+               for me, r in list(cluster.replicas.items())):
+            return True
+        time.sleep(0.3)
+    return False
+
+
+@pytest.fixture(scope="class", params=[4])
+def qlg_cluster(request, tmp_path_factory):
+    c = Cluster("QuorumLeases", 3, tmp_path_factory.mktemp("torch_qlg"),
+                num_groups=request.param)
+    yield c
+    c.stop()
+    assert not c.faults(), f"replica faults: {c.faults()}"
+
+
+class TestTorchClusterConfRelay:
+    """The manager relay of ``TestClusterMultiGroupConf``, made certain:
+    a conf sent to a follower, which leads no group, is relayed through
+    the manager to every server, each group's leader proposes it, and
+    the follower replies once ``conf_cur`` reaches the target in every
+    group (4 groups)."""
+
+    def test_conf_at_a_follower_is_relayed(self, qlg_cluster):
+        ep, drv = _driver(qlg_cluster)
+        try:
+            drv.checked_put("relay_key", "v1", retries=40)
+            leader = ep.ctrl.request(CtrlRequest("query_info")).leader or 0
+        finally:
+            ep.leave()
+        follower = next(s for s in sorted(qlg_cluster.replicas)
+                        if s != leader)
+        assert not qlg_cluster.replicas[follower]._is_leader.any()
+        ep = GenericEndpoint(qlg_cluster.manager_addr, server_id=follower)
+        ep.connect()
+        try:
+            rep = DriverClosedLoop(ep).conf_change({"responders": [0, 1]})
+            assert rep.kind == "success"
+            assert query_conf(ep).conf["responders"] == [0, 1]
+        finally:
+            ep.leave()
+        assert qlg_cluster.manager._conf_seq >= 1
+        assert _conf_everywhere(qlg_cluster, 0b011)
+
+
+@pytest.fixture(scope="class")
+def ql8_cluster(tmp_path_factory):
+    c = Cluster("QuorumLeases", 3, tmp_path_factory.mktemp("torch_ql8"),
+                num_groups=8)
+    yield c
+    c.stop()
+
+
+@pytest.mark.slow
+class TestTorchClusterMultiGroupConf:
+    """The shape of ``tests/test_cluster.py::TestClusterMultiGroupConf``:
+    8 groups whose leaderships split after a pause of the warm leader;
+    the serving endpoint relays the conf through the manager when it
+    does not lead every group."""
+
+    def test_conf_installs_under_split_leadership(self, ql8_cluster):
+        ep, drv = _driver(ql8_cluster)
+        try:
+            drv.checked_put("mgc_key", "v1", retries=40)
+            ql8_cluster.ctrl("pause_servers", servers=[0], timeout=60)
+            time.sleep(2.5)
+            ql8_cluster.ctrl("resume_servers", servers=[0], timeout=60)
+            time.sleep(1.0)
+            ep.rotate()
+            rep = drv.conf_change({"responders": [0, 1, 2]}, retries=30)
+            assert rep.kind == "success"
+        finally:
+            ep.leave()
+        assert _conf_everywhere(ql8_cluster, 7), {
+            me: r._np_state("conf_cur")[:, me].tolist()
+            for me, r in ql8_cluster.replicas.items()
+        }

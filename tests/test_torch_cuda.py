@@ -408,3 +408,26 @@ def test_rspaxos_serving_on_card_matches_cpu(cuda_device, tmp_path):
     out = card_cpu_lockstep(tmp_path, "cuda")
     assert out["launches"] > 0 and out["rebuilt"] > 0, out
     assert out["shard_frames"] > 0 and len(out["leaders"]) > 1, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["QuorumLeases", "Bodega",
+                                      "MultiPaxos"])
+def test_lease_serving_on_card_matches_cpu(cuda_device, tmp_path, protocol):
+    """Three lease-plane replicas on the card against three on the CPU in
+    per-tick lockstep through the conf change (QuorumLeases at the
+    leader, Bodega at a follower; MultiPaxos with leader leases has none)
+    and the first local gets: equal state, frames, WAL records, floors,
+    KV and replies with their ``local`` flags; local gets were served at
+    the followers (the leader under leader leases)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_cluster import card_cpu_lease_lockstep
+
+    out = card_cpu_lease_lockstep(tmp_path, "cuda", protocol)
+    if protocol == "MultiPaxos":
+        assert out["local"][0] > 0 and out["local"][1:] == [0, 0], out
+    else:
+        assert out["conf_ok"] == 1 and sum(out["local"][1:]) > 0, out

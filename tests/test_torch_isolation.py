@@ -57,6 +57,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "summerset_tpu_torch.host.codeword",
               "summerset_tpu_torch.host.epaxos_exec",
               "summerset_tpu_torch.core.engine",
+              "summerset_tpu_torch.bench",
               "summerset_tpu_torch.entry"):
         assert m in got["modules"]
     for m in SERVING_MODULES:
@@ -154,6 +155,8 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         lambda: ServerReplica("RSPaxos", addr, addr, addr),
         lambda: ServerReplica("CRaft", addr, addr, addr),
         lambda: ServerReplica("Crossword", addr, addr, addr),
+        lambda: ServerReplica("QuorumLeases", addr, addr, addr),
+        lambda: ServerReplica("Bodega", addr, addr, addr),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

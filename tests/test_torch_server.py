@@ -56,7 +56,9 @@ from test_torch_cluster import (  # noqa: E402
     build, durable_digest, leaf_digests, read_wal, shutdown_sides,
 )
 from test_torch_cluster import lockstep_sides as _lockstep_sides  # noqa: E402
-from test_torch_cluster import lockstep_tick  # noqa: E402
+from test_torch_cluster import (  # noqa: E402
+    LEASE_CASES, lease_requests, lockstep_tick, restart_replica,
+)
 
 torch.set_num_threads(1)
 
@@ -552,3 +554,173 @@ def test_qdisc_and_linreg_equal_jax_and_degrade(monkeypatch):
     monkeypatch.setattr(tqd.subprocess, "run", slow)
     assert q.update() is False
     assert (q.delay_ms, q.jitter_ms, q.rate_gbps) == (0.0, 0.0, 0.0)
+
+
+# ------------------------------------- RSPaxos durable resets in lockstep
+#: RSPaxos RS(2,1), 4 groups.  ``pause_leader``: the schedule of
+#: ``chip_smoke.py`` phase 13 (the leader, 0, cut off while replica 2
+#: takes over, a durable reset of 0, then of the group-0 leader).
+#: ``isolated_follower``: replica 1 cut off while the leader changes
+#: (0 stops reaching 2, so 2 campaigns), a durable reset of 1 while it
+#: is still cut off (its applied floor below the new leader's run), the
+#: links back, then a durable reset of the group-0 leader; puts go on
+#: throughout.  ``None`` resets the leader of group 0.
+RS_RESET = {
+    "pause_leader": dict(
+        drops=[((0, 1), 10, 40), ((0, 2), 10, 40), ((1, 0), 10, 40),
+               ((2, 0), 10, 40)],
+        resets={44: 0, 56: None}, ticks=110),
+    "isolated_follower": dict(
+        drops=[((1, 0), 10, 40), ((1, 2), 10, 40), ((0, 1), 10, 40),
+               ((2, 1), 10, 40), ((0, 2), 12, 30)],
+        resets={38: 1, 56: None}, ticks=100),
+}
+
+
+@pytest.mark.parametrize("schedule", sorted(RS_RESET))
+def test_rspaxos_durable_reset_lockstep(tmp_path, schedule):
+    """Durable resets of RSPaxos replicas after a missed run, JAX and port
+    replicas in per-tick lockstep: every state leaf, frame, WAL record,
+    floor, KV, reply and notice equal on every tick, through both
+    resets and the leader changes.  In ``isolated_follower`` both
+    packages stall the restarted follower alike: it campaigned while cut
+    off, so its recovered ``bal_max`` is above the leader's ballot, it
+    refuses the leader's accepts, and its commit bar stays at its
+    restored floor in a group the leader commits in, until the next
+    leader's run (found by this case, not a port fault)."""
+    sc = RS_RESET[schedule]
+    G, R, W = 4, 3, 16
+    cfg = lock_cfg("RSPaxos")
+    sides = _lockstep_sides(tmp_path, "RSPaxos", SIDES, cfg, G, R, W,
+                            drops=sc["drops"])
+    cbs = []
+    try:
+        for t in range(sc["ticks"]):
+            if t in sc["resets"]:
+                r = sc["resets"][t]
+                if r is None:
+                    r = next(rep.me for rep in sides["jax"][0]
+                             if rep._is_leader[0])
+                restart_replica(sides, SIDES, r, tmp_path, "RSPaxos", cfg,
+                                G, R, W)
+            seen = lockstep_tick(sides, t)
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                assert j[part] == p[part], f"tick {t}: {part} differs"
+            cb = [[rep._np_state("commit_bar")[:, rep.me].tolist()
+                   for rep in sides[name][0]] for name in ("jax", "torch")]
+            assert cb[0] == cb[1], f"tick {t}: commit bars differ"
+            cbs.append(cb[1])
+    finally:
+        shutdown_sides(sides)
+    reps = sides["torch"][0]
+    assert min(sum(rep.applied) for rep in reps) > 40
+    if schedule == "isolated_follower":
+        # replica 1's commit bar in group 1 sits at its restored floor
+        # from the reset (38) past the next reset (56) while the
+        # leader's moves on; the next leader's run frees it
+        stuck = [c[1][1] for c in cbs[38:60]]
+        assert len(set(stuck)) == 1, stuck
+        assert max(c[r][1] for c in cbs[38:60] for r in (0, 2)) \
+            > stuck[0] + 10
+        assert cbs[-1][1][1] > stuck[0] + 10
+
+
+# ---------------------------------------- lease and conf planes, lockstep
+@pytest.mark.parametrize("protocol", sorted(LEASE_CASES))
+def test_lease_serving_lockstep(tmp_path, protocol):
+    """QuorumLeases with a client conf change and follower local gets;
+    Bodega with a roster conf announced at a non-leader and responder
+    local gets; MultiPaxos with leader leases, leader local gets and a
+    get of a key with a put in the voted tail, which goes through the
+    log.  Per tick every state leaf, frame, WAL record, floor, KV, reply
+    (with its ``local`` flag) and manager notice equal the JAX
+    replicas'.  Then a durable reset of replica 1 on both sides rebuilds
+    equal state, QuorumLeases' installed conf included."""
+    case = LEASE_CASES[protocol]
+    G, R, W = 2, 3, 16
+    cfg = dict(BASE_CFG, pipeline=False, hear_timeout_lo=16,
+               hear_timeout_hi=32, **case["cfg"])
+    sides = _lockstep_sides(tmp_path, protocol, SIDES, cfg, G, R, W)
+    reqs = lease_requests(protocol, case["conf"])
+    local = {r: 0 for r in range(R)}
+    conf_ok = notices = 0
+    logged_tail_gets = []
+    try:
+        for t in range(case["ticks"]):
+            seen = lockstep_tick(sides, t, reqs=reqs)
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                assert j[part] == p[part], f"tick {t}: {part} differs"
+            for r, rr in enumerate(p["replies"]):
+                for x in rr:
+                    local[r] += x[5]
+                    conf_ok += x[1] == "conf" and x[3]
+                    if x[2] % 1000 == 1 and (x[2] // 1000) % 9 == 1:
+                        logged_tail_gets.append((x[2], x[5]))
+            notices += sum(k == "responders_conf"
+                           for c in p["ctrl"] for k, _ in c)
+        restart_replica(sides, SIDES, 1, tmp_path, protocol, cfg, G, R, W)
+        rebuilt = {name: leaf_digests(sides[name][0][1].state)
+                   for name in ("jax", "torch")}
+        assert rebuilt["jax"] == rebuilt["torch"]
+        rep1 = sides["torch"][0][1]
+    finally:
+        shutdown_sides(sides)
+    if protocol == "MultiPaxos":
+        assert local[0] > 10 and local[1] == local[2] == 0, local
+        # the gets of a key put one tick before went through the log
+        assert logged_tail_gets and not any(
+            loc for _rid, loc in logged_tail_gets), logged_tail_gets
+    else:
+        assert conf_ok == 1 and notices >= 1
+        assert local[1] + local[2] > 5, local
+        if protocol == "Bodega":
+            assert local[0] == 0
+    if protocol == "QuorumLeases":
+        assert rep1._np_state("conf_cur")[:, 1].tolist() == [7] * G
+
+
+def test_resume_holds_off_local_reads(tmp_path):
+    """Leases count ticks, and a paused replica's count stands still: on
+    resume its pre-pause lease view may have lapsed at the grantor.  The
+    port serves no local read (neither a responder's nor a leader's
+    leased get) for ``OWED_FRAMES`` + 1 + the longest lease plus margin
+    of its own ticks after a resume; the JAX replica serves from its
+    pre-pause view at once (found by ``chip_smoke.py`` phase 14's
+    rehearsal: a resumed QuorumLeases leader answered a get with a value
+    a newer leader had overwritten)."""
+    cfg = dict(BASE_CFG, pipeline=False, hear_timeout_lo=16,
+               hear_timeout_hi=32)
+    reps = {name: build(mod, "QuorumLeases", 0, 3, 2, 16, tmp_path / name,
+                        cfg, **kw)
+            for name, mod, _pkg, _enc, kw in SIDES}
+    try:
+        for name, rep in reps.items():
+            K = rep.kernel.config.num_key_buckets
+            rep._last_extra = {
+                "lease_held": np.ones((2, 3), bool),
+                "n_local_buckets": np.full((2, 3), K, np.int32),
+                "leader_read_ok": np.ones((2, 3), bool),
+            }
+            assert rep._can_local_read(0) and rep._leader_read_ok(0)
+            for kind in ("pause", "resume"):
+                msg = types.SimpleNamespace(kind=kind, payload={})
+                rep.ctrl.try_recv_ctrl = lambda msg=msg: msg
+                assert rep._handle_ctrl() is None
+            assert not rep.paused
+        assert reps["jax"]._can_local_read(0)
+        assert reps["jax"]._leader_read_ok(0)
+        port = reps["torch"]
+        kc = port.kernel.config
+        hold = (port.OWED_FRAMES + 1 + kc.lease_margin
+                + max(kc.lease_len, kc.leader_lease_len))
+        t0 = port.tick
+        for port.tick in range(t0, t0 + hold):
+            assert not port._can_local_read(0)
+            assert not port._leader_read_ok(0)
+        port.tick = t0 + hold
+        assert port._can_local_read(0) and port._leader_read_ok(0)
+    finally:
+        for rep in reps.values():
+            rep.shutdown()
