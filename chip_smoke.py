@@ -80,7 +80,7 @@ before printing any result.  Phases, each printed as it runs:
              (1024 groups x 3 replicas, W=64, tick 0.002 s): the port's
              manager and three ``ServerReplica`` threads in this process
              on the card (the harness of ``tests/test_torch_cluster.py``),
-             16 closed-loop clients over 1024 keys.  MultiPaxos: a 10 s
+             16 closed-loop clients over 1024 keys.  MultiPaxos: a 6 s
              timed window (one ``serving`` JSON line: ops/s, p50/p99,
              ticks/s per replica, the mean of each ``loop_stage_us``
              stage, ``max_memory_allocated``, the leader's bytes per
@@ -93,11 +93,16 @@ before printing any result.  Phases, each printed as it runs:
              history recorded through the faults passes the port's
              ``check_history``; a replica that failed a bring-up or
              crashed at any point fails the phase (durable resets are
-             neither).  After MultiPaxos's window, 8 ticks of the group-0
+             neither).  Then a ``take_snapshot`` through the manager
+             (seconds; every replica's WAL bytes before and after, each
+             must shrink), every replica restarted from snapshot plus WAL
+             tail (seconds) and every acked key read back (the
+             ``snapshot`` record of the JSON line).  After MultiPaxos's
+             window, 8 ticks of the group-0
              leader are recorded and, once the cluster has stopped,
              replayed alone under ``torch.profiler`` (uploads, step,
              prefetch): device busy ms, kernels and host CUDA runtime ms
-             per tick (one ``serving_profile`` JSON line).  Raft: 5 s of
+             per tick (one ``serving_profile`` JSON line).  Raft: 4 s of
              load, one leader pause, the same agreement, history and fault
              checks.  Last, 24 sequential puts on a 1-replica cluster on
              the card and on the CPU, serial and pipelined: equal durable
@@ -106,15 +111,18 @@ before printing any result.  Phases, each printed as it runs:
              family, RS(2,1) (``fault_tolerance=0``), puts of 3000 B
              values: the leader encodes each proposed batch with
              ``bitslice_gf256`` and ships each peer its shard, followers
-             rebuild from shards.  First MultiPaxos at the same load, 5 s,
+             rebuild from shards.  First MultiPaxos at the same load, 4 s,
              for the full-copy baseline.  RSPaxos: a
-             10 s window, the leader paused (the new leader rebuilds
+             6 s window, the leader paused (the new leader rebuilds
              adopted values from shards), a durable reset of a follower
              and then of the leader, every acked key read back,
-             agreement, a linearizable 3-client history.  CRaft: 5 s, the
+             agreement, a linearizable 3-client history, then phase 12's
+             snapshot and restart of every replica: values come back by
+             rebuilding from shards, whose launches are counted (and must
+             be some) and join the ``kernels`` line.  CRaft: 4 s, the
              leader paused until the new leader ships full copies, then
              shards again after the resume (both kinds counted).
-             Crossword, adaptive width: 5 s and a leader pause, the widths
+             Crossword, adaptive width: 4 s and a leader pause, the widths
              chosen logged.  The RSPaxos leader's bytes per payload below
              0.75x the MultiPaxos baseline's, and the wire sizes of one
              shard send and one full copy at phase 12's values and at
@@ -128,8 +136,8 @@ before printing any result.  Phases, each printed as it runs:
              to 16 read-mostly clients (95% gets, 5% puts: YCSB workload
              B) pinned to the three replicas in turn, so followers take
              gets.  QuorumLeases: responders {0, 1, 2} installed by a
-             client ``conf_change`` at the leader (timed), a 10 s window,
-             a leader pause.  MultiPaxos with ``leader_leases``: 5 s.
+             client ``conf_change`` at the leader (timed), a 6 s window,
+             a leader pause.  MultiPaxos with ``leader_leases``: 4 s.
              Bodega (the JAX cluster config, lease_len 40): a roster conf
              announced at a non-leader (timed), 5 s.  Per protocol one
              ``lease_serving`` JSON line: ops/s, the share of gets
@@ -146,7 +154,7 @@ before printing any result.  Phases, each printed as it runs:
              replica: ``python -m summerset_tpu_torch.cli.manager`` and
              three ``python -m summerset_tpu_torch.cli.server ... --device
              cuda`` on the one card, 16 closed-loop clients over the
-             manager's address for a 10 s window (ops/s, p50/p99 beside
+             manager's address for a 6 s window (ops/s, p50/p99 beside
              phase 12's), every acked key read back, then the processes
              stopped and their WALs' apply records equal slot by slot.  A
              process that dies or never logs readiness fails the phase;
@@ -154,8 +162,28 @@ before printing any result.  Phases, each printed as it runs:
 16. bench — ``python -m summerset_tpu_torch.bench`` at 256-tick windows
              (4096 groups x 5, W=128, P=32): one JSON line with ``ok``
              true, the backend ``cuda`` and this card's stamp.
+17. epaxos serving — phase 12's harness and shape serving EPaxos
+             (leaderless; a host Tarjan executor per group): 16 clients
+             pinned to the three replicas in turn, puts on their own keys
+             and gets on every key, so commands at different replicas
+             conflict; a 10 s window (the ``serving`` line with the
+             ``ep_exec`` stage, the executors' Tarjan pass), 8 ticks of
+             replica 0 replayed under the profiler (kernels per tick,
+             device ms), a burst of 4 puts to distinct key buckets of one
+             group proposed in one tick, then with the load stopped (as
+             the JAX ``TestClusterEPaxos``) a durable reset of replica 1,
+             every acked key read back, agreement, a linearizable
+             history of 3 pinned clients on 2 keys, phase 12's snapshot
+             and restart; then three replicas on the card against three
+             on the CPU in per-tick lockstep at 32 groups through a
+             durable reset, serial and pipelined.
+18. basic serving — phase 12's harness and shape serving ChainRep,
+             SimplePush and RepNothing: a 5 s window each, a durable
+             reset of the serving node under load, every acked key read
+             back, agreement (RepNothing replicates nothing: its serving
+             replica's KV alone) and a linearizable 3-client history.
 Phases 4, 6, 7 and 13 each count their own kernel launches and fail on
-none; phases 8-12 and 14-16 run no codeword plane and launch no hand
+none; phases 8-12 and 14-18 run no codeword plane and launch no hand
 kernel.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
@@ -202,8 +230,11 @@ PAYLOAD = 4096
 # summerset_tpu/cli/server.py:33, tick 0.002 s as :34), 16 clients
 SERVE_SHAPE = dict(G=1024, R=3, W=64, tick=0.002, keys=1024)
 SERVE_CLIENTS = 16
-SERVE_SECS = 10.0         # MultiPaxos timed load window
-SERVE_RAFT_SECS = 5.0     # Raft timed load window
+# the timed windows of phases 12-15 (once 10 s / 5 s) are short enough
+# that the script, phases 17-18 included, stays well inside its time
+# limit; their shapes are unchanged
+SERVE_SECS = 6.0          # MultiPaxos timed load window
+SERVE_RAFT_SECS = 4.0     # Raft timed load window
 SERVE_PAUSE_S = 3.0       # a paused leader stays paused at least this
 SERVE_FAILOVER_MAX_S = 30.0
 SERVE_OP_TIMEOUT = 1.0
@@ -213,19 +244,25 @@ SERVE_HISTORY_OPS = 30    # the 3-client history is at least this long
 # (tests/test_codeword_plane.py, TestClusterCodewordPlane: "x" * 3000)
 SERVE_CW_CFG = {"fault_tolerance": 0}
 SERVE_CW_VALUE_BYTES = 3000
-SERVE_CW_SECS = 5.0       # CRaft and Crossword timed load windows
+SERVE_CW_SECS = 4.0       # CRaft and Crossword timed load windows
 SERVE_RESUME_MAX_S = 30.0  # after a resume, shard sends must resume by then
 # phase 14: the lease planes at phase 12's shape, read-mostly (YCSB
 # workload B: 95% reads, 5% updates), clients pinned to the replicas in
 # turn; Bodega with the JAX cluster config (tests/test_cluster.py:871)
 SERVE_LEASE_PUT_SHARE = 0.05
-SERVE_LEASE_SECS = {"QuorumLeases": 10.0, "MultiPaxos": 5.0, "Bodega": 5.0}
+SERVE_LEASE_SECS = {"QuorumLeases": 6.0, "MultiPaxos": 4.0, "Bodega": 5.0}
 SERVE_BODEGA_CFG = {"lease_len": 40, "lease_margin": 8, "grant_interval": 4,
                     "conf_timeout": 80}
 LEASE_HISTORY_PUT_SHARE = 0.1  # the history clients' puts (3 keys)
 # a logged op at 1024 groups takes ~5 ticks, and the lease planes tick at
 # 3.6-6.2/s on an H100 at this shape: a 1 s budget timed out every Bodega put
 SERVE_LEASE_OP_TIMEOUT = 5.0
+# phase 17: EPaxos served at phase 12's shape; the card-against-CPU
+# lockstep's groups
+SERVE_EP_SECS = 10.0
+EP_SERVE_LOCK_GROUPS = 32
+# phase 18: the basic kernels' timed windows
+SERVE_BASIC_SECS = 5.0
 # phase 15: one process per replica; readiness within this many seconds
 PROC_READY_S = 240.0
 # phase 16: the bench entry point's window at chip_smoke time
@@ -1478,12 +1515,14 @@ class _LoadClient:
     ``gets``.  With ``pin`` the client works against that server: a
     redirected put is issued again at the leader, then the client
     returns (after a timeout or refusal it stays where the failover took
-    it for ``PIN_RETURN_S``)."""
+    it for ``PIN_RETURN_S``).  With ``shared_gets`` a get reads any key,
+    so it meets other clients' puts to it (EPaxos: conflicting commands
+    at different replicas); puts stay on the client's own keys."""
 
     PIN_RETURN_S = 5.0
 
     def __init__(self, cluster, ci, stop, value_bytes=None, put_share=0.5,
-                 pin=None, op_timeout=SERVE_OP_TIMEOUT):
+                 pin=None, op_timeout=SERVE_OP_TIMEOUT, shared_gets=False):
         import random
         import threading
 
@@ -1496,6 +1535,8 @@ class _LoadClient:
         self.rng = random.Random(SEED + ci)
         self.keys = [f"key{k}" for k in range(SERVE_SHAPE["keys"])
                      if k % SERVE_CLIENTS == ci]
+        self.get_keys = ([f"key{k}" for k in range(SERVE_SHAPE["keys"])]
+                         if shared_gets else self.keys)
         self.acked = {}      # key -> last acknowledged put value
         self.later = {}      # key -> puts unacknowledged since then
         self.ok = []         # (t_done, latency_s, server)
@@ -1528,9 +1569,9 @@ class _LoadClient:
                     ep.reconnect(self.pin)
                 except Exception:
                     t_fail = time.monotonic()
-            key = self.rng.choice(self.keys)
             t0 = time.monotonic()
             is_put = self.rng.random() < self.put_share
+            key = self.rng.choice(self.keys if is_put else self.get_keys)
             if is_put:
                 val = f"c{self.ci}.{seq}"
                 if self.value_bytes:
@@ -1773,6 +1814,8 @@ def _record_leader_ticks(np, cluster, n, what):
     import threading
 
     lead = cluster.leader_of(0)
+    if lead is None and cluster.protocol == "EPaxos":
+        lead = min(cluster.replicas)  # leaderless: every replica proposes
     if lead is None:
         fail(f"{what}: no group-0 leader to profile")
     rep = cluster.replicas[lead]
@@ -1819,7 +1862,9 @@ def _profile_serving_step(torch, rep, recs, card):
 
 def _serve_run(torch, np, card, protocol, secs, fault_plan,
                read_back=False, config=None, value_bytes=None,
-               profile=False):
+               profile=False, pinned=False, shared_gets=False,
+               hist_keys=3, snapshot=False, replicated=True,
+               op_timeout=SERVE_OP_TIMEOUT, quiet_plan=None):
     """One live 3-replica cluster on the card: a timed load window of
     clients putting ``value_bytes`` values (``_LoadClient``), then
     ``fault_plan(cluster, clients)`` under load with a 3-client, 3-key
@@ -1829,7 +1874,18 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
     and the ``bitslice_gf256`` launches in the window, per leader tick.
     With ``profile``, ``PROFILE_TICKS`` leader ticks after the window are
     recorded and, once the cluster has stopped, replayed under the
-    profiler (``_profile_serving_step``; ``line["profile"]``)."""
+    profiler (``_profile_serving_step``; ``line["profile"]``).
+    ``pinned`` pins the load and history clients to the replicas in
+    turn (``shared_gets``: see ``_LoadClient``), the history runs over
+    ``hist_keys`` keys; with ``snapshot``, once the checks passed, a
+    manager ``take_snapshot``, a restart of every replica from snapshot
+    plus tail and every acked key read back (``_snapshot_restart``;
+    ``line["snapshot"]``).  ``replicated`` False (RepNothing) checks the
+    serving replica's KV alone, not agreement across replicas.
+    ``op_timeout`` is every client's budget per operation.
+    ``quiet_plan(cluster, clients)``, if given, runs once the load and
+    history clients have stopped, before the read-back; its record joins
+    the fault plan's."""
     import shutil
     import tempfile
     import threading
@@ -1850,7 +1906,10 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         if DEV == "cuda":
             torch.cuda.reset_peak_memory_stats()
         stop = threading.Event()
-        clients = [_LoadClient(cluster, ci, stop, value_bytes)
+        clients = [_LoadClient(cluster, ci, stop, value_bytes,
+                               pin=ci % sh["R"] if pinned else None,
+                               shared_gets=shared_gets,
+                               op_timeout=op_timeout)
                    for ci in range(SERVE_CLIENTS)]
         time.sleep(1.0)  # clients connected and past their first op
         n0 = rs.bitslice_gf256.launches
@@ -1872,7 +1931,9 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         hist_ops, hist_stop = [], threading.Event()
         hist = [threading.Thread(target=harness.history_worker,
                                  args=(cluster, ci, hist_ops, hist_stop),
-                                 kwargs={"timeout": SERVE_OP_TIMEOUT},
+                                 kwargs={"timeout": op_timeout,
+                                         "keys": hist_keys,
+                                         "pin": ci if pinned else None},
                                  daemon=True) for ci in range(3)]
         for t in hist:
             t.start()
@@ -1889,11 +1950,17 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         hist_stop.set()
         for t in hist:
             t.join(timeout=30)
+        if quiet_plan is not None:
+            faults.update(quiet_plan(cluster, clients))
         if read_back:
             faults["read_back_keys"] = _read_back(
+                cluster, clients, f"serving {protocol}", op_timeout)
+        if replicated:
+            n_keys, applied, writes = _check_agreement(
+                cluster, clients, f"serving {protocol}", op_timeout)
+        else:
+            n_keys, applied, writes = _check_serving_kv(
                 cluster, clients, f"serving {protocol}")
-        n_keys, applied, writes = _check_agreement(
-            cluster, clients, f"serving {protocol}")
         if len(hist_ops) < SERVE_HISTORY_OPS:
             fail(f"serving {protocol}: history of {len(hist_ops)} ops, "
                  f"fewer than {SERVE_HISTORY_OPS}")
@@ -1903,6 +1970,8 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         if cluster.faults():
             fail(f"serving {protocol}: replica bring-up failures or "
                  f"crashes: {cluster.faults()}")
+        snap = (_snapshot_restart(cluster, clients, f"serving {protocol}",
+                                  op_timeout) if snapshot else None)
         extra = {}
         if next(iter(cluster.replicas.values())).codewords is not None:
             stores, lanes = _store_records(cluster)
@@ -1926,6 +1995,8 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
                 w_launches / max(lead_ticks, 1e-9), 3),
             **extra, "card": card,
         }
+        if snap is not None:
+            line["snapshot"] = snap
         log(json.dumps(line))
     finally:
         cluster.stop()
@@ -2039,6 +2110,75 @@ def _read_back(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
     return sum(len(c.acked) for c in clients)
 
 
+def _check_serving_kv(cluster, clients, what):
+    """RepNothing replicates nothing: the serving replica's KV holds every
+    key's last acknowledged put (or a later one that timed out)."""
+    serving = cluster.leader_of(0)
+    if serving is None:
+        fail(f"{what}: no serving replica")
+    rep = cluster.replicas[serving]
+    kv = dict(rep.statemach.snapshot_items())
+    n = 0
+    for c in clients:
+        for key, val in c.acked.items():
+            got = kv.get(key)
+            if got != val and got not in c.later.get(key, ()):
+                fail(f"{what}: key {key} holds {got!r} at the serving "
+                     f"replica, last acked put {val!r}")
+            n += 1
+    return n, sum(rep.applied), 0
+
+
+def _snapshot_restart(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
+    """With the clients stopped: a ``take_snapshot`` through the manager
+    (every replica answers; the seconds, and each replica's WAL bytes
+    before and after, each of which must shrink), then a durable reset
+    of every replica, one at a time (each recovers from snapshot plus
+    WAL tail), and every acked key read back.  Returns the record, with
+    the ``bitslice_gf256`` launches from the restart through the
+    read-back (the codeword family rebuilds values from shards)."""
+    from summerset_tpu_torch.ops import rscoding as rs
+
+    reps = dict(cluster.replicas)
+    before = {str(me): rep.wal.size for me, rep in sorted(reps.items())}
+    t0 = time.monotonic()
+    rep = cluster.ctrl("take_snapshot", timeout=300)
+    snap_s = time.monotonic() - t0
+    if sorted(rep.done) != sorted(reps):
+        fail(f"{what}: take_snapshot answered by {rep.done}, not "
+             f"{sorted(reps)}")
+    after = {str(me): r.wal.size for me, r in sorted(reps.items())}
+    if not all(after[k] < before[k] for k in before):
+        fail(f"{what}: a WAL did not shrink: {before} -> {after}")
+    snaps = {str(me): os.path.getsize(r.snap_path)
+             for me, r in sorted(reps.items())}
+    n0 = rs.bitslice_gf256.launches
+    t1 = time.monotonic()
+    rep = cluster.ctrl("reset_servers", timeout=900)
+    if sorted(rep.done) != sorted(reps):
+        fail(f"{what}: restart of every replica acknowledged by "
+             f"{rep.done}")
+    restart_s = time.monotonic() - t1
+    t2 = time.monotonic()
+    keys = _read_back(cluster, clients, f"{what} after the snapshot "
+                      "restart", timeout)
+    read_s = time.monotonic() - t2
+    if cluster.faults():
+        fail(f"{what}: replica faults after the snapshot restart: "
+             f"{cluster.faults()}")
+    out = {"snapshot_s": round(snap_s, 3), "wal_bytes_before": before,
+           "wal_bytes_after": after, "snapshot_bytes": snaps,
+           "restart_all_s": round(restart_s, 3),
+           "read_back_s": round(read_s, 3), "read_back_keys": keys,
+           "bitslice_launches_after_restart":
+               rs.bitslice_gf256.launches - n0}
+    log(f"{what}: snapshot {out['snapshot_s']} s, WAL bytes {before} -> "
+        f"{after}; every replica restarted from snapshot + tail in "
+        f"{out['restart_all_s']} s, {keys} acked keys read back in "
+        f"{out['read_back_s']} s")
+    return out
+
+
 def phase_serving(torch, np, card):
     """Phase 12: the port's manager, three ServerReplica threads and 16
     closed-loop clients in this process, on the card; then the
@@ -2055,7 +2195,7 @@ def phase_serving(torch, np, card):
     rs.bitslice_gf256.launches = 0
     mp = _serve_run(torch, np, card, "MultiPaxos", SERVE_SECS,
                     _pause_and_resets("MultiPaxos"), read_back=True,
-                    profile=True)
+                    profile=True, snapshot=True)
     raft = _serve_run(torch, np, card, "Raft", SERVE_RAFT_SECS,
                       _raft_faults)
     harness = _serve_harness()
@@ -2231,7 +2371,8 @@ def phase_codeword_serving(torch, np, card, mp=None):
         rs.bitslice_gf256.launches = 0
         lines[proto] = _serve_run(torch, np, card, proto, secs, plan,
                                   read_back=read_back, config=SERVE_CW_CFG,
-                                  value_bytes=vb)
+                                  value_bytes=vb,
+                                  snapshot=proto == "RSPaxos")
         launches[proto.lower()] = rs.bitslice_gf256.launches
         if launches[proto.lower()] == 0:
             fail(f"serving {proto}: the codeword path never launched "
@@ -2239,6 +2380,12 @@ def phase_codeword_serving(torch, np, card, mp=None):
     launches["serving"] = sum(launches.values())
     log("bitslice_gf256 launches in phase 13 by path: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()))
+    after = lines["RSPaxos"]["snapshot"]["bitslice_launches_after_restart"]
+    if DEV == "cuda" and not after:
+        fail("serving RSPaxos: no bitslice_gf256 launch after the restart "
+             "from the snapshot (values come back through shards)")
+    log(f"bitslice_gf256 launches after RSPaxos's snapshot restart "
+        f"(within rspaxos above): {after}")
     rsp = lines["RSPaxos"]["leader_pp_bytes_per_payload"]
     full = base["leader_pp_bytes_per_payload"]
     if rsp is None or full is None:
@@ -2696,6 +2843,186 @@ def phase_bench(card):
     return doc
 
 
+# ------------------------------------------------------ EPaxos serving --
+def _ep_burst(cluster, what, tries=3):
+    """Four pre-connected clients pinned to replica 0 put, behind one
+    barrier, to four keys of one group in four distinct key buckets
+    (the shape of the JAX ``TestClusterEPaxosMultiBucket``): the burst
+    must be proposed in one tick, several vids in one ``prop_vids``
+    row.  Returns the most vids replica 0 proposed in one group in one
+    tick, and the tries it took."""
+    import threading
+
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import GenericEndpoint
+
+    srv = cluster.replicas[0]
+    keys, i = [], 0
+    while len(keys) < 4:
+        k = f"burst{i}"
+        i += 1
+        if srv.group_of(k) == 0 and srv._key_bucket(k) not in {
+                srv._key_bucket(x) for x in keys}:
+            keys.append(k)
+    seen = []
+    orig = srv._intake_epaxos
+
+    def wrapped(by_group, n_prop, vbase, piggy):
+        out = orig(by_group, n_prop, vbase, piggy)
+        seen.append(int((srv._ep_prop_vids != 0).sum(axis=1).max()))
+        return out
+
+    srv._intake_epaxos = wrapped
+    eps = []
+    for _ in keys:
+        e = GenericEndpoint(cluster.manager_addr, server_id=0)
+        e.connect()
+        eps.append(e)
+    try:
+        for attempt in range(1, tries + 1):
+            seen.clear()
+            barrier = threading.Barrier(len(keys))
+            errs = []
+
+            def put(e, k):
+                barrier.wait()
+                try:
+                    DriverClosedLoop(e, timeout=SERVE_LEASE_OP_TIMEOUT) \
+                        .checked_put(k, f"burst-{k}")
+                except AssertionError as ex:
+                    errs.append(str(ex))
+
+            ts = [threading.Thread(target=put, args=(e, k), daemon=True)
+                  for e, k in zip(eps, keys)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=120)
+            if errs:
+                fail(f"{what}: burst puts failed: {errs[:2]}")
+            if seen and max(seen) >= 2:
+                return max(seen), attempt
+    finally:
+        del srv._intake_epaxos
+        for e in eps:
+            e.leave()
+    fail(f"{what}: a burst of {len(keys)} puts to distinct buckets was "
+         f"never proposed in one tick ({seen})")
+
+
+def _ep_faults(cluster, clients):
+    """EPaxos under load: the multi-bucket burst."""
+    vids, tries = _ep_burst(cluster, "serving EPaxos")
+    return {"burst_vids_in_one_tick": vids, "burst_tries": tries}
+
+
+def _ep_quiet_reset(cluster, clients):
+    """EPaxos with the load stopped (as the JAX ``TestClusterEPaxos``
+    resets its server): every replica's floors equal, then a durable
+    reset of replica 1, whose ``eapply`` records replay.  A reset under
+    load whose rejoin outlasts ``alive_timeout`` leaves the restarted
+    replica behind for good in both packages (ROADMAP Queue 3, pinned by
+    ``tests/test_torch_server.py::
+    test_epaxos_rejoin_after_long_absence_lockstep``)."""
+    what = "serving EPaxos"
+    _quiesce(cluster, what, timeout=SERVE_LEASE_OP_TIMEOUT)
+    t = time.monotonic()
+    rep = cluster.ctrl("reset_servers", servers=[1], timeout=300)
+    if rep.done != [1]:
+        fail(f"{what}: durable reset of replica 1 not acknowledged "
+             f"({rep.done})")
+    out = {"reset_1_s": round(time.monotonic() - t, 3)}
+    time.sleep(2.0)
+    return out
+
+
+def phase_epaxos_serving(torch, np, card):
+    """Phase 17: EPaxos served by phase 12's harness on the card, then
+    card against CPU in per-tick lockstep at ``EP_SERVE_LOCK_GROUPS``
+    groups in both loop modes."""
+    import tempfile
+
+    sh = SERVE_SHAPE
+    log(f"== phase 17: EPaxos serving, {sh['G']} groups x {sh['R']} "
+        f"replicas, W={sh['W']}, {SERVE_CLIENTS} clients pinned to the "
+        "replicas in turn (burst, reset, snapshot, card vs cpu)")
+    t_phase = time.perf_counter()
+    line = _serve_run(torch, np, card, "EPaxos", SERVE_EP_SECS, _ep_faults,
+                      read_back=True, profile=True, pinned=True,
+                      shared_gets=True, hist_keys=2, snapshot=True,
+                      op_timeout=SERVE_LEASE_OP_TIMEOUT,
+                      quiet_plan=_ep_quiet_reset)
+    if "ep_exec" not in line["stage_mean_us"]:
+        fail("serving EPaxos: no ep_exec stage was recorded")
+    harness = _serve_harness()
+    for pipelined in (False, True):
+        mode = "pipelined" if pipelined else "serial"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="eplock_") as d:
+            try:
+                lock = harness.card_cpu_serving_lockstep(
+                    d, DEV, "EPaxos", pipelined=pipelined,
+                    G=EP_SERVE_LOCK_GROUPS)
+            except AssertionError as e:
+                fail(f"EPaxos serving {DEV} vs cpu ({mode}): {e}")
+        if not lock["acked"] or lock["multi"] < 2:
+            fail(f"EPaxos serving {DEV} vs cpu ({mode}): the schedule "
+                 f"acked no put or never proposed two buckets: {lock}")
+        log(f"EPaxos serving: 3 replicas on {DEV} == 3 on cpu for "
+            f"{lock['ticks']} {mode} lockstep ticks at "
+            f"{EP_SERVE_LOCK_GROUPS} groups through a durable reset "
+            f"(state, frames, WAL with eapply records, floors, KV, "
+            f"replies), {lock['acked']} replies, up to {lock['multi']} "
+            f"vids per group per tick, card ep_exec mean "
+            f"{lock['ep_exec_us']:.1f} us, "
+            f"{time.perf_counter() - t0:.1f} s | {card}")
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return line
+
+
+# ------------------------------------------------ basic kernels serving --
+def _reset_serving(protocol):
+    """The fault plan of the basic kernels: a durable reset of the
+    serving node (ChainRep's head, SimplePush's and RepNothing's serving
+    replica) under load."""
+    what = f"serving {protocol}"
+
+    def plan(cluster, clients):
+        serving = cluster.leader_of(0)
+        if serving is None:
+            fail(f"{what}: no serving replica before the reset")
+        t = time.monotonic()
+        rep = cluster.ctrl("reset_servers", servers=[serving], timeout=300)
+        if rep.done != [serving]:
+            fail(f"{what}: durable reset of {serving} not acknowledged "
+                 f"({rep.done})")
+        out = {"reset_serving": serving,
+               "reset_serving_s": round(time.monotonic() - t, 3)}
+        time.sleep(2.0)
+        return out
+
+    return plan
+
+
+def phase_basic_serving(torch, np, card):
+    """Phase 18: ChainRep, SimplePush and RepNothing served by phase 12's
+    harness on the card: a 5 s window each, a durable reset of the
+    serving node, every acked key read back (RepNothing, which
+    replicates nothing, from its serving replica only)."""
+    sh = SERVE_SHAPE
+    log(f"== phase 18: basic kernels serving, {sh['G']} groups x "
+        f"{sh['R']} replicas, W={sh['W']}, {SERVE_CLIENTS} clients "
+        "(ChainRep, SimplePush, RepNothing)")
+    t_phase = time.perf_counter()
+    lines = {}
+    for proto in ("ChainRep", "SimplePush", "RepNothing"):
+        lines[proto] = _serve_run(torch, np, card, proto, SERVE_BASIC_SECS,
+                                  _reset_serving(proto), read_back=True,
+                                  replicated=proto != "RepNothing")
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def main():
     import torch
 
@@ -2741,7 +3068,9 @@ def main():
     phase_lease_serving(torch, np, card)
     phase_process_cluster(np, card, mp)
     phase_bench(card)
-    log(f"bitslice_gf256 launches in phases 14-16 (no codeword plane): "
+    phase_epaxos_serving(torch, np, card)
+    phase_basic_serving(torch, np, card)
+    log(f"bitslice_gf256 launches in phases 14-18 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
     log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))

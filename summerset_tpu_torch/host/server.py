@@ -1,7 +1,9 @@
 """ServerReplica: a networked replica around the port's device kernel,
-counterpart of ``summerset_tpu/host/server.py`` for MultiPaxos (with or
-without leader leases), Raft, the codeword family (RSPaxos, CRaft,
-Crossword) and the lease planes (QuorumLeases, Bodega).
+counterpart of ``summerset_tpu/host/server.py`` for every protocol of the
+package: MultiPaxos (with or without leader leases), Raft, the codeword
+family (RSPaxos, CRaft, Crossword), the lease planes (QuorumLeases,
+Bodega), leaderless EPaxos and the basic kernels (ChainRep, SimplePush,
+RepNothing).
 
 Parity: reference ``GenericReplica`` + ``summerset_server`` — the replica
 composes ControlHub -> StateMachine -> StorageHub -> TransportHub ->
@@ -71,10 +73,32 @@ mitigation branch (health is not ported), and a resumed replica serves
 no local read until every lease from before its pause has run out in
 its own tick count (``_resume``).
 
-Not in this slice (ROADMAP.md, Queue 1): EPaxos and the basic kernels'
-serving, snapshots, near-quorum reads and scans, probes and
-subscriptions, health/demotion and the autopilot's conf revokes,
-resharding, the flight recorder and slot traces.
+EPaxos is leaderless: every replica proposes into its own row of the
+2-D instance space, one batch per key bucket with pending requests in the
+same tick (vids minted in the residue class ``bucket + K * me`` modulo
+``K * R``, so the kernel's ``vid % K`` conflict test sees real key
+interference), and a host Tarjan executor per group (``host/
+epaxos_exec.py``) applies committed instances in dependency order,
+WAL-logging each as an ``eapply`` record; its per-row floors feed the
+kernel's ``exec_floor_rows``.  The basic kernels (ChainRep, SimplePush,
+RepNothing) serve at their head or serving replica and mark votes in no
+ballot or term window: ``_tail_writes_key`` counts their voted tail as a
+hit.
+
+Snapshots: ``take_snapshot`` (a manager ctrl, or every
+``snapshot_interval`` ticks once something applied) writes the full KV,
+``applied``, the write slots and, for EPaxos, the executors' row floors
+to ``r<me>.snap`` (atomically, fsynced), then compacts the WAL to a
+``snap_floor`` marker and one ``vote`` record per group carrying its
+window payloads or shard rows.  Recovery loads the snapshot before the
+WAL; a compacted WAL whose snapshot is unreadable, missing or stale is
+fatal.
+
+Not in this slice (ROADMAP.md, Queue 1): near-quorum reads and scans,
+probes and subscriptions, health/demotion and the autopilot's conf
+revokes, resharding (and its snapshot keys ``ranges``/``radopted``/
+``rseals``), the nemesis snapshot crash point, the flight recorder and
+slot traces.
 """
 
 from __future__ import annotations
@@ -101,6 +125,7 @@ from ..utils.logging import pf_info, pf_logger, pf_warn
 from .adaptive import CrosswordAdaptive
 from .codeword import CodewordStore, assigned_sids
 from .control import ControlHub
+from .epaxos_exec import EPaxosExecutor
 from .external import ExternalApi
 from .messages import ApiReply, ApiRequest, CtrlMsg, ShardPayload
 from .payload import PayloadStore
@@ -111,23 +136,27 @@ from .transport import TransportHub
 
 logger = pf_logger("server")
 
-#: protocols this slice serves; the rest name their ROADMAP Queue 1 item
+#: the protocols the port's ServerReplica serves (every kernel it has)
 SERVED = ("multipaxos", "raft", "rspaxos", "craft", "crossword",
-          "quorumleases", "bodega")
-_NOT_YET = {
-    "epaxos": "1 (EPaxos serving)",
-    "chainrep": "2 (ChainRep, SimplePush and RepNothing serving)",
-    "simplepush": "2 (ChainRep, SimplePush and RepNothing serving)",
-    "repnothing": "2 (ChainRep, SimplePush and RepNothing serving)",
-}
+          "quorumleases", "bodega", "epaxos", "chainrep", "simplepush",
+          "repnothing")
 
 # loop_stage_us stage names: the serial loop emits intake / exchange /
 # step / log / apply; the pipelined loop replaces "step" with "inbox"
 # (inbox lane assembly) + "dispatch" (inputs, the step launch and the
 # prefetch) + "device_wait" (host blocked on the step's event) and adds
-# "overlap" (host work coincident with the device step)
+# "overlap" (host work coincident with the device step).  EPaxos also
+# emits "ep_exec", the executors' Tarjan pass, a part of "apply"
 STAGES = ("intake", "exchange", "step", "log", "apply",
-          "inbox", "dispatch", "device_wait", "overlap")
+          "inbox", "dispatch", "device_wait", "overlap", "ep_exec")
+
+#: EPaxos state leaves the host reads only at its own row ``[:, me]``:
+#: the card's prefetch copies that row alone (``deps2`` is
+#: [G, R, R, W, R]), the rest of its pinned view is never read
+_EP_ROW_KEYS = frozenset({
+    "abs2", "st2", "bal2", "seq2", "val2", "noop2", "deps2", "pbump2",
+    "it_col", "it_seq", "cmt_row",
+})
 
 #: the WAL directory when none is given: the port's own, never the JAX
 #: package's (a port replica must not replay a JAX replica's records)
@@ -148,6 +177,22 @@ def _unique_window_keys(val_win: np.ndarray, groups: np.ndarray) -> np.ndarray:
     if not m.any():
         return np.empty(0, np.int64)
     return np.unique((gcol[m] << _VID_BITS) | flat[m])
+
+
+def _unique_window_vids(val_win: np.ndarray, groups: np.ndarray) -> dict:
+    """{g: [vid, ...]} decode of :func:`_unique_window_keys`."""
+    key = _unique_window_keys(val_win, groups)
+    if len(key) == 0:
+        return {}
+    gs = key >> _VID_BITS
+    vs = key & ((1 << _VID_BITS) - 1)
+    out: dict = {}
+    # gs is sorted, so slices per group come from one boundary scan
+    bounds = np.nonzero(np.diff(gs))[0] + 1
+    for lo, hi in zip(np.concatenate([[0], bounds]),
+                      np.concatenate([bounds, [len(gs)]])):
+        out[int(gs[lo])] = vs[lo:hi].tolist()
+    return out
 
 
 def _sp_size(sp: ShardPayload) -> int:
@@ -210,14 +255,10 @@ class ServerReplica:
     def _configure(self, protocol, config, num_groups, window,
                    tick_interval, device) -> None:
         """Validate the protocol and knobs before any resource is taken."""
-        key = protocol.lower()
-        if key not in SERVED:
-            item = _NOT_YET.get(key)
+        if protocol.lower() not in SERVED:
             raise SummersetError(
                 f"protocol {protocol} is not served by the port's "
-                "ServerReplica yet"
-                + (f" (ROADMAP.md Queue 1 item {item})" if item else "")
-                + f"; served: {', '.join(SERVED)}"
+                f"ServerReplica; served: {', '.join(SERVED)}"
             )
         cfg = dict(config or {})
         self.protocol = protocol
@@ -228,6 +269,9 @@ class ServerReplica:
         # ingress backpressure knobs (host/external.py)
         self.api_max_batch = int(cfg.pop("api_max_batch", 5000))
         self.api_max_pending = int(cfg.pop("api_max_pending", 16384))
+        # ticks between automatic snapshots (taken only once something
+        # applied since the last one); 0 = only on a take_snapshot ctrl
+        self.snapshot_interval = int(cfg.pop("snapshot_interval", 0))
         if str(cfg.pop("device_mesh", "") or ""):
             raise NotImplementedError(
                 "device_mesh: the sharded mesh is not ported to "
@@ -254,8 +298,15 @@ class ServerReplica:
         kcfg = kercfg_cls(
             **{k: v for k, v in self._kcfg.items() if k in known}
         )
-        kcfg.exec_follows_commit = False
+        if hasattr(kcfg, "exec_follows_commit"):
+            kcfg.exec_follows_commit = False
         kcfg.max_proposals_per_tick = 1  # one ReqBatch per group/tick
+        if proto.lower() == "epaxos":
+            # leaderless multi-bucket intake: one ReqBatch per key bucket
+            # per group per tick, the vids passed as an explicit list
+            kcfg.max_proposals_per_tick = max(
+                1, min(kcfg.num_key_buckets, self.window // 2)
+            )
         self.kernel = make_protocol(
             proto, self.G, self.population, self.window, kcfg, device=dev
         )
@@ -273,7 +324,14 @@ class ServerReplica:
 
         os.makedirs(backer_dir, exist_ok=True)
         self.wal_path = os.path.join(backer_dir, f"r{self.me}.wal")
+        self.snap_path = os.path.join(backer_dir, f"r{self.me}.snap")
         self.wal = StorageHub(self.wal_path, registry=self.metrics)
+        # set by _recover_from_snapshot: the error of a present snapshot
+        # that failed to load, and the floors a loaded one restored; a
+        # compacted WAL demands a snapshot covering its marker's floors
+        self._snap_unreadable: Optional[str] = None
+        self._snap_floors: Optional[List[int]] = None
+        self._snap_last = 0   # sum(applied) at the last auto-snapshot
         self.statemach = StateMachine()
         self.payloads = PayloadStore(self.G)
         self.applied = [0] * self.G        # exec floor per group (own row)
@@ -284,6 +342,9 @@ class ServerReplica:
         self._logged_keys = np.empty(0, np.int64)
         self.origin: Set[Tuple[int, int]] = set()   # (g, vid) we proposed
         self.missing: Set[Tuple[int, int]] = set()  # committed, no payload
+        # per key: the slot of its last applied put (snapshot state, as
+        # in the JAX server, whose near-quorum reads compare them)
+        self._wslot: Dict[str, int] = {}
         self._wal_dirty = False
         self._reply_queue: List[Tuple[int, ApiReply]] = []
         self.kv_need: Set[int] = set()     # groups that jumped past window
@@ -292,6 +353,7 @@ class ServerReplica:
         # per peer: frames whose lanes are still owed to some groups
         # (see _peer_lanes)
         self._owed: Dict[int, list] = {}
+        self._setup_epaxos()
         self._setup_codewords()
         # client ConfChange plane (QuorumLeases, Bodega): one in flight;
         # queue entries are (client id, request) from the data plane or
@@ -326,6 +388,7 @@ class ServerReplica:
         self._fence_token: Optional[int] = None
         self._np_cache: Dict[str, np.ndarray] = {}
 
+        self._recover_from_snapshot()
         self._recover_from_wal()
 
         # the device seam: the replica's own stream, which waits once on
@@ -341,13 +404,36 @@ class ServerReplica:
         cand = set(ker.DURABLE_SCALARS) | set(ker.DURABLE_WINDOWS)
         cand.update((ker.VALUE_WINDOW, "win_abs", "win_bal", "win_cfg",
                      "win_noop", "leader", "alive_cnt", "conf_cur",
-                     "conf_resp", "conf_leader", dev_telemetry.TELEM_KEY))
+                     "conf_resp", "conf_leader", "own_next", "exec_row",
+                     "cmt_row", "abs2", "st2", "seq2", "val2", "noop2",
+                     "deps2", dev_telemetry.TELEM_KEY))
         self._prefetch_keys = sorted(k for k in cand if k in self.state)
         self._np_cache = {}
         # outbox register the first tick's frames slice from (host views)
         self._last_out = {
             k: self._host(v) for k, v in self.kernel.zero_outbox().items()
         }
+
+    def _setup_epaxos(self) -> None:
+        """EPaxos: leaderless, every replica proposes into its own row,
+        execution through one host Tarjan executor per group.  Every key
+        bucket with pending requests proposes in the same tick (the vids
+        ride ``prop_vids``); ``_ep_defer`` holds only the overflow beyond
+        ``max_proposals_per_tick`` buckets."""
+        self._epaxos = "st2" in self.state
+        self._ep_exec: Dict[int, EPaxosExecutor] = {}
+        self._ep_defer: Dict[int, list] = {}
+        self._ep_prop_vids = None
+        if not self._epaxos:
+            return
+        self._ep_prop_vids = np.zeros(
+            (self.G, self.kernel.config.max_proposals_per_tick), np.int32
+        )
+        for g in range(self.G):
+            self._ep_exec[g] = EPaxosExecutor(
+                self.population, self.window, self._make_ep_apply(g)
+            )
+            self._ep_defer[g] = []
 
     def _setup_codewords(self) -> None:
         """The codeword payload plane of the RS-coded family: the kernel
@@ -481,11 +567,49 @@ class ServerReplica:
                     for k, a in arrays.items()}
 
     # ------------------------------------------------------------ recovery
+    def _recover_from_snapshot(self) -> None:
+        """Load the snapshot (full KV, applied floors, write slots and
+        EPaxos row floors) before the WAL replay (parity: snapshot.rs:189
+        recover_from_snapshot).  A present snapshot that fails to load is
+        only noted here: ``_recover_from_wal`` decides, since a full WAL
+        rebuilds everything without it and a compacted one cannot."""
+        if not os.path.exists(self.snap_path):
+            return
+        try:
+            with open(self.snap_path, "rb") as f:
+                kind, kv, meta = pickle.load(f)
+            if not isinstance(meta, dict):  # a bare floors list
+                meta = {"applied": list(meta)}
+            if kind != "kv":
+                raise ValueError(f"snapshot kind {kind!r}")
+        except Exception as e:
+            self._snap_unreadable = repr(e)
+            pf_warn(logger, f"snapshot unreadable: {e}; fatal unless the "
+                            "WAL still holds the full history")
+            return
+        self.statemach._kv.update(kv)
+        floors = meta["applied"]
+        self._snap_floors = [int(fl) for fl in floors[: self.G]]
+        for g, fl in enumerate(self._snap_floors):
+            self.applied[g] = max(self.applied[g], fl)
+        for k, slot in meta.get("wslots", {}).items():
+            self._wslot[k] = max(self._wslot.get(k, -1), int(slot))
+        for g, rows in enumerate(meta.get("ep_rows", [])[: self.G]):
+            ex = self._ep_exec.get(g)
+            if ex is not None:
+                ex.floor = [max(a, int(b)) for a, b in zip(ex.floor, rows)]
+        pf_info(logger, f"recovered snapshot: {len(kv)} keys, "
+                        f"floors {floors[:4]}...")
+
     def _recover_from_wal(self) -> None:
-        """Replay the WAL: apply records rebuild payloads + KV + exec
-        floors; the last durable record per group rebuilds the kernel
-        row's acceptor state (parity: recovery.rs replay loop + raft
-        durable curr_term/voted_for, raft/mod.rs:144-176)."""
+        """Replay the WAL: apply records (``eapply`` for EPaxos) rebuild
+        payloads + KV + exec floors; the last durable record per group
+        rebuilds the kernel row's acceptor state (parity: recovery.rs
+        replay loop + raft durable curr_term/voted_for,
+        raft/mod.rs:144-176).  A compacted WAL starts with a
+        ``snap_floor`` marker: the apply history below its floors lives
+        only in the snapshot, so a snapshot that is unreadable, missing
+        or stale (floors below the marker's) is fatal."""
         off = 0
         n = 0
         votes: Dict[int, dict] = {}
@@ -495,13 +619,40 @@ class ServerReplica:
                 break
             rec = res.entry
             if isinstance(rec, tuple) and rec and rec[0] == "snap_floor":
-                raise SummersetError(
-                    "WAL starts with a snap_floor marker: it was compacted "
-                    "by a snapshot, and snapshots are not ported to "
-                    "summerset_tpu_torch yet (ROADMAP.md Queue 1 item 3); "
-                    "refusing to serve"
-                )
-            if isinstance(rec, tuple) and rec and rec[0] == "vote":
+                marker = [int(fl) for fl in rec[1][: self.G]]
+                if self._snap_unreadable is not None:
+                    why = f"unreadable ({self._snap_unreadable})"
+                elif self._snap_floors is None:
+                    why = "missing"
+                elif any(sf < mf for sf, mf in
+                         zip(self._snap_floors, marker)):
+                    why = (f"stale (snapshot floors {self._snap_floors} "
+                           "below the marker's)")
+                else:
+                    why = None
+                if why is not None:
+                    raise SummersetError(
+                        f"snapshot {why} but the WAL was compacted to "
+                        f"floors {marker}: committed state below the "
+                        "snapshot floor is unrecoverable; refusing to serve"
+                    )
+                for g, fl in enumerate(marker):
+                    self.applied[g] = max(self.applied[g], fl)
+            elif isinstance(rec, tuple) and rec and rec[0] == "eapply":
+                # EPaxos exec record: replayed in logged (= execution)
+                # order; the per-row floors advance contiguously
+                _, g, row, col, vid, batch = rec
+                if batch is not None:
+                    self.payloads.install(g, vid, batch)
+                    for _client, req in batch:
+                        if req.cmd is not None:
+                            apply_command(self.statemach._kv, req.cmd)
+                ex = self._ep_exec.get(g)
+                if ex is not None:
+                    if col >= ex.floor[row]:
+                        ex.floor[row] = col + 1
+                    self.applied[g] = sum(ex.floor)
+            elif isinstance(rec, tuple) and rec and rec[0] == "vote":
                 g, v = rec[1], rec[2]
                 votes[g] = v
                 for vid, batch in v.get("pp", {}).items():
@@ -522,8 +673,13 @@ class ServerReplica:
                 self.payloads.install(g, vid, batch)
                 if batch is not None and slot >= self.applied[g]:
                     for _client, req in batch:
-                        if req.cmd is not None:
-                            apply_command(self.statemach._kv, req.cmd)
+                        if req.cmd is None:
+                            continue
+                        apply_command(self.statemach._kv, req.cmd)
+                        if req.cmd.kind == "put":
+                            k = req.cmd.key
+                            self._wslot[k] = max(self._wslot.get(k, -1),
+                                                 slot)
                 self.applied[g] = max(self.applied[g], slot + 1)
             else:
                 kind = rec[0] if isinstance(rec, tuple) and rec else rec
@@ -545,12 +701,17 @@ class ServerReplica:
                 LogAction("truncate", offset=off, sync=True)
             )
         if votes:
-            # rebuild the rows on a host copy (thousands of small row
-            # writes), then move the state to its device once
-            st = {k: v.cpu() for k, v in self.state.items()}
+            # rebuild the rows on a host copy, each group on its own
+            # 1-group slice (a kernel's row write copies the tensor it
+            # writes: on the [G, ...] leaves that is a full copy per
+            # group), then move the state to its device once
+            st = {k: v.detach().cpu().clone() for k, v in self.state.items()}
             for g, v in votes.items():
-                self.kernel.restore_durable(st, g, self.me, v,
+                row = {k: t[g:g + 1] for k, t in st.items()}
+                self.kernel.restore_durable(row, 0, self.me, v,
                                             self.applied[g])
+                for k, t in row.items():
+                    st[k][g] = t[0]
             self.state = {k: v.to(self.device) for k, v in st.items()}
         self._rebuild_logged_keys()
         if n:
@@ -667,6 +828,94 @@ class ServerReplica:
             if g in new_cw_by_g:
                 rec["cw"] = new_cw_by_g[g]
             self._wal_append(("vote", g, rec))
+
+    # ------------------------------------------------------------ snapshots
+    def _take_snapshot(self) -> int:
+        """Write the full KV + applied floors, then compact the WAL down
+        to the current acceptor record per group plus the payloads (or
+        shard rows) its window still references; apply records below the
+        floors are covered by the snapshot.  Parity: snapshot.rs:121-303
+        (take_new_snapshot + snapshot_discard_log), the flat-file
+        snapshot replaced atomically as in the JAX server.  Returns the
+        compacted WAL's size.
+
+        In the pipelined loop the in-flight step is retired and the
+        durability fence waited first: the WAL being replaced must hold
+        every record appended so far, and no token may stay open on a
+        hub that is about to close."""
+        if self.pipeline:
+            self._pipeline_flush()
+        kv = self.statemach.snapshot_items()
+        meta: Dict[str, Any] = {
+            "applied": list(self.applied),
+            "wslots": dict(self._wslot),
+        }
+        if self._epaxos:
+            meta["ep_rows"] = [list(self._ep_exec[g].floor)
+                               for g in range(self.G)]
+        tmp = self.snap_path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(("kv", kv, meta), f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.snap_path)
+
+        # compact: the marker first (recovery's proof that the history
+        # below these floors lives only in the snapshot), then the latest
+        # durable row per group with the payloads its window references
+        ker = self.kernel
+        me = self.me
+        scal = {k: self._np_state(k)[:, me] for k in ker.DURABLE_SCALARS}
+        wins = {k: self._np_state(k)[:, me] for k in ker.DURABLE_WINDOWS}
+        wtmp = self.wal_path + ".tmp"
+        if os.path.exists(wtmp):
+            os.remove(wtmp)
+        compact = StorageHub(wtmp)
+        compact.do_sync_action(LogAction(
+            "append", entry=("snap_floor", list(self.applied)), sync=False
+        ))
+        new_logged: Dict[int, set] = {}
+        vids_by_g = _unique_window_vids(wins[ker.VALUE_WINDOW],
+                                        np.arange(self.G))
+        for g in range(self.G):
+            pp: Dict[int, Any] = {}
+            cw: Dict[int, Any] = {}
+            for vid in vids_by_g.get(g, ()):
+                got = (self.codewords.wal_shards(g, vid, me)
+                       if self.codewords is not None else None)
+                if got is not None:
+                    cw[vid] = got
+                    continue
+                b = self.payloads.get(g, vid)
+                if b is not None:
+                    pp[vid] = b
+            rec: Dict[str, Any] = {k: int(v[g]) for k, v in scal.items()}
+            rec.update({k: wins[k][g].tolist() for k in wins})
+            rec["pp"] = pp
+            if cw:
+                rec["cw"] = cw
+            compact.do_sync_action(
+                LogAction("append", entry=("vote", g, rec), sync=False)
+            )
+            new_logged[g] = set(pp) | set(cw)
+        if self.codewords is not None:
+            # the proposer keeps one full codeword per vid: values below
+            # every window reference can never be served again
+            for g, vids in vids_by_g.items():
+                self.codewords.gc_below(g, min(vids))
+        compact.do_sync_action(LogAction("truncate", offset=compact.size,
+                                         sync=True))
+        compact.stop()
+        self.wal.stop()
+        os.replace(wtmp, self.wal_path)
+        self.wal = StorageHub(self.wal_path, registry=self.metrics)
+        self._logged_vids = new_logged
+        self._rebuild_logged_keys()
+        self._sig = None  # the next tick re-logs any drift
+        size = self.wal.size
+        pf_info(logger, f"snapshot taken ({len(kv)} keys); WAL compacted "
+                        f"to {size}B")
+        return size
 
     # ----------------------------------------------------------- tick I/O
     def _slice_outbox(self, out) -> Dict[int, Dict[str, Any]]:
@@ -807,6 +1056,9 @@ class ServerReplica:
         piggy: Dict[Tuple[int, int], Any] = {}
         batch = self.external.get_req_batch(timeout=0)
         if not batch:
+            if self._epaxos and any(self._ep_defer.values()):
+                # deferred buckets drain on idle intake ticks too
+                return self._intake_epaxos({}, n_prop, vbase, piggy)
             return n_prop, vbase, piggy
         by_group: Dict[int, list] = {}
         for client, req in batch:
@@ -821,6 +1073,8 @@ class ServerReplica:
                 by_group.setdefault(
                     self.group_of(req.cmd.key), []
                 ).append((client, req))
+        if self._epaxos:
+            return self._intake_epaxos(by_group, n_prop, vbase, piggy)
         cw_fallback = self._craft_fallback_groups() if by_group else None
         for g, reqs in by_group.items():
             if not self._is_leader[g]:
@@ -877,6 +1131,60 @@ class ServerReplica:
                 self._batch_bytes = 0.9 * self._batch_bytes + 0.1 * nb
         return n_prop, vbase, piggy
 
+    def _key_bucket(self, key: str) -> int:
+        """Key -> EPaxos conflict bucket (a hash independent of the group
+        routing, so groups and buckets do not alias)."""
+        K = self.kernel.config.num_key_buckets
+        return zlib.crc32(key.encode() + b"#b") % K
+
+    def _intake_epaxos(self, by_group, n_prop, vbase, piggy):
+        """EPaxos proposals: every replica proposes (leaderless).  Every
+        key bucket with pending requests proposes in the same tick, one
+        batch per bucket, its vid minted in the residue class ``bucket +
+        K * me`` (mod ``K * R``), so the kernel's ``vid % K`` conflict
+        detection sees key interference and concurrent proposers never
+        collide; the vid list rides ``prop_vids``.  Only buckets beyond
+        ``max_proposals_per_tick``, or beyond the room in our own row,
+        wait in ``_ep_defer`` (dependency.rs:180-240)."""
+        K = self.kernel.config.num_key_buckets
+        R = self.population
+        pmax = self.kernel.config.max_proposals_per_tick
+        self._ep_prop_vids[:] = 0
+        for g, reqs in by_group.items():
+            self._ep_defer[g].extend(reqs)
+        own_next = self._np_state("own_next")[:, self.me]
+        # the kernel's window guard reads exec_row as of the LAST drained
+        # step (its propose runs before this tick's exec_floor_rows
+        # apply), so the room is computed from that same view: the live
+        # Tarjan floor runs one tick ahead and would mint vids the kernel
+        # then refuses to propose, orphaning their payloads
+        exec_me = self._np_state("exec_row")[:, self.me, self.me]
+        for g in range(self.G):
+            pend = self._ep_defer[g]
+            if not pend:
+                continue
+            by_bucket: Dict[int, list] = {}
+            for c, r in pend:
+                by_bucket.setdefault(
+                    self._key_bucket(r.cmd.key), []
+                ).append((c, r))
+            space = max(0, int(exec_me[g]) + self.window - int(own_next[g]))
+            take_buckets = list(by_bucket)[:min(pmax, space)]
+            self._ep_defer[g] = [
+                cr for b in by_bucket if b not in take_buckets
+                for cr in by_bucket[b]
+            ]
+            for i, b in enumerate(take_buckets):
+                take = by_bucket[b]
+                vid = self.payloads.put(g, take, stride=K * R,
+                                        residue=b + K * self.me)
+                self.origin.add((g, vid))
+                self._ep_prop_vids[g, i] = vid
+                piggy[(g, vid)] = take
+            n_prop[g] = len(take_buckets)
+            vbase[g] = int(self._ep_prop_vids[g, 0])
+        return n_prop, vbase, piggy
+
     def _reply_local(self, client: int, req: ApiRequest) -> None:
         """Answer a get from applied state, marked as a leased local
         read."""
@@ -919,11 +1227,18 @@ class ServerReplica:
         to ``key``?  Every voted slot at or above the exec floor counts,
         with no upper bound (a higher-ballot run reset rewinds
         ``vote_bar`` without zeroing ``win_bal`` above it); a payload we
-        cannot inspect counts as a hit."""
+        cannot inspect counts as a hit.  Votes are marked in ``win_bal``
+        (ballot families) or ``win_term`` (the Raft family); a kernel
+        with neither (ChainRep, SimplePush, RepNothing) has an
+        uninspectable tail, which is a hit."""
+        mark = next((k for k in ("win_bal", "win_term") if k in self.state),
+                    None)
+        if mark is None or "win_abs" not in self.state:
+            return True
         win_abs = self._np_state("win_abs")[g, self.me]
-        win_bal = self._np_state("win_bal")[g, self.me]
+        win_mark = self._np_state(mark)[g, self.me]
         win_val = self._np_state(self.kernel.VALUE_WINDOW)[g, self.me]
-        tail = (win_bal > 0) & (win_abs >= self.applied[g])
+        tail = (win_mark > 0) & (win_abs >= self.applied[g])
         for vid in set(int(v) for v in win_val[tail]):
             if vid == 0:
                 continue
@@ -1216,6 +1531,10 @@ class ServerReplica:
         if self._pending_kv_serve:
             payload_msg["kv"] = self.statemach.snapshot_items()
             payload_msg["kv_floor"] = list(self.applied)
+            payload_msg["kv_wslots"] = dict(self._wslot)
+            if self._epaxos:
+                payload_msg["kv_ep"] = [list(self._ep_exec[g].floor)
+                                        for g in range(self.G)]
             self._pending_kv_serve = False
         ps_pend, self._pending_shards = self._pending_shards, {}
         cw_pend, self._pending_cw = self._pending_cw, {}
@@ -1254,6 +1573,15 @@ class ServerReplica:
         if self._adaptive is not None:
             # the choice that sliced this tick's shard sends
             arrays["spr_override"] = np.asarray(self._spr_tick, np.int32)
+        if self._epaxos:
+            floors = np.zeros((self.G, self.population, self.population),
+                              np.int32)
+            for g in range(self.G):
+                floors[g, self.me, :] = self._ep_exec[g].floor
+            arrays["exec_floor_rows"] = floors
+            arrays["prop_replica"] = np.full((self.G,), self.me, np.int32)
+            # a copy: the next intake rewrites the register in place
+            arrays["prop_vids"] = self._ep_prop_vids.copy()
         return self._upload(arrays)
 
     def _dispatch(self, inbox, inputs) -> Dict[str, Any]:
@@ -1289,6 +1617,7 @@ class ServerReplica:
             }
         self._pf_slot ^= 1
         bufs = self._pinned[self._pf_slot]
+        me = self.me
 
         def copy(name: str, t: torch.Tensor) -> torch.Tensor:
             b = bufs.get(name)
@@ -1298,9 +1627,15 @@ class ServerReplica:
             b.copy_(t, non_blocking=True)
             return b
 
+        # EPaxos 2-D leaves: the host reads only row ``me`` of them, so
+        # only that row crosses; the drain views it at the full shape
+        rows = ({k: tuple(new_state[k].shape) for k in self._prefetch_keys
+                 if k in _EP_ROW_KEYS} if self._epaxos else {})
         host = {
-            "state": {k: copy("s:" + k, new_state[k])
+            "state": {k: copy("s:" + k, new_state[k][:, me] if k in rows
+                              else new_state[k])
                       for k in self._prefetch_keys},
+            "rows": rows,
             "out": {k: copy("o:" + k, v) for k, v in new_out.items()},
             "commit_bar": copy("f:commit_bar", fx.commit_bar),
             "extra": {k: copy("x:" + k, v) for k, v in fx.extra.items()},
@@ -1321,8 +1656,11 @@ class ServerReplica:
         def np_of(t):
             return t if isinstance(t, np.ndarray) else t.numpy()
 
-        self._set_state(pl["state"],
-                        {k: np_of(v) for k, v in host["state"].items()})
+        views = {k: np_of(v) for k, v in host["state"].items()}
+        for k, shape in host.get("rows", {}).items():
+            # every replica index of the view is this replica's row
+            views[k] = np.broadcast_to(views[k][:, None], shape)
+        self._set_state(pl["state"], views)
         self._last_out = {k: np_of(v) for k, v in host["out"].items()}
         return HostEffects(
             commit_bar=np_of(host["commit_bar"]),
@@ -1330,8 +1668,17 @@ class ServerReplica:
         )
 
     def _tick_end(self, t0: float, deadline: float) -> None:
-        """Shared tick epilogue: advance the tick, sleep to the deadline."""
+        """Shared tick epilogue: advance the tick, the snapshot schedule,
+        sleep to the deadline."""
         self.tick += 1
+        if (self.snapshot_interval
+                and self.tick % self.snapshot_interval == 0
+                and sum(self.applied) > self._snap_last):
+            self._snap_last = sum(self.applied)
+            self._take_snapshot()
+            self.ctrl.send_ctrl(CtrlMsg(
+                "snapshot_up_to", {"new_start": list(self.applied)}
+            ))
         rem = deadline - time.monotonic()
         if rem > 0:
             time.sleep(rem)
@@ -1464,7 +1811,8 @@ class ServerReplica:
                 if f.get("kv_need") and not self.kv_need:
                     self._pending_kv_serve = True
                 if "kv" in f and self.kv_need:
-                    self._merge_kv(f["kv"], f["kv_floor"])
+                    self._merge_kv(f["kv"], f["kv_floor"], f.get("kv_ep"),
+                                   f.get("kv_wslots"))
 
     def _ingest_shards(self, src: int, f: dict) -> None:
         """One frame's codeword parts: ``ps`` rows are this replica's
@@ -1487,26 +1835,109 @@ class ServerReplica:
                 self._pending_cw.setdefault(src, {})[(g, vid)] = sp
                 self.cw_bytes[src] += _sp_size(sp)
 
-    def _merge_kv(self, kv: dict, floors: list) -> None:
+    def _merge_kv(self, kv: dict, floors: list,
+                  ep_floors: Optional[list] = None,
+                  wslots: Optional[dict] = None) -> None:
         """Install-snapshot KV merge, guarded per group: only groups that
         jumped take the provider's state, and only when the provider's
-        floor covers ours."""
-        ok_groups = {
-            g for g in self.kv_need
-            if g < len(floors) and floors[g] > self.applied[g]
-        }
+        floor covers ours.  EPaxos: the provider must be ahead or equal
+        on every row (a sum-ahead provider lagging one row would regress
+        that row's keys), and its row floors ride along so the executor
+        jumps past instances that slid out of the stored-copy window."""
+        def dominates(g: int) -> bool:
+            if g >= len(floors) or floors[g] <= self.applied[g]:
+                return False
+            if not self._epaxos:
+                return True
+            if ep_floors is None or g >= len(ep_floors):
+                return False
+            return all(int(p) >= lo for p, lo in
+                       zip(ep_floors[g], self._ep_exec[g].floor))
+
+        ok_groups = {g for g in self.kv_need if dominates(g)}
         if not ok_groups:
             return
-        self.statemach._kv.update({
-            k: v for k, v in kv.items() if self.group_of(k) in ok_groups
-        })
+        upd = {k: v for k, v in kv.items() if self.group_of(k) in ok_groups}
+        self.statemach._kv.update(upd)
+        for k in upd:
+            slot = (wslots or {}).get(k)
+            if slot is not None:
+                self._wslot[k] = max(self._wslot.get(k, -1), int(slot))
         for g in ok_groups:
             self.applied[g] = max(self.applied[g], int(floors[g]))
+            if self._epaxos:
+                ex = self._ep_exec[g]
+                ex.floor = [max(a, int(b)) for a, b in
+                            zip(ex.floor, ep_floors[g])]
+                ex.lost_rows = []
+                self.applied[g] = max(self.applied[g], sum(ex.floor))
             self.kv_need.discard(g)
 
     # ------------------------------------------------------- application
+    def _make_ep_apply(self, g: int):
+        """The EPaxos executor's apply callback for group ``g``: WAL-log
+        the exec record, apply to the KV, reply to the clients we
+        proposed for (parity: epaxos/execution.rs commit_execute)."""
+        def apply_fn(row: int, col: int, vid: int, noop: bool) -> None:
+            batch = (None if (noop or vid == 0)
+                     else self.payloads.get(g, vid))
+            self._wal_append(("eapply", g, row, col, vid, batch))
+            if batch is None:
+                return
+            mine = (g, vid) in self.origin
+            for client, req in batch:
+                res = apply_command(self.statemach._kv, req.cmd)
+                if mine:
+                    self._reply_queue.append((client, ApiReply(
+                        "reply", req_id=req.req_id, result=res,
+                    )))
+            self.metrics.counter_add("commits_applied_total", len(batch))
+        return apply_fn
+
+    def _apply_committed_epaxos(self) -> None:
+        """Run each group's Tarjan executor over its committed-but-
+        unexecuted instances (the ``ep_exec`` stage, a part of
+        ``apply``); a payload still missing blocks its instance and is
+        asked for, a row that slid out of the window asks for the KV."""
+        t0 = time.monotonic()
+        me = self.me
+        cmt = self._np_state("cmt_row")[:, me]
+        arrs = None
+        for g in range(self.G):
+            ex = self._ep_exec[g]
+            if int(cmt[g].sum()) <= sum(ex.floor):
+                continue
+            if arrs is None:
+                arrs = {k: self._np_state(k)[:, me]
+                        for k in ("abs2", "st2", "seq2", "val2", "noop2",
+                                  "deps2")}
+
+            def payload_ok(vid: int, noop: bool, g=g) -> bool:
+                if noop or vid == 0:
+                    return True
+                if self.payloads.get(g, vid) is None:
+                    self.missing.add((g, vid))
+                    return False
+                return True
+
+            ex.advance(arrs["abs2"][g], arrs["st2"][g], arrs["seq2"][g],
+                       arrs["val2"][g], arrs["noop2"][g], arrs["deps2"][g],
+                       cmt[g], payload_ok)
+            if ex.lost_rows:
+                # committed instances slid out of our stored-copy window
+                # (paused or cut off too long): catch up through the KV
+                # install plane, as the frontier kernels do
+                self.kv_need.add(g)
+            self.applied[g] = sum(ex.floor)
+        self.metrics.observe("loop_stage_us",
+                             int((time.monotonic() - t0) * 1e6),
+                             stage="ep_exec")
+
     def _apply_committed(self, fx: HostEffects) -> None:
         self._last_extra = dict(fx.extra)
+        if self._epaxos:
+            self._apply_committed_epaxos()
+            return
         cbs = fx.commit_bar[:, self.me]
         applied = np.asarray(self.applied)
         for g in np.nonzero(cbs > applied)[0]:
@@ -1543,6 +1974,10 @@ class ServerReplica:
                 mine = (g, vid) in self.origin
                 for client, req in batch:
                     res = apply_command(self.statemach._kv, req.cmd)
+                    if req.cmd.kind == "put":
+                        k = req.cmd.key
+                        self._wslot[k] = max(slot,
+                                             self._wslot.get(k, -1) + 1)
                     if mine:
                         self._reply_queue.append((client, ApiReply(
                             "reply", req_id=req.req_id, result=res,
@@ -1604,14 +2039,21 @@ class ServerReplica:
         elif msg.kind == "reset_state":
             if not msg.payload.get("durable", True):
                 self.wal.stop()
-                try:
-                    os.remove(self.wal_path)
-                except OSError:
-                    pass
+                for path in (self.wal_path, self.snap_path):
+                    try:
+                        os.remove(path)
+                    except OSError:
+                        pass
             self.ctrl.send_ctrl(CtrlMsg("reset_reply"))
             return True
         elif msg.kind == "install_conf":
             self._install_conf(msg.payload)
+        elif msg.kind == "take_snapshot":
+            self._take_snapshot()
+            self.ctrl.send_ctrl(CtrlMsg("snapshot_reply"))
+            self.ctrl.send_ctrl(CtrlMsg(
+                "snapshot_up_to", {"new_start": list(self.applied)}
+            ))
         elif msg.kind == "leave":
             return False
         return None
@@ -1652,6 +2094,9 @@ class ServerReplica:
         }
         if self.codewords is not None:
             out["cw_vids"] = [self.codewords.size(g) for g in range(self.G)]
+        if self._epaxos:
+            out["ep_floor"] = [list(self._ep_exec[g].floor)
+                               for g in range(self.G)]
         for k in (
             "leader", "commit_bar", "exec_bar", "vote_bar", "bal_max",
             "bal_prepared", "next_slot", "dur_bar", "term", "voted_for",

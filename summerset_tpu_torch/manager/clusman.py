@@ -9,14 +9,14 @@ one event loop; ids are assigned on connect, joins answer with
 leader of group 0 is tracked from ``leader_status`` (cleared when its
 connection drops and nobody steps up within a grace window), and client
 control requests (query_info, pause / resume, the serialized durable
-reset) fan out ``CtrlMsg``s and gather replies.  The conf plane: a
-server's ``responders_conf`` notice sets the conf ``query_conf`` answers;
-a ``conf_forward`` relay gets the next sequence number and goes to every
-server as ``install_conf``, and the newest one is re-announced to every
-server that joins later.
+reset, take_snapshot) fan out ``CtrlMsg``s and gather replies.  The conf
+plane: a server's ``responders_conf`` notice sets the conf
+``query_conf`` answers; a ``conf_forward`` relay gets the next sequence
+number and goes to every server as ``install_conf``, and the newest one
+is re-announced to every server that joins later.
 
-Not ported yet: watch series, ranges, snapshots, fault injection,
-scrapes and the autopilot plane.
+Not ported yet: watch series, ranges, fault injection, scrapes and the
+autopilot plane.
 """
 
 from __future__ import annotations
@@ -184,7 +184,11 @@ class ClusterManager:
                         pass
             pf_info(logger, f"conf relayed (seq {self._conf_seq}): "
                             f"{p.get('delta')}")
-        elif msg.kind in ("pause_reply", "resume_reply", "reset_reply"):
+        elif msg.kind == "snapshot_up_to":
+            pf_info(logger, f"server {conn.sid} snapshot up to "
+                            f"{p.get('new_start')}")
+        elif msg.kind in ("pause_reply", "resume_reply", "reset_reply",
+                          "snapshot_reply"):
             for q in self._pending_replies.get(msg.kind, ()):
                 q.put_nowait((conn.sid, msg.payload))
         elif msg.kind == "leave":
@@ -328,6 +332,10 @@ class ClusterManager:
             return await self._fanout_wait("resume", "resume_reply", req)
         if req.kind == "reset_servers":
             return await self._reset_servers(req)
+        if req.kind == "take_snapshot":
+            return await self._fanout_wait(
+                "take_snapshot", "snapshot_reply", req
+            )
         return CtrlReply("unknown")
 
     # ------------------------------------------------------------- runner

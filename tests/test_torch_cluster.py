@@ -306,7 +306,13 @@ def norm_shards(dlen, shards):
 def norm_wal(entry, shard_norm=None):
     """A WAL record with its batches as plain tuples; a vote record's
     ``cw`` shard rows through ``shard_norm(g, vid, dlen, shards)``
-    (default: ``norm_shards``)."""
+    (default: ``norm_shards``); EPaxos ``eapply`` records and the
+    ``snap_floor`` marker as plain tuples."""
+    if isinstance(entry, tuple) and entry and entry[0] == "snap_floor":
+        return ("snap_floor", [int(x) for x in entry[1]])
+    if isinstance(entry, tuple) and entry and entry[0] == "eapply":
+        _, g, row, col, vid, batch = entry
+        return ("eapply", g, row, col, vid, norm_batch(batch))
     if isinstance(entry, tuple) and entry and entry[0] == "vote":
         _, g, rec = entry
         rec = dict(rec)
@@ -579,6 +585,47 @@ def requests(pkg, t, r):
     return out
 
 
+def ep_requests(G, K=8):
+    """EPaxos intake over ``G`` groups and ``K`` key buckets: the
+    ``requests`` schedule in two ticks of every six, and in the first of
+    them two more puts at every replica to two keys of group 0 in
+    distinct buckets (so one replica proposes two vids in one group in
+    one tick at any ``G``).  Under conflicting puts at every replica in
+    every tick the dependency chains never close and the Tarjan
+    executors apply nothing (in both packages alike); the quiet ticks
+    let them close."""
+    import zlib
+
+    burst, buckets = [], set()
+    for i in range(4096):
+        k = f"b{i}"
+        b = zlib.crc32(k.encode() + b"#b") % K
+        if zlib.crc32(k.encode()) % G == 0 and b not in buckets:
+            burst.append(k)
+            buckets.add(b)
+            if len(burst) == 2:
+                break
+
+    def reqs(pkg, t, r):
+        if t % 6 >= 2:
+            return []
+        out = requests(pkg, t, r)
+        if t % 6 == 0:
+            base = 1000 * t + 10 * r
+            out += [(500 + r, pkg.msg.ApiRequest(
+                "req", req_id=base + 3 + i,
+                cmd=pkg.sm.Command("put", k, f"b{t}.{r}")))
+                for i, k in enumerate(burst)]
+        return out
+
+    return reqs
+
+
+def serving_requests(protocol, G):
+    """The lockstep intake schedule of ``protocol`` at ``G`` groups."""
+    return ep_requests(G) if protocol == "EPaxos" else requests
+
+
 class ShardNorm:
     """Normalizes one side's shard records (``ps``/``cw`` frame parts,
     ``cw`` WAL records) to ``(shard ids, the batch they encode)``.
@@ -698,17 +745,24 @@ def restart_replica(sides, specs, r, base, protocol, cfg, G, R, W):
         wals[r] = record_wal(reps[r])
 
 
-def lockstep_tick(sides, t, mute=None, port_sides=None, reqs=requests):
-    """One scripted serial tick on every side; returns per side what the
-    gates compare (``port_sides`` names the sides whose ``flags`` lane is
-    the port's int32; default every side but ``"jax"``; ``reqs(pkg, t,
-    r)`` gives replica ``r``'s intake batch, ``requests`` by default)."""
+def lockstep_tick(sides, t, mute=None, port_sides=None, reqs=requests,
+                  pipelined=False):
+    """One scripted tick on every side, serial unless ``pipelined``;
+    returns per side what the gates compare (``port_sides`` names the
+    sides whose ``flags`` lane is the port's int32; default every side
+    but ``"jax"``; ``reqs(pkg, t, r)`` gives replica ``r``'s intake
+    batch, ``requests`` by default).  A pipelined tick releases a reply
+    when its background fsync has settled, this tick or the next, so
+    pipelined gates compare the replies summed over the run."""
     seen = {}
     for name, (reps, net, pkg, wals, norm) in sides.items():
         net.mute = mute
         for r, rep in enumerate(reps):
             rep.external.batches.append(reqs(pkg, t, r))
-            rep._tick_serial(time.monotonic())
+            if pipelined:
+                rep._tick_pipelined(time.monotonic())
+            else:
+                rep._tick_serial(time.monotonic())
         sent = net.flush()
         port = (name != "jax") if port_sides is None else name in port_sides
         seen[name] = {
@@ -850,6 +904,84 @@ def card_cpu_lockstep(base, device, protocol="RSPaxos", **shape):
             "shard_frames": shard_frames,
             "leaders": sorted({me for _g, me in leaders}),
             "launches": launches[0]}
+
+
+#: the card-against-CPU lockstep of the leaderless and basic kernels
+CARD_CPU_SERVE = dict(G=16, R=3, W=32, ticks=36, reset=(20, 1))
+
+
+def card_cpu_serving_lockstep(base, device, protocol="EPaxos",
+                              pipelined=False, **shape):
+    """Three port replicas of ``protocol`` on ``device`` and three on the
+    CPU step the schedule of ``serving_requests(protocol, G)`` in per-tick
+    lockstep, through a durable reset of one replica on both trios; per
+    tick the state digests, frames, WAL records (``eapply`` included),
+    ``applied``, KV and manager notices must be equal, and the replies
+    too (summed over the run in the pipelined loop, which releases a
+    reply when its fsync settles).  Returns the ticks run, the replies
+    acknowledged, the largest number of vids one replica proposed in one
+    group in one tick and the mean ``ep_exec`` microseconds of the card
+    side; raises AssertionError at the first difference."""
+    import summerset_tpu_torch.host.server as srv
+    from summerset_tpu_torch.host import messages, statemach
+    from summerset_tpu_torch.ops import rscoding
+
+    sh = dict(CARD_CPU_SERVE, **shape)
+    cfg = dict(pipeline=pipelined, hear_timeout_lo=8, hear_timeout_hi=16)
+    pkg = types.SimpleNamespace(msg=messages, sm=statemach)
+    specs = (
+        ("card", srv, pkg, rscoding.encode_payload, {"device": device}),
+        ("cpu", srv, pkg, rscoding.encode_payload, {"device": "cpu"}),
+    )
+    sides = lockstep_sides(base, protocol, specs, cfg, sh["G"], sh["R"],
+                           sh["W"], exact_rows=True)
+    reqs = serving_requests(protocol, sh["G"])
+    replies = {name: [[] for _ in range(sh["R"])] for name in sides}
+    multi = 0
+    try:
+        for t in range(sh["ticks"]):
+            if sh["reset"] is not None and t == sh["reset"][0]:
+                r = sh["reset"][1]
+                for reps, *_rest in sides.values():
+                    reps[r]._pipeline_flush()
+                restart_replica(sides, specs, r, base, protocol, cfg,
+                                sh["G"], sh["R"], sh["W"])
+            seen = lockstep_tick(sides, t, port_sides=("card", "cpu"),
+                                 reqs=reqs, pipelined=pipelined)
+            a, b = seen["card"], seen["cpu"]
+            for part in a:
+                if part == "replies" and pipelined:
+                    continue
+                if a[part] != b[part]:
+                    raise AssertionError(f"{protocol} tick {t}: {part} "
+                                         f"differs between {device} and "
+                                         "cpu")
+            for name in sides:
+                for r, rr in enumerate(seen[name]["replies"]):
+                    replies[name][r].extend(rr)
+            for rep in sides["card"][0]:
+                if rep._ep_prop_vids is not None:
+                    multi = max(multi, int(
+                        (rep._ep_prop_vids != 0).sum(axis=1).max()))
+        for name, (reps, *_rest) in sides.items():
+            for r, rep in enumerate(reps):
+                rep._pipeline_flush()
+                replies[name][r].extend(
+                    norm_reply(c, x) for c, x in rep.external.replies)
+        if replies["card"] != replies["cpu"]:
+            raise AssertionError(f"{protocol}: replies differ between "
+                                 f"{device} and cpu")
+        hists = [rep.metrics.hist("loop_stage_us", stage="ep_exec")
+                 for rep in sides["card"][0]]
+    finally:
+        shutdown_sides(sides)
+    hists = [h for h in hists if h is not None]
+    return {"ticks": sh["ticks"],
+            "acked": sum(x[1] == "reply" for rr in replies["card"]
+                         for x in rr),
+            "multi": multi,
+            "ep_exec_us": (sum(h.mean() for h in hists) / len(hists)
+                           if hists else None)}
 
 
 #: the card-against-CPU lease lockstep: the schedule of ``LEASE_CASES``
@@ -1069,11 +1201,16 @@ class TestTorchCluster:
 
 
 def test_unserved_protocol_is_refused(tmp_path):
+    """Every protocol of the package is served; a name that is none of
+    them is refused before any resource is taken, naming the served
+    ones."""
+    from summerset_tpu_torch.host.server import SERVED
     from summerset_tpu_torch.utils.errors import SummersetError
 
-    with pytest.raises(SummersetError, match="ROADMAP.md Queue 1 item 1"):
-        ServerReplica("EPaxos", ADDR, ADDR, ADDR, backer_dir=str(tmp_path),
-                      device="cpu")
+    assert len(SERVED) == 11 and "epaxos" in SERVED
+    with pytest.raises(SummersetError, match="served: multipaxos"):
+        ServerReplica("NoSuchPaxos", ADDR, ADDR, ADDR,
+                      backer_dir=str(tmp_path), device="cpu")
 
 
 def test_device_mesh_is_refused(tmp_path):

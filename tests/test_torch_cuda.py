@@ -431,3 +431,27 @@ def test_lease_serving_on_card_matches_cpu(cuda_device, tmp_path, protocol):
         assert out["local"][0] > 0 and out["local"][1:] == [0, 0], out
     else:
         assert out["conf_ok"] == 1 and sum(out["local"][1:]) > 0, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["EPaxos", "EPaxos-pipelined", "ChainRep",
+                                  "SimplePush", "RepNothing"])
+def test_every_protocol_serving_on_card_matches_cpu(cuda_device, tmp_path,
+                                                    case):
+    """Three replicas of each newly served protocol on the card against
+    three on the CPU in per-tick lockstep through a durable reset: equal
+    state, frames, WAL records (``eapply`` included), floors, KV and
+    replies; EPaxos proposed several key buckets of a group in one
+    tick."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_cluster import card_cpu_serving_lockstep
+
+    protocol = case.split("-")[0]
+    out = card_cpu_serving_lockstep(tmp_path, "cuda", protocol,
+                                    pipelined=case.endswith("pipelined"))
+    assert out["acked"] > 0, out
+    if protocol == "EPaxos":
+        assert out["multi"] >= 2, out

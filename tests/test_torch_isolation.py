@@ -157,6 +157,10 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         lambda: ServerReplica("Crossword", addr, addr, addr),
         lambda: ServerReplica("QuorumLeases", addr, addr, addr),
         lambda: ServerReplica("Bodega", addr, addr, addr),
+        lambda: ServerReplica("EPaxos", addr, addr, addr),
+        lambda: ServerReplica("ChainRep", addr, addr, addr),
+        lambda: ServerReplica("SimplePush", addr, addr, addr),
+        lambda: ServerReplica("RepNothing", addr, addr, addr),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

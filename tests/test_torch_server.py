@@ -57,7 +57,8 @@ from test_torch_cluster import (  # noqa: E402
 )
 from test_torch_cluster import lockstep_sides as _lockstep_sides  # noqa: E402
 from test_torch_cluster import (  # noqa: E402
-    LEASE_CASES, lease_requests, lockstep_tick, restart_replica,
+    LEASE_CASES, lease_requests, lockstep_tick, norm_reply, norm_wal,
+    restart_replica, serving_requests,
 )
 
 torch.set_num_threads(1)
@@ -303,11 +304,14 @@ class TestSingleReplica:
 
 
 def test_snapshot_compacted_wal_is_refused(tmp_path):
+    """A WAL compacted by a snapshot (its ``snap_floor`` marker first)
+    with no snapshot file beside it: the apply history below the marker
+    is gone, so the replica refuses to serve."""
     hub = TStorageHub(os.path.join(str(tmp_path), "r0.wal"))
     hub.do_sync_action(TLogAction("append", entry=("snap_floor", [5]),
                                   sync=True))
     hub.stop()
-    with pytest.raises(SummersetError, match="snapshots are not ported"):
+    with pytest.raises(SummersetError, match="snapshot missing"):
         build(tsrv, "MultiPaxos", 0, 3, 1, 32, tmp_path, {}, device="cpu")
 
 
@@ -564,7 +568,13 @@ def test_qdisc_and_linreg_equal_jax_and_degrade(monkeypatch):
 #: (0 stops reaching 2, so 2 campaigns), a durable reset of 1 while it
 #: is still cut off (its applied floor below the new leader's run), the
 #: links back, then a durable reset of the group-0 leader; puts go on
-#: throughout.  ``None`` resets the leader of group 0.
+#: throughout.  ``follower_reset_at_new_ballot``: replica 0 (the leader)
+#: cut off while replica 1 takes over at ballot 513 with its run starting
+#: at its commit bar; replica 2, whose applied floor trails its commit bar
+#: while it rebuilds values from shards, votes that run and is reset at
+#: once (the state of the ``chip_smoke.py`` phase-13 lag dump).  ``None``
+#: resets the leader of group 0; ``stall`` names the (replica, group)
+#: that stays stalled from its reset to the end.
 RS_RESET = {
     "pause_leader": dict(
         drops=[((0, 1), 10, 40), ((0, 2), 10, 40), ((1, 0), 10, 40),
@@ -574,6 +584,10 @@ RS_RESET = {
         drops=[((1, 0), 10, 40), ((1, 2), 10, 40), ((0, 1), 10, 40),
                ((2, 1), 10, 40), ((0, 2), 12, 30)],
         resets={38: 1, 56: None}, ticks=100),
+    "follower_reset_at_new_ballot": dict(
+        drops=[((0, 1), 14, 60), ((0, 2), 14, 60), ((1, 0), 14, 60),
+               ((2, 0), 14, 60)],
+        resets={31: 2}, ticks=100, stall=(2, 1)),
 }
 
 
@@ -587,7 +601,12 @@ def test_rspaxos_durable_reset_lockstep(tmp_path, schedule):
     off, so its recovered ``bal_max`` is above the leader's ballot, it
     refuses the leader's accepts, and its commit bar stays at its
     restored floor in a group the leader commits in, until the next
-    leader's run (found by this case, not a port fault)."""
+    leader's run (found by this case, not a port fault).  In
+    ``follower_reset_at_new_ballot`` both packages stall the restarted
+    follower alike and for good: its vote run at the leader's ballot
+    starts above the commit bar its reset restored (its applied floor),
+    the follower commit rule needs ``vote_from <= commit_bar``, and the
+    leader, which counts the run as matched, never resends below it."""
     sc = RS_RESET[schedule]
     G, R, W = 4, 3, 16
     cfg = lock_cfg("RSPaxos")
@@ -611,9 +630,11 @@ def test_rspaxos_durable_reset_lockstep(tmp_path, schedule):
                    for rep in sides[name][0]] for name in ("jax", "torch")]
             assert cb[0] == cb[1], f"tick {t}: commit bars differ"
             cbs.append(cb[1])
+        reps = sides["torch"][0]
+        rows = {k: [rep._np_state(k)[:, rep.me].tolist() for rep in reps]
+                for k in ("vote_from", "vote_bal", "bal_max")}
     finally:
         shutdown_sides(sides)
-    reps = sides["torch"][0]
     assert min(sum(rep.applied) for rep in reps) > 40
     if schedule == "isolated_follower":
         # replica 1's commit bar in group 1 sits at its restored floor
@@ -624,6 +645,17 @@ def test_rspaxos_durable_reset_lockstep(tmp_path, schedule):
         assert max(c[r][1] for c in cbs[38:60] for r in (0, 2)) \
             > stuck[0] + 10
         assert cbs[-1][1][1] > stuck[0] + 10
+    if "stall" in sc:
+        r, g = sc["stall"]
+        t0 = min(sc["resets"])
+        lead = next(rep.me for rep in reps if rep._is_leader[g])
+        stuck = [c[r][g] for c in cbs[t0:]]
+        assert len(set(stuck)) == 1, stuck
+        assert cbs[-1][lead][g] > stuck[0] + 20, (lead, cbs[-1])
+        # the stalled state: a vote run at the leader's ballot that
+        # starts above the restored commit bar
+        assert rows["vote_from"][r][g] > stuck[0]
+        assert rows["vote_bal"][r][g] == rows["bal_max"][lead][g]
 
 
 # ---------------------------------------- lease and conf planes, lockstep
@@ -724,3 +756,226 @@ def test_resume_holds_off_local_reads(tmp_path):
     finally:
         for rep in reps.values():
             rep.shutdown()
+
+
+# ------------------------- EPaxos and the basic kernels, served in lockstep
+#: per case: the protocol, the loop, and the durable reset (tick,
+#: replica): EPaxos resets a proposer (its eapply records replay), the
+#: basic kernels their head or serving replica
+SERVE_CASES = {
+    "EPaxos-serial": dict(protocol="EPaxos", pipelined=False, reset=(24, 1)),
+    "EPaxos-pipelined": dict(protocol="EPaxos", pipelined=True,
+                             reset=(24, 1)),
+    "ChainRep": dict(protocol="ChainRep", pipelined=False, reset=(24, 0)),
+    "SimplePush": dict(protocol="SimplePush", pipelined=False,
+                       reset=(24, 0)),
+    "RepNothing": dict(protocol="RepNothing", pipelined=False,
+                       reset=(24, 0)),
+}
+
+
+def _flush_replica(sides, r):
+    """Settle replica ``r``'s pipeline on every side (its queued replies
+    go out), so a restart drops nothing whose release raced the fsync."""
+    for reps, *_rest in sides.values():
+        reps[r]._pipeline_flush()
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_serving_lockstep_every_protocol(tmp_path, case):
+    """EPaxos (both loop modes), ChainRep, SimplePush and RepNothing
+    served by three JAX and three port replicas in per-tick lockstep:
+    every state leaf, frame, WAL record (``eapply`` records included),
+    floor, KV and manager notice equal on every tick, and the replies
+    equal (per tick in the serial loop, summed over the run in the
+    pipelined one, whose replies leave when their fsync settles).  A
+    durable reset mid-run rebuilds equal state from each side's WAL.
+    EPaxos proposed at every replica and at least two key buckets of one
+    group in one tick."""
+    sc = SERVE_CASES[case]
+    protocol, pipelined = sc["protocol"], sc["pipelined"]
+    G, R, W, ticks = 2, 3, 16, 40
+    cfg = dict(LOCK_CFG, pipeline=pipelined)
+    sides = _lockstep_sides(tmp_path, protocol, SIDES, cfg, G, R, W)
+    reps = sides["torch"][0]
+    replies = {name: [[] for _ in range(R)] for name in sides}
+    multi = 0
+    proposers = set()
+    try:
+        for t in range(ticks):
+            if t == sc["reset"][0]:
+                r = sc["reset"][1]
+                if pipelined:
+                    _flush_replica(sides, r)
+                restart_replica(sides, SIDES, r, tmp_path, protocol, cfg,
+                                G, R, W)
+                reps = sides["torch"][0]
+                rebuilt = [leaf_digests(sides[n][0][r].state)
+                           for n in ("jax", "torch")]
+                assert rebuilt[0] == rebuilt[1], f"reset at tick {t}"
+            seen = lockstep_tick(sides, t, pipelined=pipelined,
+                                 reqs=serving_requests(protocol, G))
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                if part != "replies" or not pipelined:
+                    assert j[part] == p[part], f"tick {t}: {part} differs"
+            for name in sides:
+                for r, rr in enumerate(seen[name]["replies"]):
+                    replies[name][r].extend(rr)
+            if protocol == "EPaxos":
+                for rep in reps:
+                    n = (rep._ep_prop_vids != 0).sum(axis=1)
+                    multi = max(multi, int(n.max()))
+                    if n.any():
+                        proposers.add(rep.me)
+        if pipelined:
+            for r in range(R):
+                _flush_replica(sides, r)
+            for name, (rs, *_rest) in sides.items():
+                for r, rep in enumerate(rs):
+                    replies[name][r].extend(
+                        norm_reply(c, x) for c, x in rep.external.replies)
+    finally:
+        shutdown_sides(sides)
+    assert replies["jax"] == replies["torch"]
+    acked = sum(x[1] == "reply" for rr in replies["torch"] for x in rr)
+    assert acked > 20, acked
+    assert min(sum(rep.applied) for rep in reps) > 5 or \
+        protocol == "RepNothing"
+    if protocol == "EPaxos":
+        assert proposers == {0, 1, 2}, proposers
+        assert multi >= 2, multi
+
+
+# ------------------------------------------------- snapshots in lockstep
+SNAP = dict(G=2, R=3, W=16, snap=24, restart=36, ticks=48)
+
+
+def _wal_records(rep, action_cls, norm):
+    """Every record of a replica's live WAL, normalized."""
+    out, off = [], 0
+    while True:
+        res = rep.wal.do_sync_action(action_cls("read", offset=off))
+        if not res.offset_ok or res.entry is None:
+            return out
+        out.append(norm_wal(res.entry, norm))
+        off = res.end_offset
+
+
+def _snap_file(rep):
+    """A replica's snapshot as plain values: its KV and the meta keys the
+    port writes (the JAX server's resharding keys must be empty)."""
+    import pickle
+
+    with open(rep.snap_path, "rb") as f:
+        kind, kv, meta = pickle.load(f)
+    for k in ("ranges", "radopted", "rseals"):
+        assert not meta.pop(k, None), k
+    return kind, dict(kv), meta
+
+
+@pytest.mark.parametrize("protocol", ["MultiPaxos", "RSPaxos", "EPaxos"])
+def test_snapshot_lockstep(tmp_path, protocol):
+    """Both packages take a snapshot on every replica at the same tick:
+    the compacted WALs (the ``snap_floor`` marker, then one vote record
+    per group with its window payloads or, on RSPaxos, its shard rows)
+    and the snapshot files (KV, ``applied``, ``wslots``, EPaxos
+    ``ep_rows``) are equal, and each WAL shrank.  Later every replica
+    restarts from snapshot plus WAL tail on both sides: equal state, KV
+    and floors, and the lockstep holds after the restart."""
+    G, R, W = SNAP["G"], SNAP["R"], SNAP["W"]
+    cfg = lock_cfg(protocol)
+    sides = _lockstep_sides(tmp_path, protocol, SIDES, cfg, G, R, W)
+    acts = {"jax": JLogAction, "torch": TLogAction}
+    try:
+        for t in range(SNAP["ticks"]):
+            if t == SNAP["snap"]:
+                got = {}
+                for name, (reps, _net, _pkg, _w, norm) in sides.items():
+                    before = [rep.wal.size for rep in reps]
+                    after = [rep._take_snapshot() for rep in reps]
+                    assert all(a < b for a, b in zip(after, before)), \
+                        (name, before, after)
+                    got[name] = ([_wal_records(rep, acts[name], norm)
+                                  for rep in reps],
+                                 [_snap_file(rep) for rep in reps])
+                assert got["jax"][0] == got["torch"][0], "compacted WALs"
+                assert got["jax"][1] == got["torch"][1], "snapshots"
+                wal0 = got["torch"][0][0]
+                assert wal0[0][0] == "snap_floor"
+                assert len(wal0) == 1 + G
+                meta = got["torch"][1][0][2]
+                assert ("ep_rows" in meta) == (protocol == "EPaxos")
+                assert sum(meta["applied"]) > 0
+            if t == SNAP["restart"]:
+                for r in range(R):
+                    restart_replica(sides, SIDES, r, tmp_path, protocol,
+                                    cfg, G, R, W)
+                out = {name: [(leaf_digests(rep.state),
+                               dict(rep.statemach.snapshot_items()),
+                               list(rep.applied)) for rep in reps]
+                       for name, (reps, *_rest) in sides.items()}
+                assert out["jax"] == out["torch"], "recovered replicas"
+                assert all(o[1] for o in out["torch"])
+            seen = lockstep_tick(sides, t, reqs=serving_requests(protocol, G))
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                assert j[part] == p[part], f"tick {t}: {part} differs"
+        reps = sides["torch"][0]
+        final = [sum(rep.applied) for rep in reps]
+    finally:
+        shutdown_sides(sides)
+    assert min(final) > sum(meta["applied"]), final
+
+
+#: EPaxos: replica 1 restarted from its WAL at tick 25 and kept from its
+#: peers for 45 ticks (a rejoin that outlasts ``alive_timeout``, 30),
+#: load at replicas 0 and 2 meanwhile, none after tick 60
+EP_ABSENCE = dict(G=2, R=3, W=16, reset=25, absent=45, load=60, ticks=100)
+
+
+def test_epaxos_rejoin_after_long_absence_lockstep(tmp_path):
+    """A restarted EPaxos replica that rejoins after more than
+    ``alive_timeout`` ticks, while its peers committed without it (and
+    recovered its row): JAX and port replicas equal on every tick, and
+    in both alike the restarted replica never learns the commits it
+    missed, so its exec floors stay behind in every group long after the
+    load stopped (found by ``chip_smoke.py`` phase 17's reset under load
+    on the card; a reference defect, ROADMAP Queue 3)."""
+    sc = EP_ABSENCE
+    G, R, W = sc["G"], sc["R"], sc["W"]
+    t0, k = sc["reset"], sc["absent"]
+    cfg = dict(LOCK_CFG)
+    drops = [((a, b), t0, t0 + k) for a, b in ((0, 1), (2, 1), (1, 0),
+                                                (1, 2))]
+    sides = _lockstep_sides(tmp_path, "EPaxos", SIDES, cfg, G, R, W,
+                            drops=drops)
+    sched = serving_requests("EPaxos", G)
+
+    def reqs(pkg, t, r):
+        if t >= sc["load"] or (r == 1 and t0 <= t < t0 + k):
+            return []
+        return sched(pkg, t, r)
+
+    try:
+        assert k > sides["torch"][0][0].kernel.config.alive_timeout
+        for t in range(sc["ticks"]):
+            if t == t0:
+                restart_replica(sides, SIDES, 1, tmp_path, "EPaxos", cfg,
+                                G, R, W)
+            seen = lockstep_tick(sides, t, reqs=reqs)
+            for part in seen["jax"]:
+                assert seen["jax"][part] == seen["torch"][part], \
+                    f"tick {t}: {part} differs"
+        reps = sides["torch"][0]
+        applied = [list(rep.applied) for rep in reps]
+        cmt = [rep._np_state("cmt_row")[:, rep.me].sum(axis=1).tolist()
+               for rep in reps]
+    finally:
+        shutdown_sides(sides)
+    # replicas 0 and 2 agree and executed everything they committed
+    assert applied[0] == applied[2] == cmt[0] == cmt[2], (applied, cmt)
+    # replica 1 stays behind in every group, 40 ticks after the load
+    assert all(a1 + 20 < a0 for a1, a0 in zip(applied[1], applied[0])), \
+        applied
+    assert all(c1 < c0 for c1, c0 in zip(cmt[1], cmt[0])), cmt
