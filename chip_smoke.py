@@ -6,7 +6,9 @@ CUDA card and the CUDA toolkit (``nvcc``); with no card it exits non-zero
 before printing any result.  Phases, each printed as it runs:
 
 1. build   — compile ``summerset_tpu_torch/csrc/bitslice.cu`` from the
-             checkout (``nvcc``, sm_90a) and print the build time.
+             checkout (``nvcc``, sm_90a) and the native WAL
+             ``csrc/wal.cpp`` (``g++``), in parallel, and print the build
+             times.
 2. kernel  — the GF(2^8) kernel against its plain PyTorch version on the
              card, bit for bit, for the RS(3,2), RS(2,1), RS(5,3) and
              RS(6,4) parity tables, the ten 3-of-5 decode tables and one
@@ -182,9 +184,29 @@ before printing any result.  Phases, each printed as it runs:
              reset of the serving node under load, every acked key read
              back, agreement (RepNothing replicates nothing: its serving
              replica's KV alone) and a linearizable 3-client history.
-Phases 4, 6, 7 and 13 each count their own kernel launches and fail on
-none; phases 8-12 and 14-18 run no codeword plane and launch no hand
-kernel.
+19. read tier and wire — phase 12's harness and shape, the wire codec on
+             (the default) and the native WAL: MultiPaxos with
+             ``near_quorum_reads``, 16 clients pinned to the two followers
+             (10% puts) for a 4 s window (local-read share, get p50/p99,
+             ops/s), a writer streaming unique values to one key and a
+             reader at each follower (a linearizable history), two
+             barrier scans at the leader over a span of acked keys (each
+             returns every acked key of the span), a learner subscribed at
+             the leader whose snapshot plus notes equal the leader's KV at
+             the end (note seqs rising by one); RSPaxos RS(2,1) with 3000 B
+             puts and a barrier scan, whose markers launch
+             ``bitslice_gf256`` (counted, and the kernel held against its
+             plain version at the marker's shape); an EPaxos scan answered
+             ``error``; QuorumLeases with responders {0, 1, 2}: one probe
+             per group at every responder answers ``success``; a mixed
+             mesh (replica 0 with the codec off) where a codec client and
+             a pickle client read back each other's writes, the codec
+             replicas meter bytes saved, and the p2p tick frame's size in
+             both formats.  Seconds and peak device memory.
+Every served replica of phases 12-14 and 17-19 must have opened the native
+WAL.  Phases 4, 6, 7, 13 and 19 each count their own kernel launches and
+fail on none; phases 8-12 and 14-18 run no codeword plane and launch no
+hand kernel.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -263,6 +285,12 @@ SERVE_EP_SECS = 10.0
 EP_SERVE_LOCK_GROUPS = 32
 # phase 18: the basic kernels' timed windows
 SERVE_BASIC_SECS = 5.0
+# phase 19: the read tier's timed window, its scan span (about 136 of the
+# 1024 load keys, over most groups) and the RSPaxos scans' puts
+SERVE_READ_SECS = 4.0
+READ_SPAN = ("key1", "key2")
+READ_CW_PUTS = 16
+READ_OP_TIMEOUT = 5.0
 # phase 15: one process per replica; readiness within this many seconds
 PROC_READY_S = 240.0
 # phase 16: the bench entry point's window at chip_smoke time
@@ -622,14 +650,25 @@ def kernel_numbers(torch, rs, code, data, card, what):
 
 # ------------------------------------------------------------------ phases --
 def phase_build():
+    """Build the CUDA kernel and the native WAL from the checkout, one
+    compiler process each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from summerset_tpu_torch.host import storage
     from summerset_tpu_torch.ops import native
 
     log("== phase 1: build")
     t0 = time.perf_counter()
-    path = native.build("bitslice")
+    with ThreadPoolExecutor(2) as pool:
+        paths = dict(zip(("bitslice", "wal"),
+                         pool.map(native.build, ("bitslice", "wal"))))
     native.load("bitslice")
-    log(f"built {path} in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {native.build_seconds.get('bitslice', 0.0):.3f} s)")
+    if storage.load_wal() is None:
+        fail(f"the native WAL did not load: {storage.wal_build_error()}")
+    log(f"built {paths['bitslice']} and {paths['wal']} in "
+        f"{time.perf_counter() - t0:.3f} s (nvcc "
+        f"{native.build_seconds.get('bitslice', 0.0):.3f} s, g++ "
+        f"{native.build_seconds.get('wal', 0.0):.3f} s)")
     for line in native.build_log.get("bitslice", "").splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
@@ -1504,6 +1543,20 @@ def _serve_harness():
     return harness
 
 
+def _require_clean(cluster, what):
+    """No replica fault, and every served replica's WAL opened native."""
+    if cluster.faults():
+        fail(f"{what}: replica bring-up failures or crashes: "
+             f"{cluster.faults()}")
+    py = sorted(me for me, rep in cluster.replicas.items()
+                if not rep.wal.native)
+    if py:
+        from summerset_tpu_torch.host.storage import wal_build_error
+
+        fail(f"{what}: replicas {py} opened the Python WAL "
+             f"({wal_build_error()})")
+
+
 class _LoadClient:
     """One closed-loop client thread over its own slice of the keys
     (key ``i`` belongs to client ``i % SERVE_CLIENTS``, so each key has
@@ -1967,9 +2020,7 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         ok, diag = check_history(hist_ops)
         if not ok:
             fail(f"serving {protocol}: history not linearizable: {diag}")
-        if cluster.faults():
-            fail(f"serving {protocol}: replica bring-up failures or "
-                 f"crashes: {cluster.faults()}")
+        _require_clean(cluster, f"serving {protocol}")
         snap = (_snapshot_restart(cluster, clients, f"serving {protocol}",
                                   op_timeout) if snapshot else None)
         extra = {}
@@ -2563,9 +2614,7 @@ def _lease_run(torch, np, card, protocol, config, conf_at, pause):
         ok, diag = check_history(hist_ops)
         if not ok:
             fail(f"{what}: history not linearizable: {diag}")
-        if cluster.faults():
-            fail(f"{what}: replica bring-up failures or crashes: "
-                 f"{cluster.faults()}")
+        _require_clean(cluster, what)
         loc = {int(k): v for k, v in gets["local_gets_by_server"].items()}
         at_leader = loc.get(leader, 0)
         at_followers = sum(v for k, v in loc.items() if k != leader)
@@ -3023,6 +3072,533 @@ def phase_basic_serving(torch, np, card):
     return lines
 
 
+# ------------------------------------------------- read tier and wire --
+def _read_cluster(harness, protocol, tmp, config=None, slot_config=None):
+    """Phase 12's cluster shape for phase 19; its bring-up seconds in
+    ``cluster.up_s``."""
+    sh = SERVE_SHAPE
+    t = time.perf_counter()
+    cluster = harness.Cluster(protocol, sh["R"], tmp, tick=sh["tick"],
+                              num_groups=sh["G"], window=sh["W"],
+                              device=DEV, settle=2.0, config=config,
+                              slot_config=slot_config)
+    cluster.up_s = round(time.perf_counter() - t, 2)
+    return cluster
+
+
+def _keys_per_group(G, prefix):
+    """One key routed to each group (the server's crc32 routing)."""
+    import zlib
+
+    out, i = {}, 0
+    while len(out) < G:
+        k = f"{prefix}{i}"
+        out.setdefault(zlib.crc32(k.encode()) % G, k)
+        i += 1
+    return [out[g] for g in range(G)]
+
+
+class _Subscriber:
+    """A read-tier learner on its own connection: ``sub`` at server
+    ``sid``, then every ``note`` reply until stopped; ``kv`` is the
+    snapshot plus the notes, ``seqs`` the notes' sequence numbers."""
+
+    def __init__(self, cluster, sid, cid):
+        import threading
+
+        from summerset_tpu_torch.client.endpoint import ClientApiStub
+        from summerset_tpu_torch.host.messages import ApiRequest
+
+        ep = cluster.endpoint()
+        addr = ep.servers[sid][0]
+        ep.leave()
+        self.stub = ClientApiStub(cid, addr)
+        self.stub.send_req(ApiRequest("sub", req_id=1))
+        snap = self.stub.recv_reply(timeout=30)
+        if snap.kind != "sub" or not snap.success:
+            fail(f"read tier: subscription at {sid} answered {snap.kind}")
+        self.kv = dict(snap.notes)
+        self.seqs = [snap.seq]
+        self.bad = []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+
+    def run(self):
+        import socket
+
+        while not self.stop.is_set():
+            try:
+                x = self.stub.recv_reply(timeout=0.5)
+            except socket.timeout:
+                continue
+            except Exception as e:
+                self.bad.append(repr(e))
+                return
+            if x.kind != "note":
+                self.bad.append(f"{x.kind} on the feed")
+                continue
+            for seq, k, v in x.notes:
+                if seq != self.seqs[-1] + 1:
+                    self.bad.append(f"seq {seq} after {self.seqs[-1]}")
+                self.seqs.append(seq)
+                self.kv[k] = v
+            if x.seq != self.seqs[-1]:
+                self.bad.append(f"note seq {x.seq} != {self.seqs[-1]}")
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        self.stub.close()
+
+
+def _scan_checked(drv, clients, what, span=READ_SPAN, tries=40):
+    """A scan over ``span`` through the driver, retried through redirects
+    and sheds: sorted, inside the span, and every acked key of the span
+    holds its last acked value (or a later put that timed out)."""
+    lo, hi = span
+    for _ in range(tries):
+        t0 = time.monotonic()
+        rep = drv.scan(lo, end=hi)
+        if rep.kind == "success":
+            break
+        drv._retry_pause(rep)
+    else:
+        fail(f"{what}: scan [{lo}, {hi}) never succeeded")
+    secs = time.monotonic() - t0
+    items = rep.result.items or ()
+    keys = [k for k, _v in items]
+    if keys != sorted(keys) or any(not lo <= k < hi for k in keys):
+        fail(f"{what}: scan items unsorted or outside the span")
+    got = dict(items)
+    n = 0
+    for c in clients:
+        for key, val in c.acked.items():
+            if lo <= key < hi:
+                n += 1
+                if got.get(key) != val and \
+                        got.get(key) not in c.later.get(key, ()):
+                    fail(f"{what}: scan missed acked {key}={val!r} "
+                         f"(got {got.get(key)!r})")
+    return {"items": len(items), "acked_in_span": n,
+            "secs": round(secs, 3), "local": rep.local}
+
+
+def _nqr_history(cluster, followers, stop, ops):
+    """One writer streaming unique values to one key at the leader and a
+    reader pinned to each follower (``TestClusterNearQuorumReads``)."""
+    import threading
+
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import GenericEndpoint
+    from summerset_tpu_torch.utils.linearize import record_get, record_put
+
+    def writer():
+        ep = cluster.endpoint()
+        drv = DriverClosedLoop(ep, timeout=READ_OP_TIMEOUT)
+        seq = 0
+        while not stop.is_set():
+            val = f"w-{seq}"
+            t0 = time.monotonic()
+            rep = drv.put("nqr_hist", val)
+            t1 = time.monotonic()
+            if rep.kind == "success":
+                ops.append(record_put(0, "nqr_hist", val, t0, t1, True))
+            elif rep.kind != "redirect":
+                ops.append(record_put(0, "nqr_hist", val, t0, None, False))
+                drv._failover(rep)
+            seq += 1
+            time.sleep(0.1)
+        ep.leave()
+
+    def reader(ci, sid):
+        ep = GenericEndpoint(cluster.manager_addr, server_id=sid)
+        ep.connect()
+        drv = DriverClosedLoop(ep, timeout=READ_OP_TIMEOUT)
+        while not stop.is_set():
+            t0 = time.monotonic()
+            rep = drv.get("nqr_hist")
+            t1 = time.monotonic()
+            if rep.kind == "success":
+                val = rep.result.value if rep.result else None
+                ops.append(record_get(ci, "nqr_hist", val, t0, t1))
+            elif ep.current != sid:
+                try:
+                    ep.reconnect(sid)
+                except Exception:
+                    time.sleep(0.1)
+        ep.leave()
+
+    ts = [threading.Thread(target=writer, daemon=True)]
+    ts += [threading.Thread(target=reader, args=(1 + i, sid), daemon=True)
+           for i, sid in enumerate(followers)]
+    for t in ts:
+        t.start()
+    return ts
+
+
+def _read_tier_multipaxos(torch, np, card, harness, tmp):
+    """Near-quorum reads under load from followers, the history, barrier
+    scans and the commit feed, on one MultiPaxos cluster."""
+    import threading
+
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.utils.linearize import check_history
+
+    what = "read tier MultiPaxos"
+    cluster = _read_cluster(harness, "MultiPaxos", tmp,
+                            config={"near_quorum_reads": True})
+    try:
+        leader = cluster.leader_of(0)
+        if leader is None or not bool(
+                cluster.replicas[leader]._is_leader.all()):
+            fail(f"{what}: replica {leader} does not lead every group")
+        followers = [me for me in sorted(cluster.replicas) if me != leader]
+        sub = _Subscriber(cluster, leader, 900001)
+        stop = threading.Event()
+        clients = [_LoadClient(cluster, ci, stop, put_share=0.1,
+                               pin=followers[ci % 2],
+                               op_timeout=READ_OP_TIMEOUT)
+                   for ci in range(SERVE_CLIENTS)]
+        hist_ops, hist_stop = [], threading.Event()
+        hist = _nqr_history(cluster, followers, hist_stop, hist_ops)
+        time.sleep(1.0)
+        w = _window(np, cluster, clients, SERVE_READ_SECS, what)
+        t1 = time.monotonic()
+        t0 = t1 - w["secs"]
+        gets = [(lat, loc) for c in clients
+                for (t, lat, srv, loc) in c.gets if t0 <= t < t1]
+        local_share = (sum(1 for _l, loc in gets if loc)
+                       / max(1, len(gets)))
+        lats = sorted(lat for lat, _loc in gets)
+        stop.set()
+        for c in clients:
+            c.thread.join(timeout=30)
+        deadline = time.monotonic() + 30
+        while (sum(1 for o in hist_ops if o.kind == "get") < 20
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+        hist_stop.set()
+        for t in hist:
+            t.join(timeout=30)
+        n_local = sum(1 for c in clients for g in c.gets if g[3])
+        if n_local == 0:
+            fail(f"{what}: no follower answered a get by quorum")
+        ok, diag = check_history(hist_ops)
+        if not ok:
+            fail(f"{what}: history not linearizable: {diag}")
+        n_keys, applied, writes = _check_agreement(cluster, clients, what,
+                                                   READ_OP_TIMEOUT)
+        # barrier scans at the leader (no lease: markers in every group)
+        ep = cluster.endpoint()
+        drv = DriverClosedLoop(ep, timeout=30.0)
+        rs_before = cluster.replicas[leader].metrics.counter_value(
+            "scan_served")
+        scans = [_scan_checked(drv, clients, what) for _ in range(2)]
+        if any(s["local"] for s in scans):
+            fail(f"{what}: a scan was served locally without a lease")
+        served = (cluster.replicas[leader].metrics.counter_value(
+            "scan_served") - rs_before)
+        if served < 2:
+            fail(f"{what}: the leader counted {served} scans served")
+        ep.leave()
+        # the commit feed caught up with the leader's applied KV
+        kv = dict(cluster.replicas[leader].statemach.snapshot_items())
+        deadline = time.monotonic() + 30
+        while sub.kv != kv and time.monotonic() < deadline:
+            time.sleep(0.2)
+        sub.close()
+        if sub.bad:
+            fail(f"{what}: commit feed faults: {sub.bad[:3]}")
+        if sub.kv != kv:
+            diff = [k for k in set(kv) | set(sub.kv)
+                    if kv.get(k) != sub.kv.get(k)]
+            fail(f"{what}: snapshot plus notes differ from the leader's "
+                 f"KV at {len(diff)} keys, e.g. {diff[:3]}")
+        _require_clean(cluster, what)
+        line = {
+            "read_tier": "MultiPaxos", "near_quorum_reads": True,
+            "groups": SERVE_SHAPE["G"], "clients": SERVE_CLIENTS,
+            "bring_up_s": cluster.up_s, "pinned_to": followers,
+            "window_s": w["secs"], "ops_per_s": w["ops_per_s"],
+            "p50_ms": w["p50_ms"], "p99_ms": w["p99_ms"],
+            "ticks_per_s": w["ticks_per_s"],
+            "stage_mean_us": w["stage_mean_us"],
+            "gets": len(gets), "local_read_share": round(local_share, 4),
+            "get_p50_ms": (round(float(np.percentile(lats, 50)) * 1e3, 3)
+                           if lats else None),
+            "get_p99_ms": (round(float(np.percentile(lats, 99)) * 1e3, 3)
+                           if lats else None),
+            "history_ops": len(hist_ops), "acked_keys_checked": n_keys,
+            "quiesce_barrier_writes": writes, "scans": scans,
+            "feed_notes": len(sub.seqs) - 1, "feed_keys": len(sub.kv),
+            "card": card,
+        }
+        log(json.dumps(line))
+        return line
+    finally:
+        cluster.stop()
+
+
+def _read_tier_rspaxos(torch, np, card, harness, tmp, rs):
+    """A barrier scan on RSPaxos RS(2,1): its marker in every group is
+    encoded at the leader with ``bitslice_gf256`` and rebuilt at the
+    followers."""
+    import threading
+
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+
+    what = "read tier RSPaxos"
+    cluster = _read_cluster(harness, "RSPaxos", tmp, config=SERVE_CW_CFG)
+    try:
+        stop = threading.Event()
+        # 16 writers, each on its own keys: a few puts land in the span
+        clients = [_LoadClient(cluster, ci, stop,
+                               value_bytes=SERVE_CW_VALUE_BYTES,
+                               put_share=1.0, op_timeout=READ_OP_TIMEOUT)
+                   for ci in range(SERVE_CLIENTS)]
+        deadline = time.monotonic() + 60
+        while (sum(len(c.acked) for c in clients) < READ_CW_PUTS
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        stop.set()
+        for c in clients:
+            c.thread.join(timeout=30)
+        ep = cluster.endpoint()
+        drv = DriverClosedLoop(ep, timeout=30.0)
+        n0 = rs.bitslice_gf256.launches
+        scans = [_scan_checked(drv, clients, what, span=("key", "kez"))]
+        launches = rs.bitslice_gf256.launches - n0
+        ep.leave()
+        if DEV == "cuda" and launches == 0:
+            fail(f"{what}: the scan markers never launched bitslice_gf256")
+        leader = cluster.leader_of(0)
+        lanes = None
+        if leader is not None:
+            rep = cluster.replicas[leader]
+            for g, vid in sorted(rep.origin):
+                b = rep.payloads.get(g, vid)
+                held = rep.codewords.shards_for(g, vid)
+                if b and b[0][0] is None and held is not None:
+                    lanes = int(next(iter(held[1].values())).shape[-1])
+                    break
+        n_keys, applied, writes = _check_agreement(cluster, clients, what,
+                                                   READ_OP_TIMEOUT)
+        _require_clean(cluster, what)
+        line = {"read_tier": "RSPaxos", "bring_up_s": cluster.up_s,
+                "scans": scans,
+                "acked_keys_checked": n_keys,
+                "bitslice_launches_scans": launches,
+                "marker_shard_lanes": lanes, "card": card}
+        log(json.dumps(line))
+        return line
+    finally:
+        cluster.stop()
+
+
+def _read_tier_epaxos(harness, tmp, card):
+    """EPaxos answers a scan with ``error``."""
+    what = "read tier EPaxos"
+    cluster = _read_cluster(harness, "EPaxos", tmp)
+    try:
+        ep = cluster.endpoint()
+        ep.send_scan(1, READ_SPAN[0], READ_SPAN[1])
+        rep = ep.recv_reply(timeout=30)
+        ep.leave()
+        if rep.kind != "error" or rep.success:
+            fail(f"{what}: a scan was answered {rep.kind}")
+        _require_clean(cluster, what)
+        log(f"{what}: scan answered error | {card}")
+        return rep.kind
+    finally:
+        cluster.stop()
+
+
+def _read_tier_probes(harness, tmp, card):
+    """Probes on QuorumLeases with responders {0, 1, 2}: one key per
+    group at every responder, each answered ``success``."""
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import ClientApiStub
+    from summerset_tpu_torch.host.messages import ApiRequest
+    from summerset_tpu_torch.host.statemach import Command
+
+    what = "read tier probes QuorumLeases"
+    G = SERVE_SHAPE["G"]
+    cluster = _read_cluster(harness, "QuorumLeases", tmp)
+    try:
+        ep = cluster.endpoint()
+        t = time.monotonic()
+        DriverClosedLoop(ep, timeout=SERVE_LEASE_OP_TIMEOUT).conf_change(
+            {"responders": [0, 1, 2]})
+        conf_s = time.monotonic() - t
+        keys = _keys_per_group(G, "probe")
+        out = {}
+        for sid in sorted(cluster.replicas):
+            stub = ClientApiStub(800000 + sid, ep.servers[sid][0])
+            todo = list(range(G))
+            seq = None
+            for _round in range(40):
+                for g in todo:
+                    stub.send_req(ApiRequest("probe", req_id=g,
+                                             cmd=Command("get", keys[g])))
+                got = {}
+                while len(got) < len(todo):
+                    x = stub.recv_reply(timeout=30)
+                    if x.kind != "probe":
+                        fail(f"{what}: a probe at {sid} answered {x.kind}")
+                    got[x.req_id] = x.success
+                    seq = x.seq
+                todo = [g for g in todo if not got[g]]
+                if not todo:
+                    break
+                time.sleep(0.25)
+            stub.close()
+            if todo:
+                fail(f"{what}: responder {sid} refused probes in "
+                     f"{len(todo)} groups, e.g. {todo[:4]}")
+            out[str(sid)] = {"probes": G, "rounds": _round + 1, "seq": seq}
+        ep.leave()
+        _require_clean(cluster, what)
+        line = {"read_tier": "probes", "protocol": "QuorumLeases",
+                "bring_up_s": cluster.up_s,
+                "responders": [0, 1, 2], "conf_change_s": round(conf_s, 3),
+                "per_responder": out, "card": card}
+        log(json.dumps(line))
+        return line
+    finally:
+        cluster.stop()
+
+
+def _frame_sizes(rep):
+    """One p2p tick frame of this replica (its last outbox slice to one
+    peer, no payload parts) in both formats."""
+    from summerset_tpu_torch.utils import safetcp
+
+    dst, msg = next(iter(rep._slice_outbox(rep._last_out).items()))
+    frame = (rep.tick, {"msg": msg, "pp": {}, "kv_need": False,
+                        "ts": 0.0, "need": []})
+    return {"codec": len(safetcp.encode_frame(frame, codec=True)),
+            "pickle": len(safetcp.encode_frame(frame, codec=False))}
+
+
+def _read_tier_mixed(harness, tmp, card):
+    """Replica 0 with the codec off, 1-2 on; a codec client and a pickle
+    client read back each other's acked writes."""
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import GenericEndpoint
+
+    what = "read tier mixed formats"
+    cluster = _read_cluster(harness, "MultiPaxos", tmp, slot_config={
+        0: {"wire_codec": False}, 1: {"wire_codec": True},
+        2: {"wire_codec": True}})
+    eps = []
+    try:
+        codec = {me: rep.wire_codec for me, rep in cluster.replicas.items()}
+        if sorted(codec.values()) != [False, True, True]:
+            fail(f"{what}: replica codec knobs {codec}")
+        drivers = {}
+        for on in (True, False):
+            ep = GenericEndpoint(cluster.manager_addr, wire_codec=on)
+            ep.connect()
+            eps.append(ep)
+            drivers[on] = DriverClosedLoop(ep, timeout=READ_OP_TIMEOUT)
+        n = 4
+        for i in range(n):
+            for on, drv in drivers.items():
+                drv.checked_put(f"mix{on}{i}", f"v{on}{i}", retries=40)
+        for on, drv in drivers.items():
+            for i in range(n):
+                drv.checked_get(f"mix{not on}{i}", f"v{not on}{i}",
+                                retries=40)
+        # every 64th codec frame is also pickled to meter the savings
+        deadline = time.monotonic() + 30
+        while True:
+            saved = {me: rep.metrics.counter_value("wire_bytes_saved")
+                     for me, rep in cluster.replicas.items()}
+            if (all(saved[me] > 0 for me, on in codec.items() if on)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+        for me, rep in cluster.replicas.items():
+            if rep.wire_codec and saved[me] <= 0:
+                fail(f"{what}: codec replica {me} saved no bytes")
+        sent = {}
+        for me, rep in cluster.replicas.items():
+            peer = next(q for q in cluster.replicas if q != me)
+            sent[me] = (
+                rep.metrics.counter_value("transport_bytes_sent", peer=peer),
+                rep.metrics.counter_value("transport_frames_sent",
+                                          peer=peer))
+        sizes = {str(me): _frame_sizes(rep)
+                 for me, rep in sorted(cluster.replicas.items())}
+        _require_clean(cluster, what)
+        line = {
+            "read_tier": "mixed formats", "bring_up_s": cluster.up_s,
+            "codec": {str(k): v for k, v in sorted(codec.items())},
+            "wire_bytes_saved": {str(k): v
+                                 for k, v in sorted(saved.items())},
+            "mean_frame_bytes_sent": {
+                str(me): round(b / max(f, 1), 1)
+                for me, (b, f) in sorted(sent.items())},
+            "tick_frame_bytes": sizes, "cross_reads": 2 * n, "card": card,
+        }
+        log(json.dumps(line))
+        return line
+    finally:
+        for ep in eps:
+            ep.leave()
+        cluster.stop()
+
+
+def phase_read_tier(torch, np, card):
+    """Phase 19: the read tier and the byte formats at phase 12's shape
+    (the codec on, the native WAL): near-quorum reads, barrier scans and
+    the commit feed on MultiPaxos; RSPaxos barrier scans launching
+    ``bitslice_gf256``; EPaxos refusing a scan; probes on QuorumLeases;
+    a mixed codec/pickle mesh.  Returns the kernel's launches and its
+    max_abs_err against the plain version at the marker's shape."""
+    import shutil
+    import tempfile
+
+    from summerset_tpu_torch.ops import rscoding as rs
+
+    harness = _serve_harness()
+    sh = SERVE_SHAPE
+    log(f"== phase 19: read tier and wire, {sh['G']} groups x {sh['R']} "
+        f"replicas, W={sh['W']}, {SERVE_CLIENTS} clients")
+    t_phase = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    n0 = rs.bitslice_gf256.launches
+    lines = {}
+    tmp = tempfile.mkdtemp(prefix="read_")
+    try:
+        for name, run in (
+            ("multipaxos", lambda d: _read_tier_multipaxos(
+                torch, np, card, harness, d)),
+            ("rspaxos", lambda d: _read_tier_rspaxos(
+                torch, np, card, harness, d, rs)),
+            ("epaxos", lambda d: _read_tier_epaxos(harness, d, card)),
+            ("probes", lambda d: _read_tier_probes(harness, d, card)),
+            ("mixed", lambda d: _read_tier_mixed(harness, d, card)),
+        ):
+            t = time.perf_counter()
+            lines[name] = run(os.path.join(tmp, name))
+            log(f"phase 19 {name}: {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = rs.bitslice_gf256.launches - n0
+    lanes = lines["rspaxos"]["marker_shard_lanes"] or 128
+    err = serving_kernel_numbers(torch, np, rs, card, [lanes])
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if DEV == "cuda" else 0.0)
+    log(json.dumps({"phase": 19, "seconds": round(
+        time.perf_counter() - t_phase, 1),
+        "max_memory_allocated_mib": round(peak, 1),
+        "bitslice_launches": launches, "card": card}))
+    return {"launches": launches, "max_abs_err": err}
+
+
 def main():
     import torch
 
@@ -3072,6 +3648,8 @@ def main():
     phase_basic_serving(torch, np, card)
     log(f"bitslice_gf256 launches in phases 14-18 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
+    rs.bitslice_gf256.launches = 0
+    paths["read_tier"] = phase_read_tier(torch, np, card)
     log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,8 +4,8 @@
 Parity: reference ``summerset_client/src/drivers/closed_loop.rs`` — one
 outstanding request with a timeout (``DriverReply::{Success{latency},
 Redirect, Timeout}``, drivers/mod.rs:12-40); a success carries the
-reply's ``local`` flag (a leased local read), and ``conf_change`` drives a
-ConfChange to completion.  The open-loop drivers are not ported yet.
+reply's ``local`` flag (a leased local read), ``scan`` is the ordered
+range read, and ``conf_change`` drives a ConfChange to completion.  The open-loop drivers are not ported yet.
 """
 
 from __future__ import annotations
@@ -115,6 +115,13 @@ class DriverClosedLoop:
 
     def put(self, key: str, value: str) -> DriverReply:
         return self._issue(Command("put", key, value))
+
+    def scan(self, start: str, end: Optional[str] = None,
+             limit: int = 0) -> DriverReply:
+        """Ordered range read over ``[start, end)``: the reply's
+        ``result.items`` is the sorted (key, value) cut."""
+        return self._issue(Command("scan", start, end=end,
+                                   limit=int(limit)))
 
     def conf_change(self, conf_delta: dict, retries: int = 20
                     ) -> DriverReply:

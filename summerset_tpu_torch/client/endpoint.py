@@ -6,7 +6,9 @@ exchanges ``ApiRequest``/``ApiReply`` (apistub.rs:16-95);
 ``ClientCtrlStub`` receives its assigned id on connect and exchanges
 ``CtrlRequest``/``CtrlReply`` (ctrlstub.rs); ``GenericEndpoint`` composes
 both and handles server (re)selection with leader failover
-(endpoint.rs:17-54).  The ingress-proxy tier is not ported.
+(endpoint.rs:17-54).  The data-plane stub speaks the wire codec for its hot
+requests (``req``/``probe``) unless pinned off (``wire_codec=False``); the
+control stub stays pickle.  The ingress-proxy tier is not ported.
 """
 
 from __future__ import annotations
@@ -45,10 +47,15 @@ class ClientCtrlStub:
 
 
 class ClientApiStub:
-    """Data-plane stub (pickle frames)."""
+    """Data-plane stub.  ``codec=None`` follows the process-wide wire
+    codec default: hot requests leave in the codec's binary form; the
+    reply side dispatches per frame, so the stub talks to codec-on and
+    codec-off servers alike."""
 
     def __init__(self, client_id: int, api_addr: Tuple[str, int],
-                 connect_timeout: float = 15.0):
+                 connect_timeout: float = 15.0,
+                 codec: Optional[bool] = None):
+        self.codec = codec
         self.sock = socket.create_connection(
             tuple(api_addr), timeout=max(connect_timeout, 0.05)
         )
@@ -57,7 +64,7 @@ class ClientApiStub:
         safetcp.send_msg_sync(self.sock, client_id)
 
     def send_req(self, req: ApiRequest) -> None:
-        safetcp.send_msg_sync(self.sock, req)
+        safetcp.send_msg_sync(self.sock, req, codec=self.codec)
 
     def recv_reply(self, timeout: Optional[float] = None) -> ApiReply:
         self.sock.settimeout(timeout)
@@ -74,10 +81,13 @@ class GenericEndpoint:
     """Manager-guided endpoint with redirect-aware server selection."""
 
     def __init__(self, manager_addr: Tuple[str, int],
-                 server_id: Optional[int] = None):
+                 server_id: Optional[int] = None,
+                 wire_codec: Optional[bool] = None):
         self.ctrl = ClientCtrlStub(manager_addr)
         self.id = self.ctrl.id
         self.prefer = server_id
+        # wire codec pin for the data-plane stub (None = process default)
+        self.wire_codec = wire_codec
         self.api: Optional[ClientApiStub] = None
         self.servers = {}
         self.current: Optional[int] = None
@@ -120,6 +130,7 @@ class GenericEndpoint:
         self.api = ClientApiStub(
             self.id, api_addr,
             connect_timeout=15.0 if timeout is None else timeout,
+            codec=self.wire_codec,
         )
         self.current = sid
 
@@ -216,6 +227,15 @@ class GenericEndpoint:
     def send_req(self, req_id: int, cmd: Command) -> None:
         assert self.api is not None, "connect() first"
         self.api.send_req(ApiRequest("req", req_id=req_id, cmd=cmd))
+
+    def send_scan(self, req_id: int, start: str, end: Optional[str],
+                  limit: int = 0) -> None:
+        """Issue an ordered range read over ``[start, end)`` (``end``
+        None = unbounded, ``limit`` 0 = no cap), as a scan Command riding
+        the ``req`` kind."""
+        self.send_req(req_id, Command(
+            "scan", start, end=end, limit=int(limit),
+        ))
 
     def send_conf(self, req_id: int, conf_delta: dict) -> None:
         """Issue a ConfChange (parity: ApiRequest::Conf,

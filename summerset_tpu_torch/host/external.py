@@ -12,10 +12,18 @@ replies are routed back through the servant owning that client's
 connection.
 
 Ingress backpressure: the pending queue is bounded at ``max_pending``.
-A data-plane request arriving at a full queue is refused on the spot with
-``ApiReply(kind="shed", retry_after_ms=...)`` before it ever enters the
-queue, so a shed op is guaranteed never proposed.  The hint is the
-queue's estimated drain time.  Every shed is counted (``api_shed``).
+A data-plane request (``BOUNDED_KINDS``) arriving at a full queue is
+refused on the spot with ``ApiReply(kind="shed", retry_after_ms=...)``
+before it ever enters the queue, so a shed op is guaranteed never
+proposed; the rare control kinds (``conf``, ``sub``) bypass the bound.
+The hint is the queue's estimated drain time.  Every shed is counted
+(``api_shed``).
+
+Wire codec: with the ``codec`` knob on (server config ``wire_codec``,
+default the process default), hot replies (``reply``/``shed``/``note``/
+``probe``) leave in the codec's binary form through one egress seam
+(``_wire_send``); cold kinds stay pickle, and ingress dispatches per
+frame, so codec and pickle clients share one server.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-from ..utils import safetcp
+from ..utils import safetcp, wirecodec
 from ..utils.errors import SummersetError
 from ..utils.logging import pf_debug, pf_info, pf_logger
 from .messages import ApiReply, ApiRequest
@@ -38,15 +46,22 @@ logger = pf_logger("external")
 class ExternalApi:
     """The client-facing ingress tier of one server."""
 
+    #: request kinds subject to the bounded-queue shed rule
+    BOUNDED_KINDS = ("req", "batch", "probe", "scan")
+
     def __init__(
         self,
         api_addr: Tuple[str, int],
         max_batch_size: int = 5000,
         max_pending: int = 16384,
         registry=None,
+        codec: Optional[bool] = None,
     ):
         self.api_addr = api_addr
         self.max_batch_size = max_batch_size
+        # wire codec for hot replies; None follows the process default
+        self.codec = wirecodec.default_on() if codec is None else bool(codec)
+        self._enc = wirecodec.FrameEncoder()  # event-loop-thread owned
         self.max_pending = max(1, int(max_pending))
         # EWMA of the replica's batch-take rate (reqs/s), written by
         # get_req_batch on the replica thread, read by servants for the
@@ -105,6 +120,12 @@ class ExternalApi:
             if self.registry is not None:
                 self.registry.gauge_set("api_queue_depth", depth)
         return batch
+
+    def has_client(self, client: int) -> bool:
+        """Is ``client``'s connection still owned by a servant?  (A dict
+        membership read, safe across threads: the commit feed drops
+        subscribers whose connection died.)"""
+        return int(client) in self._writers
 
     def _retry_after_ms(self, depth: int) -> int:
         """Shed hint: estimated ms until ``depth`` entries drained,
@@ -165,6 +186,18 @@ class ExternalApi:
         self._thread.join(timeout=5)
 
     # -- event loop side -----------------------------------------------------
+    async def _wire_send(self, writer, reply: ApiReply) -> None:
+        """The one reply egress seam: codec-aware encode (hot kinds only)
+        through this instance's own encoder (every caller is a coroutine
+        on the one event loop), timed into ``wire_encode_us``."""
+        t0 = time.monotonic()
+        buf = safetcp.encode_frame_bytes(reply, self._enc, codec=self.codec)
+        if self.registry is not None:
+            self.registry.observe_s("wire_encode_us",
+                                    time.monotonic() - t0, plane="api")
+        writer.write(buf)
+        await writer.drain()
+
     async def _send(self, client: int, reply: ApiReply) -> None:
         reg = self.registry
         if reg is not None:
@@ -178,7 +211,7 @@ class ExternalApi:
             self._writers.pop(client, None)
             return
         try:
-            await safetcp.send_msg(w, reply)
+            await self._wire_send(w, reply)
         except (ConnectionError, asyncio.IncompleteReadError):
             self._writers.pop(client, None)
 
@@ -194,7 +227,9 @@ class ExternalApi:
         reg = self.registry
         try:
             while True:
-                req = await safetcp.recv_msg(reader)
+                req, t_dec = await safetcp.recv_msg_timed(reader)
+                if reg is not None:
+                    reg.observe_s("wire_decode_us", t_dec, plane="api")
                 if not isinstance(req, ApiRequest):
                     continue
                 if req.kind == "leave":
@@ -207,12 +242,13 @@ class ExternalApi:
                 # depth read can only overestimate
                 with self._lock:
                     depth = len(self._pending)
-                if depth >= self.max_pending:
+                if (req.kind in self.BOUNDED_KINDS
+                        and depth >= self.max_pending):
                     if reg is not None:
                         reg.counter_add("api_requests_total")
                         reg.counter_add("api_shed")
                         reg.counter_add("api_replies_total", kind="shed")
-                    await safetcp.send_msg(writer, ApiReply(
+                    await self._wire_send(writer, ApiReply(
                         kind="shed", req_id=req.req_id, success=False,
                         retry_after_ms=self._retry_after_ms(depth),
                     ))

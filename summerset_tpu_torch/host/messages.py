@@ -22,15 +22,29 @@ from .statemach import Command, CommandResult
 class ApiRequest:
     """Client -> server (parity: ``ApiRequest::{Req, Conf, Leave}``).
 
-    The port's server serves ``"req"`` puts and gets and ``"conf"``
-    changes (``conf_delta``: ``responders``, a list of replica ids, and on
-    Bodega an optional ``leader``); every other kind is answered with an
-    ``"error"`` reply (``"leave"`` is answered by the api plane itself)."""
+    The port's server serves ``"req"`` puts, gets and scans (a scan also
+    as the ``"scan"`` kind), ``"conf"`` changes (``conf_delta``:
+    ``responders``, a list of replica ids, and on Bodega an optional
+    ``leader``) and the read-tier kinds:
 
-    kind: str                      # "req" | "conf" | "leave" | else: error
+    - ``"sub"``   — a commit-feed subscription: the reply carries a full
+      KV snapshot and the feed sequence number it covers, then every
+      applied put streams as a ``"note"`` reply;
+    - ``"probe"`` — a freshness probe for ``cmd``'s key (or scan span):
+      may a lease-local read be served right now, and at which feed seq.
+
+    Every other kind is answered with an ``"error"`` reply (``"leave"``
+    is answered by the api plane itself).  ``batch`` (a proxy's
+    ``[(proxy req id, Command)]`` forward) is a data field only: the
+    port has no proxy tier yet.  Fields in the JAX declaration order (the
+    wire codec's struct id 1)."""
+
+    kind: str                      # "req" | "conf" | "leave" | "scan"
+    #                              # | "sub" | "probe" | else: error
     req_id: int = 0
-    cmd: Optional[Command] = None  # kind == "req"
+    cmd: Optional[Command] = None  # kind == "req" | "scan" | "probe"
     conf_delta: Optional[dict] = None  # kind == "conf"
+    batch: Optional[list] = None   # kind == "batch": [(prid, Command)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,16 +54,25 @@ class ApiReply:
     ``kind == "shed"`` is the ingress-backpressure negative ack: the
     bounded api queue was full and the request was refused before
     entering it, so it was never proposed; ``retry_after_ms`` hints when
-    to retry."""
+    to retry.  ``rq_retry`` marks a near-quorum read that fell back to
+    the leader (its redirect).  The commit feed: ``"sub"`` carries the
+    KV snapshot in ``notes`` with ``seq`` the feed position it covers;
+    ``"note"`` streams ``[(seq, key, value), ...]`` applied puts in apply
+    order; ``"probe"`` answers ``success`` = the local-read verdict and
+    the current ``seq``.  Fields in the JAX declaration order (the wire
+    codec's struct id 2)."""
 
     kind: str   # "reply" | "conf" | "redirect" | "error" | "shed"
-    #             | "leave"
+    #             | "leave" | "sub" | "note" | "probe"
     req_id: int = 0
     result: Optional[CommandResult] = None
     redirect: Optional[int] = None  # hinted leader id
     success: bool = True
+    rq_retry: bool = False          # read-query retry hint
+    local: bool = False             # served as a local read
     retry_after_ms: int = 0         # shed: suggested client backoff
-    local: bool = False             # served as a leased local read
+    seq: int = 0                    # commit feed position
+    notes: Optional[Any] = None     # sub: KV snapshot; note: the puts
 
 
 # Server-to-server tick frames are plain dicts (host/server.py builds
@@ -61,6 +84,8 @@ class ApiReply:
 #   cw_need: [(group, vid, have_mask, urgent)]   shard-gossip requests
 #   need: [(group, vid)]                    payloads this replica is missing
 #   kv_need / kv / kv_floor: the install-snapshot plane
+#   rq: [(rid, key, g)] / rqr: [(rid, value, wslot, tail hit)]
+#                                           near-quorum read queries/replies
 #   ts: the sender's time.monotonic() (delivery samples)
 @dataclasses.dataclass(frozen=True)
 class ShardPayload:

@@ -94,11 +94,34 @@ window payloads or shard rows.  Recovery loads the snapshot before the
 WAL; a compacted WAL whose snapshot is unreadable, missing or stale is
 fatal.
 
-Not in this slice (ROADMAP.md, Queue 1): near-quorum reads and scans,
-probes and subscriptions, health/demotion and the autopilot's conf
-revokes, resharding (and its snapshot keys ``ranges``/``radopted``/
-``rseals``), the nemesis snapshot crash point, the flight recorder and
-slot traces.
+The read tier.  Near-quorum reads (``near_quorum_reads``, the MultiPaxos
+family; quorumread.rs): a follower answers a get by sampling a majority's
+(value, write slot, tail hit) through the tick frames (``rq``/``rqr``
+parts) instead of redirecting; a tail hit anywhere falls back to the
+leader with an ``rq_retry`` redirect.  Scans (``Command("scan")``, or the
+``scan`` request kind) are served from applied state when every group is
+read-ready for the span (leader leases where this replica leads, lease
+rights elsewhere, no voted-unexecuted write in the span); a replica that
+leads every group otherwise proposes a no-effect barrier marker into
+every group's log and reads the cut when the last one applies (on the
+codeword family the marker is encoded and rebuilt like any batch);
+EPaxos answers a scan with ``error``.  Probes and subscriptions: a
+``sub`` request gets a KV snapshot and the commit-feed sequence number it
+covers, then every applied put streams as ordered ``note`` replies,
+released behind the same durability point as client replies; a ``probe``
+answers the local-read verdict for a key or span and the feed seq.
+
+The wire: tick frames and hot replies leave through the wire codec
+(``wire_codec``, default the process default ``SMR_WIRE_CODEC``, on unless
+disabled), and the WAL is the native C++ backend (``csrc/wal.cpp``; the
+Python mirror when its build fails, logged).
+
+Not in this slice (ROADMAP.md, Queue 1): health/demotion and the
+autopilot's conf revokes, resharding (the range seals a scan or probe
+consults read "no seal", which is what the JAX server reads with an empty
+range table; the snapshot keys ``ranges``/``radopted``/``rseals``), the
+ingress proxy's ``batch`` forwards (answered ``error``), the nemesis
+snapshot crash point, the flight recorder and slot traces.
 """
 
 from __future__ import annotations
@@ -120,6 +143,7 @@ from ..core import telemetry as dev_telemetry
 from ..device import resolve_device
 from ..ops.rscoding import RSCode
 from ..protocols import make_protocol
+from ..utils import wirecodec
 from ..utils.errors import SummersetError
 from ..utils.logging import pf_info, pf_logger, pf_warn
 from .adaptive import CrosswordAdaptive
@@ -129,7 +153,7 @@ from .epaxos_exec import EPaxosExecutor
 from .external import ExternalApi
 from .messages import ApiReply, ApiRequest, CtrlMsg, ShardPayload
 from .payload import PayloadStore
-from .statemach import StateMachine, apply_command
+from .statemach import CommandResult, StateMachine, apply_command
 from .storage import LogAction, StorageHub
 from .telemetry import MetricsRegistry
 from .transport import TransportHub
@@ -243,6 +267,7 @@ class ServerReplica:
             self.external = ExternalApi(
                 api_addr, max_batch_size=self.api_max_batch,
                 max_pending=self.api_max_pending, registry=self.metrics,
+                codec=self.wire_codec,
             )
         except BaseException:
             # a failed bring-up releases every port and handle it took:
@@ -283,9 +308,19 @@ class ServerReplica:
         # the logger thread behind the durability fence; False is the
         # strictly ordered serial loop
         self.pipeline = bool(cfg.pop("pipeline", True))
+        # wire codec on the p2p tick frames and the api replies; None
+        # follows the process default (SMR_WIRE_CODEC)
+        _wc = cfg.pop("wire_codec", None)
+        self.wire_codec = (
+            wirecodec.default_on() if _wc is None else bool(_wc)
+        )
+        self.near_quorum_reads = bool(cfg.pop("near_quorum_reads", False))
         self._kcfg = cfg
-        # one registry threaded through every hub seam
+        # one registry threaded through every hub seam; the scan plane's
+        # series pre-registered, so "no scans yet" reads as 0
         self.metrics = MetricsRegistry()
+        for name in ("scan_served", "scan_shed", "scan_keys"):
+            self.metrics.counter_add(name, 0)
 
     def _setup_core(self, backer_dir: str) -> None:
         """Kernel, state on the device, WAL (recovered) and bookkeeping."""
@@ -345,6 +380,22 @@ class ServerReplica:
         # per key: the slot of its last applied put (snapshot state, as
         # in the JAX server, whose near-quorum reads compare them)
         self._wslot: Dict[str, int] = {}
+        # near-quorum reads (quorumread.rs): in-flight read queries and the
+        # rq/rqr frame parts queued per peer
+        self._qreads: Dict[int, dict] = {}
+        self._qread_next = 0
+        self._pending_rq: Dict[int, list] = {}   # dst -> [(rid, key, g)]
+        self._pending_rqr: Dict[int, list] = {}  # dst -> [(rid, v, s, hit)]
+        # the commit feed: subscribers, its sequence number and the notes
+        # of this tick's applied puts (the seq advances only while some
+        # learner subscribes)
+        self._subs: Dict[int, bool] = {}
+        self._sub_seq = 0
+        self._sub_notes: List[Tuple[int, str, Any]] = []
+        # barrier scans in flight: sbid -> {client, req_id, cmd, need
+        # (groups whose marker has not applied), tick (for the GC)}
+        self._scan_pend: Dict[int, dict] = {}
+        self._scan_next = 1
         self._wal_dirty = False
         self._reply_queue: List[Tuple[int, ApiReply]] = []
         self.kv_need: Set[int] = set()     # groups that jumped past window
@@ -355,6 +406,10 @@ class ServerReplica:
         self._owed: Dict[int, list] = {}
         self._setup_epaxos()
         self._setup_codewords()
+        # near-quorum reads need the MultiPaxos family's vote runs and a
+        # single-writer-per-slot log (not the EPaxos 2-D space)
+        self._nqr_ok = (self.near_quorum_reads and "vote_bar" in self.state
+                        and not self._epaxos)
         # client ConfChange plane (QuorumLeases, Bodega): one in flight;
         # queue entries are (client id, request) from the data plane or
         # (None, request) for manager-relayed installs
@@ -466,11 +521,17 @@ class ServerReplica:
         self._cw_first_missing: Dict[Tuple[int, int], int] = {}
         self._pending_shards: Dict[int, dict] = {}  # dst -> {(g,vid): sp}
         self._pending_cw: Dict[int, dict] = {}      # dst -> {(g,vid): sp}
-        # per-peer payload-plane egress (bytes and payload count of the
-        # pp/ps frame parts; gossip replies in cw_bytes): bytes per item
-        # is a full batch for full copies, ~batch/d for shard sends
+        # per-peer payload-plane egress, bytes and payload count: pp_*
+        # meter the protocol's own payload sends (full copies of the
+        # pp part without a codeword plane; ps shard sends with one, at
+        # ~batch/d per item); full_* the full copies a codeword replica
+        # also sends (CRaft's fallback proposals and need-serves), so
+        # the two never mix in one per-item mean; cw_bytes the gossip
+        # replies
         self.pp_bytes = [0] * self.population
         self.pp_items = [0] * self.population
+        self.full_bytes = [0] * self.population
+        self.full_items = [0] * self.population
         self.cw_bytes = [0] * self.population
         # CRaft's full-copy fallback reads the last drained step's
         # liveness countdowns, so it may trail the kernel by one tick
@@ -482,6 +543,7 @@ class ServerReplica:
         until the mesh completes — a lower-id peer may join after us."""
         self.transport = TransportHub(
             self.me, self.population, self.p2p_addr, registry=self.metrics,
+            codec=self.wire_codec,
         )
         join = CtrlMsg("new_server_join", {
             "protocol": protocol,
@@ -1038,23 +1100,27 @@ class ServerReplica:
         self._drain_replies()
 
     def _drain_replies(self) -> None:
-        """Release the queued replies, the fence waited FIRST (and again
-        by ``ExternalApi.send_replies``)."""
+        """Release the queued replies and the commit-feed notes, the
+        fence waited FIRST (and again by ``ExternalApi.send_replies``)."""
         self._fence_wait()
+        self._flush_notes()  # queues note replies behind the same gate
         q = self._reply_queue
         if q:
             self._reply_queue = []
             self.external.send_replies(q, fence=self._fence_wait)
 
     def _intake(self) -> Tuple[np.ndarray, np.ndarray, Dict]:
-        """Drain the client plane: queue conf changes, route puts and gets
-        to groups, serve leased local gets, redirect what we don't lead,
-        answer every other request kind with an error (request.rs:16-216
-        redirects)."""
+        """Drain the client plane: queue conf changes, answer probes and
+        subscriptions, serve or barrier scans, route puts and gets to
+        groups, serve leased local gets and near-quorum reads, redirect
+        what we don't lead, answer every other request kind with an error
+        (request.rs:16-216 treat_read_only_reqs + redirects)."""
         n_prop = np.zeros((self.G,), np.int32)
         vbase = np.zeros((self.G,), np.int32)
         piggy: Dict[Tuple[int, int], Any] = {}
         batch = self.external.get_req_batch(timeout=0)
+        if self._scan_pend:
+            self._scan_gc()
         if not batch:
             if self._epaxos and any(self._ep_defer.values()):
                 # deferred buckets drain on idle intake ticks too
@@ -1064,6 +1130,15 @@ class ServerReplica:
         for client, req in batch:
             if req.kind == "conf":
                 self._handle_conf_req(client, req)
+            elif req.kind == "sub":
+                self._handle_subscribe(client, req)
+            elif req.kind == "probe":
+                self._handle_probe(client, req)
+            elif req.kind == "scan" or (
+                    req.kind == "req" and req.cmd is not None
+                    and req.cmd.kind == "scan"):
+                # a scan rides either its own kind or a "req" Command
+                self._intake_scan(client, req, by_group)
             elif (req.kind != "req" or req.cmd is None
                     or req.cmd.kind not in ("put", "get")):
                 self._reply(client, ApiReply(
@@ -1079,12 +1154,15 @@ class ServerReplica:
         for g, reqs in by_group.items():
             if not self._is_leader[g]:
                 # a lease holder with every key bucket quiescent answers
-                # gets from applied state; the rest redirect
+                # gets from applied state; with near-quorum reads a get
+                # samples a majority; the rest redirect
                 local_ok = self._can_local_read(g)
                 pending = []
                 for client, req in reqs:
                     if local_ok and req.cmd.kind == "get":
                         self._reply_local(client, req)
+                    elif self._nqr_ok and req.cmd.kind == "get":
+                        self._start_qread(client, req, g)
                     else:
                         pending.append((client, req))
                 hint = int(self._leader_hint[g])
@@ -1222,15 +1300,16 @@ class ServerReplica:
                 and "leader_read_ok" in ex
                 and bool(ex["leader_read_ok"][g, self.me]))
 
-    def _tail_writes_key(self, g: int, key: str) -> bool:
-        """Does our voted-but-unexecuted window tail possibly hold a write
-        to ``key``?  Every voted slot at or above the exec floor counts,
-        with no upper bound (a higher-ballot run reset rewinds
-        ``vote_bar`` without zeroing ``win_bal`` above it); a payload we
-        cannot inspect counts as a hit.  Votes are marked in ``win_bal``
-        (ballot families) or ``win_term`` (the Raft family); a kernel
-        with neither (ChainRep, SimplePush, RepNothing) has an
-        uninspectable tail, which is a hit."""
+    def _tail_writes(self, g: int, hit) -> bool:
+        """Does our voted-but-unexecuted window tail of group ``g``
+        possibly hold a put whose key satisfies ``hit(key)``?  Every voted
+        slot at or above the exec floor counts, with no upper bound (a
+        higher-ballot run reset rewinds ``vote_bar`` without zeroing
+        ``win_bal`` above it); a payload we cannot inspect counts as a
+        hit.  Votes are marked in ``win_bal`` (ballot families) or
+        ``win_term`` (the Raft family); a kernel with neither (ChainRep,
+        SimplePush, RepNothing) has an uninspectable tail, which is a
+        hit."""
         mark = next((k for k in ("win_bal", "win_term") if k in self.state),
                     None)
         if mark is None or "win_abs" not in self.state:
@@ -1247,9 +1326,277 @@ class ServerReplica:
                 return True
             for _c, req in batch:
                 if (req.cmd is not None and req.cmd.kind == "put"
-                        and req.cmd.key == key):
+                        and hit(req.cmd.key)):
                     return True
         return False
+
+    def _tail_writes_key(self, g: int, key: str) -> bool:
+        """A write to ``key`` in group ``g``'s voted tail (the per-key
+        freshness check of a leased or quorum read; quorumread.rs's
+        highest-slot check)."""
+        return self._tail_writes(g, lambda k: k == key)
+
+    def _tail_writes_range(self, start: str, end: Optional[str]) -> bool:
+        """A write inside the span ``[start, end)`` in ANY group's voted
+        tail: the KV is flat per process, so every group's tail could
+        touch the span."""
+
+        def hit(k: str) -> bool:
+            return k >= start and (end is None or k < end)
+
+        return any(self._tail_writes(g, hit) for g in range(self.G))
+
+    def _scan_read_ok(self, start: str, end: Optional[str]) -> bool:
+        """May a linearizable range read over ``[start, end)`` be served
+        from applied state right now?  Keys hash across every group, so
+        the per-group read predicate must hold everywhere (a leader lease
+        where this replica leads, lease-local rights elsewhere) and no
+        voted-unexecuted write anywhere may target the span."""
+        for g in range(self.G):
+            if self._is_leader[g]:
+                if not self._leader_read_ok(g):
+                    return False
+            elif not self._can_local_read(g):
+                return False
+        return not self._tail_writes_range(start, end)
+
+    def _range_sealed_for(self, key: str) -> Optional[dict]:
+        """The sealed (mid-cutover) range covering ``key``.  Resharding is
+        not ported, so no range is ever sealed: None, which is what the
+        JAX server returns with an empty range table."""
+        return None
+
+    def _range_seal_overlaps(self, start: str, end: Optional[str]) -> bool:
+        """Does a sealed range intersect ``[start, end)``?  Never, for the
+        reason given in ``_range_sealed_for``."""
+        return False
+
+    # ------------------------------------------------------- commit feed
+    def _handle_subscribe(self, client: int, req: ApiRequest) -> None:
+        """Register a read-tier learner: the reply carries a consistent
+        KV snapshot plus the feed seq it covers; every put applied after
+        this point streams as a note."""
+        self._subs[int(client)] = True
+        self._reply(client, ApiReply(
+            "sub", req_id=req.req_id, success=True, seq=self._sub_seq,
+            notes=self.statemach.snapshot_items(),
+        ))
+
+    def _handle_probe(self, client: int, req: ApiRequest) -> None:
+        """Answer a freshness probe: may a local read of this key (or
+        scan span) be served right now, and which feed seq covers it?
+        Runs on the replica thread between the last tick's applies (all
+        flushed as notes) and this tick's, where the fused serving path
+        takes the same decision."""
+        ok = False
+        cmd = req.cmd
+        if cmd is not None and cmd.kind == "get":
+            g = self.group_of(cmd.key)
+            if self._range_sealed_for(cmd.key) is not None:
+                ok = False
+            elif self._is_leader[g]:
+                ok = (self._leader_read_ok(g)
+                      and not self._tail_writes_key(g, cmd.key))
+            else:
+                ok = self._can_local_read(g)
+        elif cmd is not None and cmd.kind == "scan":
+            ok = (not self._range_seal_overlaps(cmd.key, cmd.end)
+                  and self._scan_read_ok(cmd.key, cmd.end))
+        self._reply(client, ApiReply(
+            "probe", req_id=req.req_id, success=bool(ok),
+            seq=self._sub_seq,
+        ))
+
+    def _note_put(self, key: str, value: Any) -> None:
+        """Append one applied put to the commit feed (a no-op without
+        subscribers)."""
+        if self._subs:
+            self._sub_seq += 1
+            self._sub_notes.append((self._sub_seq, key, value))
+
+    def _flush_notes(self) -> None:
+        """Ship the buffered notes to every live subscriber, once per
+        tick, strictly after the group-commit fsync covering the applies
+        they report (the callers run behind the durability gate).
+        Subscribers whose connection is gone are dropped here."""
+        if not (self._subs and self._sub_notes):
+            return
+        notes = self._sub_notes
+        self._sub_notes = []
+        for c in [c for c in self._subs
+                  if not self.external.has_client(c)]:
+            del self._subs[c]
+        last = notes[-1][0]
+        for c in self._subs:
+            self._reply(c, ApiReply(
+                "note", req_id=0, seq=last, notes=notes,
+            ))
+
+    # ------------------------------------------------ ordered range reads
+    def _intake_scan(self, client: int, req: ApiRequest,
+                     by_group: Dict[int, list]) -> None:
+        """Scan serving, in order: (1) a span crossing a sealed cutover is
+        shed before any proposal (never, with no range table); (2) EPaxos
+        answers ``error``: leaderless rows have no commit bar to barrier
+        on and no lease plane; (3) when every group is read-ready for the
+        span, the applied KV is served (the replica thread applies
+        serially, so the KV between applies is a consistent cut); (4) a
+        replica leading every group proposes one no-effect scan marker
+        into every group's log and reads the cut when the last marker
+        applies: any write acked before that instant was acked by this
+        replica (acks ride execution) and sits ahead of some marker in
+        its group's log; (5) split leadership redirects, as a get."""
+        cmd = req.cmd
+        if cmd is None:
+            self._reply(client, ApiReply(
+                "error", req_id=req.req_id, success=False,
+            ))
+            return
+        if self._range_seal_overlaps(cmd.key, cmd.end):
+            self._reply(client, ApiReply(
+                "shed", req_id=req.req_id, success=False,
+                retry_after_ms=50,
+            ))
+            self.metrics.counter_add("api_shed", 1)
+            self.metrics.counter_add("scan_shed", 1)
+            return
+        if self._epaxos:
+            self._reply(client, ApiReply(
+                "error", req_id=req.req_id, success=False,
+            ))
+            return
+        if self._scan_read_ok(cmd.key, cmd.end):
+            res = apply_command(self.statemach._kv, cmd)
+            self._reply(client, ApiReply(
+                "reply", req_id=req.req_id, result=res, local=True,
+            ))
+            self._scan_served(res)
+            return
+        if bool(self._is_leader.all()):
+            sbid = self._scan_next
+            self._scan_next += 1
+            self._scan_pend[sbid] = {
+                "client": client, "req_id": req.req_id, "cmd": cmd,
+                "need": set(range(self.G)), "tick": self.tick,
+            }
+            marker = ApiRequest("req", req_id=sbid, cmd=cmd)
+            for g in range(self.G):
+                by_group.setdefault(g, []).append((None, marker))
+            return
+        hint = int(self._leader_hint[self.group_of(cmd.key)])
+        self._reply(client, ApiReply(
+            "redirect", req_id=req.req_id, redirect=hint, success=False,
+        ))
+
+    def _scan_served(self, res: CommandResult) -> None:
+        self.metrics.counter_add("scan_served", 1)
+        self.metrics.counter_add("scan_keys", len(res.items or ()))
+
+    def _scan_barrier_hit(self, g: int, sbid: int) -> None:
+        """One group's scan marker reached the apply bar at its proposer.
+        When the last group lands, the applied KV is a linearizable cut
+        for the span: read it and queue the reply behind the durability
+        fence."""
+        p = self._scan_pend.get(sbid)
+        if p is None:
+            return  # expired (the GC replied shed) or a duplicate
+        p["need"].discard(g)
+        if p["need"]:
+            return
+        del self._scan_pend[sbid]
+        res = apply_command(self.statemach._kv, p["cmd"])
+        self._reply_queue.append((p["client"], ApiReply(
+            "reply", req_id=p["req_id"], result=res,
+        )))
+        self._scan_served(res)
+
+    def _scan_gc(self, ttl_ticks: int = 500) -> None:
+        """Expire barrier scans whose markers never committed (leadership
+        moved mid-barrier): reply shed; a scan is a read, so refusing it
+        late is safe, and a marker applying afterwards finds no pend."""
+        dead = [sbid for sbid, p in self._scan_pend.items()
+                if self.tick - p["tick"] > ttl_ticks]
+        for sbid in dead:
+            p = self._scan_pend.pop(sbid)
+            self._reply(p["client"], ApiReply(
+                "shed", req_id=p["req_id"], success=False,
+                retry_after_ms=50,
+            ))
+            self.metrics.counter_add("scan_shed", 1)
+
+    # ------------------------------------------------- near-quorum reads
+    def _local_read_sample(self, g: int, key: str) -> Tuple[Any, int, bool]:
+        """This replica's (value, write slot, tail hit) for ``key``."""
+        return (
+            self.statemach._kv.get(key),
+            self._wslot.get(key, -1),
+            self._tail_writes_key(g, key),
+        )
+
+    def _start_qread(self, client: int, req: ApiRequest, g: int) -> None:
+        """Begin a near-quorum read (quorumread.rs ReadQuery fan-out):
+        sample ourselves now, ask every connected peer through the tick
+        frames, and serve once a majority answered with no in-flight
+        write in sight.  A completed write holds votes at a majority,
+        which intersects the read quorum: the intersecting member either
+        applied it (its write-slot sample shows it) or still has it in
+        its voted tail (a hit: fall back to the leader).  Too few
+        connected peers for a quorum redirect at once."""
+        key = req.cmd.key
+        need = self.kernel.quorum - 1
+        peers = self.transport.peers()
+        if len(peers) < need:
+            self._reply(client, ApiReply(
+                "redirect", req_id=req.req_id,
+                redirect=int(self._leader_hint[g]),
+                success=False, rq_retry=True,
+            ))
+            return
+        rid = self._qread_next
+        self._qread_next += 1
+        self._qreads[rid] = {
+            "client": client, "req": req, "g": g, "key": key,
+            "replies": {self.me: self._local_read_sample(g, key)},
+            "deadline": self.tick + 400,
+        }
+        # every connected peer is asked and the first quorum of replies
+        # completes: one slow peer cannot stall the read
+        for dst in peers:
+            self._pending_rq.setdefault(dst, []).append((rid, key, g))
+        self._qread_check(rid)
+
+    def _qread_check(self, rid: int) -> None:
+        qr = self._qreads.get(rid)
+        if qr is None or len(qr["replies"]) < self.kernel.quorum:
+            return
+        del self._qreads[rid]
+        req = qr["req"]
+        samples = list(qr["replies"].values())
+        if any(hit for _v, _s, hit in samples):
+            # an in-flight write touches the key: the log path at the
+            # leader (the reference's rq_retry hint)
+            self._reply(qr["client"], ApiReply(
+                "redirect", req_id=req.req_id,
+                redirect=int(self._leader_hint[qr["g"]]),
+                success=False, rq_retry=True,
+            ))
+            return
+        value, _slot, _hit = max(samples, key=lambda x: x[1])
+        self._reply(qr["client"], ApiReply(
+            "reply", req_id=req.req_id,
+            result=CommandResult("get", value=value), local=True,
+        ))
+
+    def _qread_expire(self) -> None:
+        """Redirect the read queries past their deadline (rq_retry)."""
+        for rid in [r for r, q in self._qreads.items()
+                    if self.tick > q["deadline"]]:
+            qr = self._qreads.pop(rid)
+            self._reply(qr["client"], ApiReply(
+                "redirect", req_id=qr["req"].req_id,
+                redirect=int(self._leader_hint[qr["g"]]),
+                success=False, rq_retry=True,
+            ))
 
     # ------------------------------------------------------ conf plane
     def _handle_conf_req(self, client: int, req: ApiRequest) -> None:
@@ -1514,7 +1861,8 @@ class ServerReplica:
     def _build_tick_frames(self, frames, piggy) -> Dict[int, dict]:
         """This tick's per-peer frames: kernel lane slices plus the
         payload piggyback, the need plane, the codeword parts (``ps``
-        shard sends, ``cw`` gossip replies, ``cw_need`` requests) and the
+        shard sends, ``cw`` gossip replies, ``cw_need`` requests), the
+        near-quorum read parts (``rq`` queries, ``rqr`` replies) and the
         kv install plane."""
         piggy.update(self._pending_serve)
         self._pending_serve = {}
@@ -1538,11 +1886,13 @@ class ServerReplica:
             self._pending_kv_serve = False
         ps_pend, self._pending_shards = self._pending_shards, {}
         cw_pend, self._pending_cw = self._pending_cw, {}
+        rq, self._pending_rq = self._pending_rq, {}
+        rqr, self._pending_rqr = self._pending_rqr, {}
         tick_frames = {}
         for dst in frames:
             f = {"msg": frames[dst], **payload_msg}
-            for key, part in (("ps", ps_pend), ("cw", cw_pend),
-                              ("cw_need", cw_need)):
+            for key, part in (("rq", rq), ("rqr", rqr), ("ps", ps_pend),
+                              ("cw", cw_pend), ("cw_need", cw_need)):
                 if dst in part:
                     f[key] = part[dst]
             tick_frames[dst] = f
@@ -1550,10 +1900,13 @@ class ServerReplica:
             # full copies are identical per peer, sized as the frame
             # pickles them; shard sends and gossip replies were sized
             # when queued
-            pp_len = len(pickle.dumps(piggy, pickle.HIGHEST_PROTOCOL))
+            pp_len = wirecodec.payload_nbytes(piggy)
+            nbytes, nitems = ((self.full_bytes, self.full_items)
+                              if self.codewords is not None
+                              else (self.pp_bytes, self.pp_items))
             for dst in tick_frames:
-                self.pp_bytes[dst] += pp_len
-                self.pp_items[dst] += len(piggy)
+                nbytes[dst] += pp_len
+                nitems[dst] += len(piggy)
         return tick_frames
 
     def _build_inputs(self, n_prop, vbase) -> Dict[str, Any]:
@@ -1709,6 +2062,7 @@ class ServerReplica:
         _stage("log")
         self._apply_committed(fx)
         self._flush_durability()
+        self._qread_expire()
         self._conf_progress()
         self._leader_edges(fx)
         _stage("apply")
@@ -1756,6 +2110,7 @@ class ServerReplica:
         _stage("dispatch")
 
         self._ingest_payloads(got)
+        self._qread_expire()
         self._conf_progress()
         _stage("overlap")
 
@@ -1813,6 +2168,16 @@ class ServerReplica:
                 if "kv" in f and self.kv_need:
                     self._merge_kv(f["kv"], f["kv_floor"], f.get("kv_ep"),
                                    f.get("kv_wslots"))
+                # near-quorum read queries and replies (quorumread.rs)
+                for rid, key, g in f.get("rq", ()):
+                    self._pending_rqr.setdefault(src, []).append(
+                        (rid,) + self._local_read_sample(g, key)
+                    )
+                for rid, value, wslot, hit in f.get("rqr", ()):
+                    qr = self._qreads.get(rid)
+                    if qr is not None and src not in qr["replies"]:
+                        qr["replies"][src] = (value, wslot, hit)
+                        self._qread_check(rid)
 
     def _ingest_shards(self, src: int, f: dict) -> None:
         """One frame's codeword parts: ``ps`` rows are this replica's
@@ -1859,6 +2224,10 @@ class ServerReplica:
             return
         upd = {k: v for k, v in kv.items() if self.group_of(k) in ok_groups}
         self.statemach._kv.update(upd)
+        # the jump bypasses the per-slot apply, so the commit feed
+        # carries the transferred values too
+        for k, v in upd.items():
+            self._note_put(k, v)
         for k in upd:
             slot = (wslots or {}).get(k)
             if slot is not None:
@@ -1887,6 +2256,8 @@ class ServerReplica:
             mine = (g, vid) in self.origin
             for client, req in batch:
                 res = apply_command(self.statemach._kv, req.cmd)
+                if req.cmd.kind == "put":
+                    self._note_put(req.cmd.key, req.cmd.value)
                 if mine:
                     self._reply_queue.append((client, ApiReply(
                         "reply", req_id=req.req_id, result=res,
@@ -1973,11 +2344,19 @@ class ServerReplica:
             if batch is not None:
                 mine = (g, vid) in self.origin
                 for client, req in batch:
+                    if req.cmd.kind == "scan" and client is None:
+                        # a scan barrier marker: no effect anywhere; its
+                        # proposer reads the cut when the last group's
+                        # marker lands
+                        if mine:
+                            self._scan_barrier_hit(g, req.req_id)
+                        continue
                     res = apply_command(self.statemach._kv, req.cmd)
                     if req.cmd.kind == "put":
                         k = req.cmd.key
                         self._wslot[k] = max(slot,
                                              self._wslot.get(k, -1) + 1)
+                        self._note_put(k, req.cmd.value)
                     if mine:
                         self._reply_queue.append((client, ApiReply(
                             "reply", req_id=req.req_id, result=res,
@@ -2002,6 +2381,7 @@ class ServerReplica:
         for client, reply in self._reply_queue:
             self._reply(client, reply)
         self._reply_queue.clear()
+        self._flush_notes()
 
     def _leader_edges(self, fx: HostEffects) -> None:
         is_l = self._last_extra.get("is_leader")
@@ -2090,6 +2470,8 @@ class ServerReplica:
             "wal_size": self.wal.size,
             "pp_bytes": list(self.pp_bytes),
             "pp_items": list(self.pp_items),
+            "full_bytes": list(self.full_bytes),
+            "full_items": list(self.full_items),
             "cw_bytes": list(self.cw_bytes),
         }
         if self.codewords is not None:

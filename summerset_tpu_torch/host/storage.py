@@ -5,9 +5,14 @@ Parity: reference ``src/server/storage.rs`` — a hub owning a logger
 thread; actions ``Read/Append/Truncate`` (and a bare fsync) over 8-byte
 length-prefixed entries in a flat file, with optional fsync
 (``LogAction`` storage.rs:25-45, ``LogResult`` :49-70).  Entries are
-pickled Python objects.  The file backend is the pure-Python ``_PyWal``,
-whose on-disk format equals ``summerset_tpu/native/wal.cpp``'s (the
-native backend is not ported yet).
+pickled Python objects.  The file backend is the native C++ WAL
+(``csrc/wal.cpp``, the port's copy of ``summerset_tpu/native/wal.cpp``)
+built at first use with ``g++`` into ``_build/`` and bound with ctypes
+(``_NativeWal``); the pure-Python ``_PyWal`` writes the same format and
+is the mirror for ``prefer_native=False`` and for a host where the build
+fails.  As in the JAX package a failed build falls back to ``_PyWal``;
+unlike it, every hub logs which backend opened its file, and
+``StorageHub.native`` says which one did.
 
 WAL record shapes (written by ``host/server.py``, replayed at recovery):
 
@@ -19,6 +24,7 @@ WAL record shapes (written by ``host/server.py``, replayed at recovery):
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 import pickle
@@ -29,6 +35,9 @@ import time
 from typing import Any, Optional, Tuple
 
 from ..utils.errors import SummersetError
+from ..utils.logging import pf_info, pf_logger, pf_warn
+
+logger = pf_logger("storage")
 
 _LEN = struct.Struct("<Q")
 
@@ -106,15 +115,128 @@ class _PyWal:
         self.f.close()
 
 
+def _configure(lib) -> None:
+    """ctypes signatures of the native WAL's C ABI (the entries the
+    hub calls; ``wal_write_at``/``wal_discard`` back actions the port's
+    hub does not offer)."""
+    lib.wal_open.restype = ctypes.c_void_p
+    lib.wal_open.argtypes = [ctypes.c_char_p]
+    lib.wal_close.argtypes = [ctypes.c_void_p]
+    lib.wal_size.restype = ctypes.c_uint64
+    lib.wal_size.argtypes = [ctypes.c_void_p]
+    lib.wal_append.restype = ctypes.c_uint64
+    lib.wal_append.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int,
+    ]
+    lib.wal_read.restype = ctypes.c_int64
+    lib.wal_read.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64,
+    ]
+    lib.wal_truncate.restype = ctypes.c_int
+    lib.wal_truncate.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
+    ]
+
+
+_wal_lock = threading.Lock()
+_wal_lib = None
+_wal_error: Optional[str] = None
+
+
+def load_wal():
+    """The native WAL's ctypes handle (built from ``csrc/wal.cpp`` at
+    first use), or None when the build or the load fails; the failure
+    is kept in ``wal_build_error()``."""
+    global _wal_lib, _wal_error
+    with _wal_lock:
+        if _wal_lib is not None or _wal_error is not None:
+            return _wal_lib
+        from ..ops import native
+
+        try:
+            lib = native.load("wal")
+            _configure(lib)
+            _wal_lib = lib
+        except Exception as e:  # no compiler, a failed build or load
+            _wal_error = repr(e)
+        return _wal_lib
+
+
+def wal_build_error() -> Optional[str]:
+    """Why the native WAL could not be loaded (None if it was, or was
+    not tried yet)."""
+    return _wal_error
+
+
+class _NativeWal:
+    """ctypes facade over ``csrc/wal.cpp`` with ``_PyWal``'s methods."""
+
+    def __init__(self, lib, path: str):
+        self.lib = lib
+        self.h = lib.wal_open(path.encode())
+        if not self.h:
+            raise SummersetError(f"wal_open failed for {path}")
+
+    @property
+    def size(self) -> int:
+        return self.lib.wal_size(self.h)
+
+    def append(self, body: bytes, sync: bool) -> int:
+        end = self.lib.wal_append(self.h, body, len(body), int(sync))
+        if end == 0:
+            raise SummersetError("wal_append failed")
+        return end
+
+    def read(self, off: int) -> Optional[Tuple[bytes, int]]:
+        cap = 1 << 16
+        while True:
+            buf = (ctypes.c_uint8 * cap)()
+            n = self.lib.wal_read(self.h, off, buf, cap)
+            if n == -1:
+                return None
+            if n == -2:
+                cap *= 4
+                continue
+            return ctypes.string_at(buf, int(n)), off + 8 + int(n)
+
+    def truncate(self, off: int, sync: bool) -> bool:
+        return self.lib.wal_truncate(self.h, off, int(sync)) == 0
+
+    def sync(self) -> None:
+        # truncate-to-current-size with sync=1 is a pure fsync (the
+        # native surface has no separate sync entry point)
+        if self.lib.wal_truncate(self.h, self.size, 1) != 0:
+            raise SummersetError("wal fsync failed")
+
+    def close(self):
+        # idempotent: a second close would hand the native layer a freed
+        # handle
+        if self.h:
+            self.lib.wal_close(self.h)
+            self.h = None
+
+
 class StorageHub:
     """Durable logger hub: submit actions, collect results in order.
 
     The channel API mirrors the reference hub (``submit_action``/
     ``get_result``, storage.rs:137-190); the logger thread owns the file.
+    ``prefer_native`` opens the file with the native WAL (the Python
+    mirror when its build fails); ``native`` says which backend did.
     """
 
-    def __init__(self, path: str, registry=None):
-        self.backend = _PyWal(path)
+    def __init__(self, path: str, registry=None, prefer_native: bool = True):
+        lib = load_wal() if prefer_native else None
+        self.backend = _NativeWal(lib, path) if lib else _PyWal(path)
+        self.native = lib is not None
+        if self.native:
+            pf_info(logger, f"WAL {path}: native backend")
+        elif prefer_native:
+            pf_warn(logger, f"WAL {path}: Python backend (native WAL "
+                            f"unavailable: {wal_build_error()})")
+        else:
+            pf_info(logger, f"WAL {path}: Python backend (asked for)")
         self._in: queue.Queue = queue.Queue()
         self._out: queue.Queue = queue.Queue()
         self._stop_lock = threading.Lock()

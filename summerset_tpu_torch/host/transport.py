@@ -25,8 +25,18 @@ delay ms)`` in ``samples``, which Crossword's adaptive shard assignment
 folds (``host/adaptive.py``); monotonic clocks of two machines are not
 comparable, so other peers leave none.
 
-Frames are pickle bodies; the JAX hub's wire codec, fault verdicts and
-health hooks are not ported.
+Frames leave through the wire codec (``utils/wirecodec.py``) when the
+``codec`` knob is on (server config ``wire_codec``, default the process
+default ``SMR_WIRE_CODEC``, on unless disabled): one vectored ``sendmsg``
+per peer carries the length prefix, the small fields and the kernel lanes
+as zero-copy views of the outbox's host buffers.  The send is synchronous
+(every byte is in the socket buffer when ``send_tick`` returns), so the
+pinned buffers a card replica's outbox views are free to be written again
+by a later prefetch.  Ingress always dispatches per frame on the body's
+first byte, so codec and pickle peers share one mesh.  Every 64th encoded
+frame is also pickled to meter the bytes the codec saved
+(``wire_bytes_saved``); ``wire_codec_on`` gauges the knob.  The JAX hub's
+fault verdicts and health hooks are not ported.
 """
 
 from __future__ import annotations
@@ -39,11 +49,14 @@ import time
 from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
-from ..utils import safetcp
+from ..utils import safetcp, wirecodec
 from ..utils.errors import SummersetError
 from ..utils.logging import pf_info, pf_logger, pf_warn
 
 logger = pf_logger("transport")
+
+#: every n-th codec frame is also pickled to meter ``wire_bytes_saved``
+_SAVE_EVERY = 64
 
 
 def hard_close(sock: socket.socket) -> None:
@@ -83,12 +96,20 @@ def _same_host(sock: socket.socket) -> bool:
 
 class TransportHub:
     def __init__(self, me: int, population: int, p2p_addr: Tuple[str, int],
-                 registry=None):
+                 registry=None, codec: Optional[bool] = None):
         self.me = me
         self.population = population
         self.p2p_addr = p2p_addr
-        # telemetry seam: per-peer frame and byte counters both ways
+        # wire codec: None follows the process default (SMR_WIRE_CODEC)
+        self.codec = wirecodec.default_on() if codec is None else bool(codec)
+        self._enc = wirecodec.FrameEncoder()
+        self._save_probe = 0
+        # telemetry seam: per-peer frame and byte counters both ways, the
+        # codec's gauge and its sampled byte savings
         self.registry = registry
+        if registry is not None:
+            registry.counter_add("wire_bytes_saved", 0)
+            registry.gauge_set("wire_codec_on", 1 if self.codec else 0)
         self._conns: Dict[int, socket.socket] = {}
         self._wlocks: Dict[int, threading.Lock] = {}
         # (peer, frame bytes, delay ms) delivery samples; deque appends
@@ -186,18 +207,27 @@ class TransportHub:
             self._register(peer, sock)
 
     def _messenger_recv(self, peer: int, sock: socket.socket) -> None:
+        rx = safetcp.FrameReceiver()
         reg = self.registry
         try:
             while True:
-                body = safetcp.recv_body_sync(sock)
-                tick, payload = safetcp.decode_body(body)
+                body = rx.recv_raw(sock)
+                nbytes = len(body)
+                # the decode is timed alone: the blocking recv waits out
+                # the peer's tick interval
+                t_dec = time.monotonic()
+                tick, payload = wirecodec.decode_body(body)
                 if reg is not None:
+                    reg.observe_s("wire_decode_us",
+                                  time.monotonic() - t_dec, plane="p2p")
                     reg.counter_add("transport_frames_recv", peer=peer)
+                    reg.counter_add("transport_bytes_recv", nbytes,
+                                    peer=peer)
                 self._rq[peer].put((tick, payload))
                 ts = payload.get("ts") if isinstance(payload, dict) else None
                 if ts is not None and self._same_host.get(peer, False):
                     self.samples.append(
-                        (peer, len(body), (time.monotonic() - ts) * 1e3)
+                        (peer, nbytes, (time.monotonic() - ts) * 1e3)
                     )
         except Exception:
             pf_warn(logger, f"peer {peer} connection lost")
@@ -218,22 +248,40 @@ class TransportHub:
         if fence is not None:
             fence()
         reg = self.registry
+        enc = self._enc
         for peer, payload in per_peer.items():
             sock = self._conns.get(peer)
             if sock is None:
                 continue
-            buf = safetcp.encode_frame((tick, payload))
+            t_enc = time.monotonic()
+            segs, nbytes = safetcp.encode_frame_into(
+                (tick, payload), enc, codec=self.codec
+            )
+            if reg is not None:
+                reg.observe_s("wire_encode_us", time.monotonic() - t_enc,
+                              plane="p2p")
+                if self.codec:
+                    self._save_probe += 1
+                    if self._save_probe >= _SAVE_EVERY:
+                        self._save_probe = 0
+                        base = len(safetcp.encode_frame(
+                            (tick, payload), codec=False
+                        ))
+                        reg.counter_add("wire_bytes_saved",
+                                        max(0, base - nbytes))
             try:
                 with self._wlocks[peer]:
-                    sock.sendall(buf)
+                    safetcp.sendmsg_all(sock, segs, nbytes)
                 if reg is not None:
                     reg.counter_add("transport_frames_sent", peer=peer)
-                    reg.counter_add("transport_bytes_sent", len(buf),
+                    reg.counter_add("transport_bytes_sent", nbytes,
                                     peer=peer)
             except OSError:
                 if self._conns.get(peer) is sock:
                     self._conns.pop(peer, None)
                 hard_close(sock)
+            finally:
+                enc.release()
 
     def recv_tick(
         self, tick: int, deadline: float

@@ -5,10 +5,23 @@ Parity: reference ``src/utils/safetcp.rs`` — 8-byte big-endian length
 prefix + serialized body (``safe_tcp_read:31`` / ``safe_tcp_write:105``),
 plus ``tcp_bind_with_retry``.
 
-Frame bodies are pickle only (first byte ``0x80``).  The JAX package's
-compact wire codec (body magic ``0xC7``) is not ported: such a body
-raises :class:`SummersetError` naming the missing codec instead of being
-misread.
+The body has two formats, dispatched per frame on its first byte
+(``utils/wirecodec.py``, the port's copy of the JAX codec): pickle
+(``0x80``; the universal fallback and the only format of the cold and
+control kinds) and the codec (``0xC7``) for the hot data-plane kinds —
+tick frames and ``req``/``reply``/``shed``/``batch``/``note``/``probe``
+api messages.  Because dispatch is per frame, a codec-on sender and a
+codec-off sender interoperate on one mesh with no negotiation, and a
+port process decodes a JAX process's codec bodies (and the reverse)
+wherever the pickled class paths allow.
+
+Hot-path I/O: egress is one ``socket.sendmsg`` over the encoder's segment
+list (the length prefix, the small-field chunks and zero-copy ndarray
+views, no join copy); ingress reads the length prefix into a reusable
+buffer and the body into one exact-size buffer with ``recv_into``.  Body
+buffers are per frame on purpose: the codec decodes ndarray lanes as
+views into the received body.  The JAX module's seeded frame faults
+(``FrameFaults``) belong to the nemesis plane and are not ported.
 """
 
 from __future__ import annotations
@@ -17,8 +30,10 @@ import asyncio
 import errno
 import pickle
 import struct
-from typing import Any
+import time
+from typing import Any, List, Optional, Tuple
 
+from . import wirecodec
 from .errors import SummersetError
 
 _LEN = struct.Struct(">Q")
@@ -26,34 +41,86 @@ _LEN = struct.Struct(">Q")
 # Refuse absurd frames (reference caps values at 16MB; give headroom).
 MAX_FRAME = 64 * 1024 * 1024
 
-#: first byte of a pickle body (protocol >= 2)
-PICKLE_MAGIC = 0x80
-#: first byte of a wire-codec body (summerset_tpu/utils/wirecodec.py)
-CODEC_MAGIC = 0xC7
+#: sendmsg scatter-gather cap (IOV_MAX is 1024 on Linux; stay under it)
+_IOV_MAX = 512
+
+#: the one decode dispatch (codec bodies by magic, else pickle); raises
+#: :class:`wirecodec.WireDecodeError` on a truncated or garbage body
+decode_body = wirecodec.decode_body
 
 
-def decode_body(body) -> Any:
-    """Decode one frame body; only pickle bodies are understood."""
-    if len(body) == 0:
-        raise SummersetError("empty frame body")
-    first = body[0]
-    if first == CODEC_MAGIC:
-        raise SummersetError(
-            "frame body in the wire-codec format (magic 0xC7): the codec "
-            "(summerset_tpu/utils/wirecodec.py) is not ported to "
-            "summerset_tpu_torch; send pickle frames"
-        )
-    if first != PICKLE_MAGIC:
-        raise SummersetError(
-            f"unknown frame body format (first byte {first:#04x})"
-        )
-    return pickle.loads(body)
-
-
-def encode_frame(obj: Any) -> bytes:
-    """One joined frame (8-byte BE length + pickle body)."""
-    body = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+def encode_frame(obj: Any, codec: Optional[bool] = None) -> bytes:
+    """One joined frame (8-byte BE length + body).  ``codec=None``
+    follows the process default; the codec engages only for hot objects
+    (``wirecodec.is_hot``), everything else stays pickle."""
+    if codec is None:
+        codec = wirecodec.default_on()
+    if codec and wirecodec.is_hot(obj):
+        body = wirecodec.encode_body(obj)
+    else:
+        body = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
     return _LEN.pack(len(body)) + body
+
+
+def encode_frame_into(
+    obj: Any, enc: "wirecodec.FrameEncoder", codec: Optional[bool] = None
+) -> Tuple[List[Any], int]:
+    """Encode one frame as a segment list for vectored egress: the
+    length prefix, the encoder's small-field chunks and zero-copy
+    ndarray views.  Returns ``(segments, total_bytes)``.  The segments
+    borrow ``enc``'s scratch and the frame's own buffers: send them
+    (:func:`sendmsg_all`), then ``enc.release()``."""
+    if codec is None:
+        codec = wirecodec.default_on()
+    if codec and wirecodec.is_hot(obj):
+        segs, blen = enc.encode_frame_into(obj)
+        return [_LEN.pack(blen)] + segs, 8 + blen
+    body = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    return [_LEN.pack(len(body)), body], 8 + len(body)
+
+
+def _advance(segs: List[Any], sent: int) -> List[Any]:
+    """The segments left after ``sent`` bytes of ``segs`` went out."""
+    idx = 0
+    while sent > 0:
+        n = len(segs[idx])
+        if sent >= n:
+            sent -= n
+            idx += 1
+        else:
+            segs = list(segs)
+            segs[idx] = memoryview(segs[idx])[sent:]
+            sent = 0
+    return segs[idx:]
+
+
+def sendmsg_all(sock, segs: List[Any], total: int) -> None:
+    """``sendall`` over a segment list with ``socket.sendmsg``: the whole
+    frame leaves in one syscall in the common case; a partial send
+    resumes from the exact byte.  Returns once every byte is in the
+    kernel's socket buffer, so the caller may reuse the arrays the
+    segments view."""
+    remaining = total
+    while remaining > 0:
+        sent = sock.sendmsg(segs[:_IOV_MAX])
+        remaining -= sent
+        if remaining > 0:
+            segs = _advance(segs, sent)
+
+
+def encode_frame_bytes(
+    obj: Any, enc: "wirecodec.FrameEncoder",
+    codec: Optional[bool] = None,
+) -> bytes:
+    """One joined frame through a caller-owned encoder (asyncio writers
+    that need bytes)."""
+    segs, _total = encode_frame_into(obj, enc, codec=codec)
+    try:
+        return b"".join(
+            s if type(s) is bytes else bytes(s) for s in segs
+        )
+    finally:
+        enc.release()
 
 
 async def send_msg(writer: asyncio.StreamWriter, obj: Any) -> None:
@@ -62,16 +129,25 @@ async def send_msg(writer: asyncio.StreamWriter, obj: Any) -> None:
 
 
 async def recv_msg(reader: asyncio.StreamReader) -> Any:
+    return (await recv_msg_timed(reader))[0]
+
+
+async def recv_msg_timed(reader: asyncio.StreamReader) -> Tuple[Any, float]:
+    """:func:`recv_msg` plus the decode-only wall seconds (the socket
+    wait excluded)."""
     hdr = await reader.readexactly(_LEN.size)
     (length,) = _LEN.unpack(hdr)
     if length > MAX_FRAME:
         raise SummersetError(f"frame length {length} exceeds cap {MAX_FRAME}")
-    return decode_body(await reader.readexactly(length))
+    body = await reader.readexactly(length)
+    t0 = time.monotonic()
+    obj = decode_body(body)
+    return obj, time.monotonic() - t0
 
 
-def send_msg_sync(sock, obj: Any) -> None:
-    """Blocking-socket variant (CLI tools, ctrl planes, the tick mesh)."""
-    sock.sendall(encode_frame(obj))
+def send_msg_sync(sock, obj: Any, codec: Optional[bool] = None) -> None:
+    """Blocking-socket variant (CLI tools, ctrl planes, the api stub)."""
+    sock.sendall(encode_frame(obj, codec=codec))
 
 
 def _recv_exact_into(sock, view: memoryview, consumed_before: int) -> None:
@@ -99,21 +175,38 @@ def _recv_exact_into(sock, view: memoryview, consumed_before: int) -> None:
         got += k
 
 
-def recv_body_sync(sock) -> bytearray:
-    """Receive one frame's body (undecoded) from a blocking socket."""
-    hdr = bytearray(_LEN.size)
-    _recv_exact_into(sock, memoryview(hdr), 0)
-    (length,) = _LEN.unpack(hdr)
-    if length > MAX_FRAME:
-        raise SummersetError(f"frame length {length} exceeds cap {MAX_FRAME}")
-    body = bytearray(length)
-    _recv_exact_into(sock, memoryview(body), _LEN.size)
-    return body
+class FrameReceiver:
+    """Per-connection ingress state for a receive loop: a reusable
+    length-prefix buffer plus one exact-size body buffer per frame
+    (decoded ndarray lanes are views into it, so it is never reused)."""
+
+    __slots__ = ("_hdr", "_hdr_mv")
+
+    def __init__(self):
+        self._hdr = bytearray(_LEN.size)
+        self._hdr_mv = memoryview(self._hdr)
+
+    def recv_raw(self, sock) -> memoryview:
+        """Receive one frame's body bytes, undecoded."""
+        _recv_exact_into(sock, self._hdr_mv, 0)
+        (length,) = _LEN.unpack(self._hdr)
+        if length > MAX_FRAME:
+            raise SummersetError(
+                f"frame length {length} exceeds cap {MAX_FRAME}"
+            )
+        body = bytearray(length)
+        _recv_exact_into(sock, memoryview(body), _LEN.size)
+        return memoryview(body)
+
+    def recv(self, sock) -> Tuple[Any, int]:
+        """Receive and decode one frame; returns ``(obj, body_len)``."""
+        body = self.recv_raw(sock)
+        return decode_body(body), len(body)
 
 
 def recv_msg_sync(sock) -> Any:
     """Receive and decode one frame from a blocking socket."""
-    return decode_body(recv_body_sync(sock))
+    return FrameReceiver().recv(sock)[0]
 
 
 async def tcp_bind_with_retry(
@@ -128,4 +221,3 @@ async def tcp_bind_with_retry(
                 raise
             await asyncio.sleep(delay)
     raise SummersetError("unreachable")
-

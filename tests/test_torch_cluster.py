@@ -83,11 +83,15 @@ class Cluster:
     under a crash-restart supervisor."""
 
     def __init__(self, protocol, n, tmpdir, config=None, tick=0.005,
-                 num_groups=1, window=32, device="cpu", settle=1.0):
+                 num_groups=1, window=32, device="cpu", settle=1.0,
+                 slot_config=None):
         self.protocol = protocol
         self.n = n
         self.tmpdir = str(tmpdir)
         self.config = config or {}
+        # per replica slot: config keys overriding ``config`` (a mixed
+        # mesh, e.g. one replica with the wire codec off)
+        self.slot_config = slot_config or {}
         self.tick = tick
         self.num_groups = num_groups
         self.window = window
@@ -155,7 +159,8 @@ class Cluster:
                     ("127.0.0.1", self.api_ports[slot]),
                     ("127.0.0.1", self.p2p_ports[slot]),
                     ("127.0.0.1", self.srv_port),
-                    config=dict(self.config),
+                    config=dict(self.config,
+                                **self.slot_config.get(slot, {})),
                     tick_interval=self.tick,
                     window=self.window,
                     num_groups=self.num_groups,
@@ -292,7 +297,7 @@ def norm_batch(batch):
         return None
     return [
         (c, r.kind, r.req_id, None if r.cmd is None else
-         (r.cmd.kind, r.cmd.key, r.cmd.value))
+         (r.cmd.kind, r.cmd.key, r.cmd.value, r.cmd.end, r.cmd.limit))
         for c, r in batch
     ]
 
@@ -490,7 +495,7 @@ class FakeTransport:
         pass
 
     def peers(self):
-        return []
+        return [p for p in range(self.net.R) if p != self.me]
 
     def send_tick(self, tick, per_peer, fence=None):
         if fence is not None:
@@ -554,9 +559,13 @@ def build(mod, protocol, me, R, G, W, backer_dir, config, net=None,
 
 def norm_reply(client, rep):
     res = rep.result
+    notes = rep.notes
+    if isinstance(notes, list):
+        notes = [tuple(n) for n in notes]
     return (client, rep.kind, rep.req_id, rep.success, rep.redirect,
-            rep.local,
-            None if res is None else (res.kind, res.value, res.old_value))
+            rep.local, rep.rq_retry, rep.seq, notes,
+            None if res is None else (res.kind, res.value, res.old_value,
+                                      res.items))
 
 
 def leaf_digests(state):
@@ -692,6 +701,8 @@ def norm_frame(f, shard_norm, port=True):
         "kv_need": f["kv_need"],
         "kv": f.get("kv"),
         "cw_need": [tuple(x) for x in f.get("cw_need", ())],
+        "rq": [tuple(x) for x in f.get("rq", ())],
+        "rqr": [tuple(x) for x in f.get("rqr", ())],
     }
     for key in ("ps", "cw"):
         out[key] = {(g, vid): shard_norm(g, vid, sp.data_len, sp.shards)
@@ -1294,6 +1305,171 @@ def test_api_plane_that_cannot_bind_fails_bring_up():
             ExternalApi(("127.0.0.1", port))
     finally:
         holder.close()
+
+
+# ------------------------------------------------- the read tier, live
+@pytest.fixture(scope="class")
+def nqr_cluster(tmp_path_factory):
+    c = Cluster("MultiPaxos", 3, tmp_path_factory.mktemp("torch_nqr"),
+                num_groups=2, config={"near_quorum_reads": True})
+    yield c
+    c.stop()
+    assert not c.faults(), f"replica faults: {c.faults()}"
+
+
+class TestTorchClusterNearQuorumReads:
+    """The shape of ``tests/test_cluster.py::TestClusterNearQuorumReads``
+    on port replicas (2 groups, the codec on), plus scans and the commit
+    feed over the wire."""
+
+    def test_follower_serves_quorum_read(self, nqr_cluster):
+        ep = nqr_cluster.endpoint()
+        drv = DriverClosedLoop(ep)
+        drv.checked_put("nqr_key", "v1")
+        time.sleep(0.5)  # let followers apply
+        leader = ep.ctrl.request(CtrlRequest("query_info")).leader or 0
+        follower = next(s for s in sorted(ep.servers) if s != leader)
+        ep2 = GenericEndpoint(nqr_cluster.manager_addr, server_id=follower)
+        ep2.connect()
+        drv2 = DriverClosedLoop(ep2)
+        got = None
+        for _ in range(20):
+            r = drv2.get("nqr_key")
+            if r.kind == "success" and r.local:
+                got = r
+                break
+            ep2.reconnect(follower)
+            time.sleep(0.2)
+        ep2.leave()
+        ep.leave()
+        assert got is not None, "follower never served a quorum read"
+        assert got.result.value == "v1"
+        assert all(rep.wal.native for rep in nqr_cluster.replicas.values())
+
+    def test_quorum_read_history_linearizable(self, nqr_cluster):
+        """A writer streams unique values while follower-pinned readers
+        take the quorum-read path; the combined history must check out
+        (the tail-hit fallback keeps in-flight writes safe)."""
+        from summerset_tpu_torch.utils.linearize import check_history
+
+        ops = []
+        stop = threading.Event()
+        ep = nqr_cluster.endpoint()
+        drv = DriverClosedLoop(ep)
+        leader = ep.ctrl.request(CtrlRequest("query_info")).leader or 0
+        followers = [s for s in sorted(ep.servers) if s != leader][:2]
+        n_local = [0]
+
+        def reader(ci, sid):
+            ep2 = GenericEndpoint(nqr_cluster.manager_addr, server_id=sid)
+            ep2.connect()
+            drv2 = DriverClosedLoop(ep2, timeout=3.0)
+            while not stop.is_set():
+                t0 = time.monotonic()
+                r = drv2.get("nqr_hist")
+                t1 = time.monotonic()
+                if r.kind == "success":
+                    val = r.result.value if r.result else None
+                    ops.append(record_get(ci, "nqr_hist", val, t0, t1))
+                    n_local[0] += r.local
+                else:
+                    ep2.reconnect(sid)
+                    time.sleep(0.05)
+            try:
+                ep2.leave()
+            except Exception:
+                pass
+
+        threads = [threading.Thread(target=reader, args=(10 + i, sid),
+                                    daemon=True)
+                   for i, sid in enumerate(followers)]
+        for t in threads:
+            t.start()
+        for seq in range(12):
+            val = f"w-{seq}"
+            t0 = time.monotonic()
+            rep = drv.put("nqr_hist", val)
+            t1 = time.monotonic()
+            if rep.kind == "success":
+                ops.append(record_put(0, "nqr_hist", val, t0, t1, True))
+            elif rep.kind in ("timeout", "failure", "disconnect"):
+                ops.append(record_put(0, "nqr_hist", val, t0, None, False))
+                drv._failover(rep)
+            time.sleep(0.25)
+        deadline = time.monotonic() + 20
+        while (sum(1 for o in ops if o.kind == "get") <= 8
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+        time.sleep(0.8)
+        stop.set()
+        for t in threads:
+            t.join(timeout=15)
+        ep.leave()
+        reads = [o for o in ops if o.kind == "get"]
+        assert len(reads) > 8, f"too few reads: {len(reads)}"
+        assert n_local[0] > 0
+        ok, diag = check_history(ops)
+        assert ok, diag
+
+    def test_barrier_scan_and_commit_feed_over_the_wire(self, nqr_cluster):
+        """A learner subscribes at a follower (its snapshot plus its notes
+        equal that replica's applied KV); the leader's barrier scans
+        return every acked key of the span in order; probes answer."""
+        from summerset_tpu_torch.client.endpoint import ClientApiStub
+        from summerset_tpu_torch.host.messages import ApiRequest
+        from summerset_tpu_torch.host.statemach import Command
+
+        ep = nqr_cluster.endpoint()
+        drv = DriverClosedLoop(ep, timeout=5.0)
+        leader = ep.ctrl.request(CtrlRequest("query_info")).leader or 0
+        follower = next(s for s in sorted(ep.servers) if s != leader)
+        sub = ClientApiStub(9000 + ep.id, ep.servers[follower][0])
+        sub.send_req(ApiRequest("sub", req_id=1))
+        snap = sub.recv_reply(timeout=10)
+        assert snap.kind == "sub" and snap.success
+        kv, seq = dict(snap.notes), snap.seq
+        acked = {}
+        for i in range(10):
+            drv.checked_put(f"sc{i:02d}", f"x{i}", retries=40)
+            acked[f"sc{i:02d}"] = f"x{i}"
+        drv.checked_put("sd", "out", retries=40)
+        for _ in range(20):
+            r = drv.scan("sc", end="sd")
+            if r.kind == "success":
+                break
+            time.sleep(0.1)
+        assert r.kind == "success" and not r.local
+        assert r.result.items == tuple(sorted(acked.items()))
+        r = drv.scan("sc", end="sd", limit=3)
+        assert r.result.items == tuple(sorted(acked.items()))[:3]
+        sub.send_req(ApiRequest("probe", req_id=2,
+                                cmd=Command("get", "sc00")))
+        deadline = time.monotonic() + 15
+        probe = None
+        rep = nqr_cluster.replicas[follower]
+        while time.monotonic() < deadline:
+            try:
+                x = sub.recv_reply(timeout=1.0)
+            except socket.timeout:
+                if probe is not None and kv == dict(
+                        rep.statemach.snapshot_items()):
+                    break
+                continue
+            if x.kind == "probe":
+                probe = x
+                assert not x.success  # no leases on MultiPaxos
+                continue
+            assert x.kind == "note" and x.req_id == 0
+            for s, k, v in x.notes:
+                assert s == seq + 1, (s, seq)
+                seq = s
+                kv[k] = v
+            assert x.seq == seq
+        sub.close()
+        ep.leave()
+        assert probe is not None
+        assert kv == dict(rep.statemach.snapshot_items())
+        assert all(kv.get(k) == v for k, v in acked.items())
 
 
 # ------------------------------------------ lease and conf planes, live

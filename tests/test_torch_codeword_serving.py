@@ -3,8 +3,11 @@ and Crossword served by three port ``ServerReplica`` threads at 2 groups
 (the shapes of ``tests/test_codeword_plane.py::TestClusterCodewordPlane``
 and ``tests/test_cluster.py::TestClusterRSFamily``).
 
-- the leader's payload-plane egress per value is shard-sized: below
-  0.75x of a MultiPaxos cluster's full copies for the same workload;
+- the proposing leader's payload-plane egress per value is shard-sized:
+  below 0.75x of a MultiPaxos cluster's full copies for the same workload
+  (measured on the replica that proposed the workload, and over the shard
+  sends only: a codeword replica meters the full copies it also sends,
+  CRaft's fallback and need-serves, apart in ``full_bytes``);
 - a durable reset of the leader: every acknowledged key reads back, and
   the restarted replica's shard store holds every value its WAL ``cw``
   records logged;
@@ -82,6 +85,15 @@ def _per_item(rep):
     return sum(rep.pp_bytes) / max(1, sum(rep.pp_items))
 
 
+def _proposer(cluster):
+    """The replica that sent the most payloads: the workload's leader.
+    Under CPU load a starved replica thread can lose an election after
+    the workload, so the group's current leader may have proposed
+    nothing of it."""
+    return max(cluster.replicas.values(),
+               key=lambda rep: (sum(rep.pp_items), -rep.me))
+
+
 @pytest.fixture(scope="module")
 def mp_baseline(tmp_path_factory):
     """The MultiPaxos leader's bytes per full-copy payload for the same
@@ -90,7 +102,7 @@ def mp_baseline(tmp_path_factory):
                  {"hear_timeout_lo": 10, "hear_timeout_hi": 20})
     try:
         _workload(c, "cwb")
-        rep = c.replicas[_leader(c)]
+        rep = _proposer(c)
         assert sum(rep.pp_bytes) > 2 * KEYS * len(VALUE), rep.pp_bytes
         out = _per_item(rep)
     finally:
@@ -115,7 +127,7 @@ class TestTorchCodewordServing:
     def test_put_get_with_shard_sized_frames(self, cw_cluster, mp_baseline):
         _workload(cw_cluster, "cwk")
         _read_back(cw_cluster, "cwk")
-        rep = cw_cluster.replicas[_leader(cw_cluster)]
+        rep = _proposer(cw_cluster)
         assert rep.codewords is not None and sum(rep.pp_items) > 0
         # a shard send carries ~batch/d plus parity and framing: strictly
         # below 0.75x of a full copy at d = 2

@@ -1,6 +1,9 @@
 """The port stands alone: importing ``summerset_tpu_torch`` (every module),
 ``chip_smoke`` and ``serve_upload_ab`` loads neither ``jax`` nor the JAX package, and no entry
-point of the port falls back to the CPU by itself.
+point of the port falls back to the CPU by itself.  The wire codec and
+the native WAL's loader, run (not only imported), load nothing of the JAX
+package either, and a lane decoded as a view into a received frame never
+reaches the device upload unchanged.
 
 The import check runs in a subprocess, because ``tests/conftest.py``
 imports jax into this one.
@@ -67,7 +70,8 @@ def test_port_and_chip_smoke_import_no_jax():
 #: the serving path's modules (each also checked alone below)
 SERVING_MODULES = tuple("summerset_tpu_torch." + m for m in (
     "utils.errors", "utils.logging", "utils.loops", "utils.timer",
-    "utils.safetcp", "utils.linearize", "utils.linreg", "utils.qdisc",
+    "utils.safetcp", "utils.wirecodec", "utils.linearize", "utils.linreg",
+    "utils.qdisc", "ops.native",
     "host.statemach", "host.messages", "host.payload", "host.storage",
     "host.control", "host.transport", "host.external", "host.telemetry",
     "host.adaptive", "host.codeword", "host.server", "manager",
@@ -90,6 +94,84 @@ def test_serving_module_alone_imports_no_jax(module):
     proc = _run(["-c", _ALONE, module])
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+_RUN_CODEC_AND_WAL = r"""
+import json, os, sys, tempfile
+import numpy as np
+from summerset_tpu_torch.host.messages import ApiReply, ApiRequest
+from summerset_tpu_torch.host.statemach import Command
+from summerset_tpu_torch.host.storage import LogAction, StorageHub
+from summerset_tpu_torch.utils import safetcp, wirecodec
+req = ApiRequest("req", req_id=1, cmd=Command("put", "k", "v"))
+assert wirecodec.decode_body(wirecodec.encode_body(req)) == req
+rep = ApiReply("note", seq=2, notes=[(2, "k", "v")])
+assert safetcp.decode_body(safetcp.encode_frame(rep, codec=True)[8:]) == rep
+frame = (3, {"msg": {"flags": np.arange(6, dtype=np.int32)}, "pp": {}})
+assert wirecodec.decode_body(wirecodec.encode_body(frame))[0] == 3
+hub = StorageHub(os.path.join(tempfile.mkdtemp(), "w.wal"))
+hub.do_sync_action(LogAction("append", entry=("x", 1), sync=True))
+native = hub.native
+hub.stop()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "summerset_tpu" or m.startswith("summerset_tpu."))
+print(json.dumps({"bad": bad, "native": native}))
+"""
+
+
+def test_codec_and_native_wal_run_without_jax():
+    proc = _run(["-c", _RUN_CODEC_AND_WAL])
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"bad": [], "native": True}
+
+
+def test_decoded_lane_views_never_reach_upload(tmp_path):
+    """Frames decoded by the codec hand out read-only views into the
+    received body; ``_assemble_inbox`` must build fresh arrays for the
+    upload (on the CPU ``_upload`` wraps them with ``torch.from_numpy``,
+    sharing memory with the tensors a step then reads).  Checked for one
+    frame per peer and for superseded frames (``_peer_lanes``)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    import summerset_tpu_torch.host.server as tsrv
+    from summerset_tpu_torch.utils import wirecodec
+    from test_torch_cluster import FakeNet, build
+
+    net = FakeNet(3)
+    rep = build(tsrv, "MultiPaxos", 0, 3, 2, 16, tmp_path / "r0",
+                {"pipeline": False}, net=net, device="cpu")
+    try:
+        out = {k: v.copy() for k, v in rep._last_out.items()}
+        rng = np.random.default_rng(3)
+        for v in out.values():
+            v[...] = rng.integers(0, 2, v.shape).astype(v.dtype)
+
+        def decoded(src):
+            f = {"msg": {k: v[:, src] if k in rep.kernel.broadcast_lanes
+                         else v[:, src, 0] for k, v in out.items()},
+                 "pp": {}, "need": [], "kv_need": False, "ts": 0.0}
+            _tick, back = wirecodec.decode_body(
+                wirecodec.encode_body((7, f)))
+            assert all(not a.flags.writeable for a in back["msg"].values())
+            return back
+
+        got = {}
+        rep._upload = lambda arrays: got.update(arrays) or {}
+        for frames in ({1: [decoded(1)], 2: [decoded(2)]},
+                       {1: [decoded(1), decoded(1)], 2: None}):
+            views = [a for fl in frames.values() for f in (fl or ())
+                     for a in f["msg"].values()]
+            got.clear()
+            rep._assemble_inbox(out, frames)
+            assert set(got) == set(out)
+            for a in got.values():
+                assert a.flags.writeable and a.flags.owndata
+                assert not any(np.shares_memory(a, v) for v in views)
+    finally:
+        rep.shutdown()
 
 
 def test_chip_smoke_refuses_without_a_card():

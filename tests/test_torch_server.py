@@ -979,3 +979,235 @@ def test_epaxos_rejoin_after_long_absence_lockstep(tmp_path):
     assert all(a1 + 20 < a0 for a1, a0 in zip(applied[1], applied[0])), \
         applied
     assert all(c1 < c0 for c1, c0 in zip(cmt[1], cmt[0])), cmt
+
+
+# ------------------------------------------------- the read tier, lockstep
+def nqr_requests(pkg, t, r):
+    """Near-quorum read schedule: replica 0 (the leader) puts ``q0``..
+    ``q2`` in turn every third tick; replicas 1 and 2 get the key put one
+    or two ticks before (a voted tail at some replica: ``rq_retry``) and
+    a quiet key (served by quorum, ``local``)."""
+    Req, Cmd = pkg.msg.ApiRequest, pkg.sm.Command
+    base = 1000 * t + 10 * r
+    if r == 0:
+        if t % 3 == 0 and t < 36:
+            return [(100, Req("req", req_id=base, cmd=Cmd(
+                "put", f"q{(t // 3) % 3}", f"v{t}")))]
+        return []
+    if t < 4:
+        return []
+    recent = f"q{((t - r) // 3) % 3}"
+    return [(200 + r, Req("req", req_id=base + 1, cmd=Cmd("get", recent))),
+            (300 + r, Req("req", req_id=base + 2,
+                          cmd=Cmd("get", "quiet")))]
+
+
+def test_near_quorum_reads_lockstep(tmp_path):
+    """MultiPaxos with ``near_quorum_reads``: follower gets fan out as
+    ``rq`` frame parts, the peers answer with ``rqr`` samples, and the
+    follower serves a quiet key by quorum (``local``) and turns a key
+    with a write in some voted tail into an ``rq_retry`` redirect.  Per
+    tick every state leaf, frame (``rq``/``rqr`` included), WAL record,
+    floor, KV and reply (``local``, ``rq_retry``) equal the JAX
+    replicas'."""
+    G, R, W = 2, 3, 16
+    cfg = dict(BASE_CFG, pipeline=False, hear_timeout_lo=16,
+               hear_timeout_hi=32, near_quorum_reads=True)
+    sides = _lockstep_sides(tmp_path, "MultiPaxos", SIDES, cfg, G, R, W)
+    served = retried = rq_parts = 0
+    try:
+        for t in range(48):
+            seen = lockstep_tick(sides, t, reqs=nqr_requests)
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                assert j[part] == p[part], f"tick {t}: {part} differs"
+            rq_parts += sum(bool(f["rq"]) + bool(f["rqr"])
+                            for _s, _d, f in p["frames"])
+            for r, rr in enumerate(p["replies"]):
+                for x in rr:
+                    if r and x[1] == "reply" and x[5]:
+                        served += 1
+                    if r and x[1] == "redirect" and x[6]:
+                        retried += 1
+        assert all(rep._nqr_ok for rep in sides["torch"][0])
+    finally:
+        shutdown_sides(sides)
+    assert rq_parts > 20, rq_parts
+    assert served > 10 and retried > 3, (served, retried)
+
+
+def scan_requests(protocol, lead=0):
+    """Scan schedule: the leader puts ``s0``..``s5`` and ``t0`` (outside
+    the span) in the first ticks and again every seventh; from tick 8 it
+    scans ``[s0, s9)`` (every fourth tick, limit 0 or 3) and a follower
+    scans too (a redirect, or a lease read)."""
+
+    def reqs(pkg, t, r):
+        Req, Cmd = pkg.msg.ApiRequest, pkg.sm.Command
+        base = 1000 * t + 10 * r
+        out = []
+        if r == lead and (t < 7 or t % 7 == 0):
+            key = "t0" if t == 3 else f"s{t % 6}"
+            out.append((100, Req("req", req_id=base, cmd=Cmd(
+                "put", key, f"v{t}"))))
+        if t >= 8 and t % 4 == 0:
+            lim = 3 if t % 8 == 0 else 0
+            if r == lead:
+                out.append((400, Req("req", req_id=base + 4, cmd=Cmd(
+                    "scan", "s0", end="s9", limit=lim))))
+            elif r == (lead + 1) % 3:
+                out.append((500 + r, Req("scan", req_id=base + 5,
+                                         cmd=Cmd("scan", "s", end="t"))))
+        return out
+
+    return reqs
+
+
+SCAN_CASES = {
+    # the commit-bar barrier: markers into every group's log
+    "barrier": ("MultiPaxos", {}),
+    # leader leases: served from applied state when no tail write
+    "lease": ("MultiPaxos", {"leader_leases": True}),
+    # the markers are encoded at the leader and rebuilt at followers
+    "rspaxos_barrier": ("RSPaxos", CW_CFG),
+    # leaderless: a scan is answered with an error
+    "epaxos": ("EPaxos", {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_lockstep(tmp_path, case):
+    """Scans on three JAX and three port replicas in per-tick lockstep:
+    every state leaf, frame (the markers in ``pp``/``ps``), WAL record,
+    floor, KV and reply (``items``, ``local``) equal on every tick.  The
+    leader's scans return every key of the span it acked, in order; the
+    barrier marker applies with no effect, after a rebuild from shards
+    too; EPaxos answers ``error``."""
+    protocol, extra = SCAN_CASES[case]
+    G, R, W = 2, 3, 16
+    cfg = dict(BASE_CFG, pipeline=False, hear_timeout_lo=16,
+               hear_timeout_hi=32)
+    cfg.update(extra)
+    sides = _lockstep_sides(tmp_path, protocol, SIDES, cfg, G, R, W)
+    reps = sides["torch"][0]
+    rebuilt = [count_calls(r.codewords, "reconstruct_batch",
+                           lambda b: b is not None)
+               for r in reps if r.codewords is not None]
+    scans, errors, local, acked = [], 0, 0, {}
+    try:
+        for t in range(44):
+            seen = lockstep_tick(sides, t, reqs=scan_requests(protocol))
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                assert j[part] == p[part], f"tick {t}: {part} differs"
+            for r, rr in enumerate(p["replies"]):
+                for x in rr:
+                    if x[0] == 100 and x[1] == "reply":
+                        acked[x[2]] = t
+                    if x[0] in (400, 501) and x[1] == "reply":
+                        scans.append((t, x[0], x[9][3]))
+                        local += x[5]
+                    if x[0] in (400, 501) and x[1] == "error":
+                        errors += 1
+        kv = dict(reps[0].statemach.snapshot_items())
+        served = reps[0].metrics.counter_value("scan_served")
+    finally:
+        shutdown_sides(sides)
+    if protocol == "EPaxos":
+        assert errors >= 8 and not scans, (errors, scans)
+        return
+    assert len(scans) >= 4
+    assert served == sum(1 for s in scans if s[1] == 400), (served, scans)
+    for _t, _client, items in scans:
+        keys = [k for k, _v in items]
+        assert keys == sorted(keys) and all(k.startswith("s") for k in keys)
+    # the last scan saw every key of the span the leader holds
+    last = scans[-1][2]
+    want = tuple(sorted((k, v) for k, v in kv.items() if "s0" <= k < "s9"))
+    assert last == want or len(last) == 3, (last, want)
+    if case == "lease":
+        assert local > 0, scans
+    else:
+        assert local == 0, scans
+    if case == "rspaxos_barrier":
+        assert sum(b[0] for b in rebuilt) > 0
+
+
+def feed_requests(sub_tick=5):
+    """Commit feed schedule: a learner (client 700) subscribes at
+    replica 1 at ``sub_tick``; the leader takes a put every tick for 30
+    ticks over ``f0``..``f4``; probes for a key at the leader and at
+    replica 1 every fifth tick, and for a span at replica 2."""
+
+    def reqs(pkg, t, r):
+        Req, Cmd = pkg.msg.ApiRequest, pkg.sm.Command
+        base = 1000 * t + 10 * r
+        out = []
+        if r == 1 and t == sub_tick:
+            out.append((700, Req("sub", req_id=base + 7)))
+        if r == 0 and t < 30:
+            out.append((100, Req("req", req_id=base, cmd=Cmd(
+                "put", f"f{t % 5}", f"v{t}"))))
+        if t % 5 == 2:
+            if r < 2:
+                out.append((600 + r, Req("probe", req_id=base + 6,
+                                         cmd=Cmd("get", "f1"))))
+            else:
+                out.append((600 + r, Req("probe", req_id=base + 6,
+                                         cmd=Cmd("scan", "f", end="g"))))
+        return out
+
+    return reqs
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["serial", "pipelined"])
+def test_subscribe_and_notes_lockstep(tmp_path, pipelined):
+    """A subscription at a follower and probes, in both loop modes: per
+    tick every state leaf, frame, WAL record, floor and KV equal the JAX
+    replicas', and the replies (the ``sub`` snapshot, every ``note`` with
+    its ``seq``, the probe verdicts) per tick in the serial loop, summed
+    over the run in the pipelined one.  The notes' seqs rise strictly by
+    one, and the snapshot plus the notes equal the follower's applied
+    KV."""
+    G, R, W = 2, 3, 16
+    cfg = dict(BASE_CFG, pipeline=pipelined, hear_timeout_lo=16,
+               hear_timeout_hi=32)
+    sides = _lockstep_sides(tmp_path, "MultiPaxos", SIDES, cfg, G, R, W)
+    replies = {name: [[] for _ in range(R)] for name in sides}
+    reqs = feed_requests()
+    try:
+        for t in range(40):
+            seen = lockstep_tick(sides, t, reqs=reqs, pipelined=pipelined)
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                if part != "replies" or not pipelined:
+                    assert j[part] == p[part], f"tick {t}: {part} differs"
+            for name in sides:
+                for r, rr in enumerate(seen[name]["replies"]):
+                    replies[name][r].extend(rr)
+        if pipelined:
+            for r in range(R):
+                _flush_replica(sides, r)
+            for name, (rs, *_rest) in sides.items():
+                for r, rep in enumerate(rs):
+                    replies[name][r].extend(
+                        norm_reply(c, x) for c, x in rep.external.replies)
+        kv1 = dict(sides["torch"][0][1].statemach.snapshot_items())
+    finally:
+        shutdown_sides(sides)
+    assert replies["jax"] == replies["torch"]
+    feed = [x for x in replies["torch"][1] if x[0] == 700]
+    assert feed and feed[0][1] == "sub"
+    kv = dict(feed[0][8])
+    seqs = [feed[0][7]]
+    for x in feed[1:]:
+        assert x[1] == "note"
+        for s, k, v in x[8]:
+            assert s == seqs[-1] + 1, (s, seqs[-1])
+            seqs.append(s)
+            kv[k] = v
+        assert x[7] == seqs[-1]
+    assert len(seqs) > 15 and kv == kv1
+    probes = [x for rr in replies["torch"] for x in rr if x[1] == "probe"]
+    assert len(probes) >= 20
