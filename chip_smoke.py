@@ -203,10 +203,39 @@ before printing any result.  Phases, each printed as it runs:
              a pickle client read back each other's writes, the codec
              replicas meter bytes saved, and the p2p tick frame's size in
              both formats.  Seconds and peak device memory.
-Every served replica of phases 12-14 and 17-19 must have opened the native
-WAL.  Phases 4, 6, 7, 13 and 19 each count their own kernel launches and
-fail on none; phases 8-12 and 14-18 run no codeword plane and launch no
-hand kernel.
+20. planes — the observability and control planes at phase 12's shape,
+             the servers' default planes on.  MultiPaxos: (a) phase 12's
+             load for 4 s, then ``metrics_dump``, ``flight_dump`` and
+             ``watch_series`` through the manager with the port's client
+             functions (seconds and bytes each): every replica's device
+             lanes, the leader's committed counts at least the acked ops,
+             ``wal_fsync_us`` and ``loop_stage_us`` not empty, every
+             sampled slot trace committed no later than applied, the
+             flight rings' drop accounting, and each replica's watch
+             frames summing to its counters at its newest frame
+             (lossless); (d) 16 clients on a Zipf-skewed put/get mix
+             (seeded numpy draws over the 1024 keys): an ``observe``
+             autopilot sends no ctrl mutation, an ``act`` one splits the
+             hot key off its group within its budget and the range
+             change installs (decisions and their ticks printed); (b) a
+             slow WAL injected at the leader (``inject_faults``) under 4
+             of the clients: it self-indicts and demotes once (a flight
+             ``demote`` event), every group elects another leader
+             (seconds; ops/s before, during, after), no second demotion
+             after the heal, every acked key read back.  RSPaxos RS(2,1)
+             at 3000 B puts: (c) a key split to another group with a
+             writer's puts in flight, then merged back, each installed
+             at all three replicas (seconds; sheds), ``route_group``
+             equal everywhere, every acked key read back, then a
+             snapshot and a restart of one follower with the ranges
+             standing; the adopt's encode and rebuilds launch
+             ``bitslice_gf256`` (counted; the kernel held against its
+             plain version at the adopt's shape).
+Every served replica of phases 12-14 and 17-20 must have opened the native
+WAL, and a phase with no injected fault fails on any demoted leader
+(phases 12-19 each log ``leader_demotions``).  Phases 4, 6, 7, 13, 19 and
+20 each count their own kernel launches and fail on none; phases 8-12
+and 14-18 run no codeword plane and launch no hand kernel.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -252,10 +281,11 @@ PAYLOAD = 4096
 # summerset_tpu/cli/server.py:33, tick 0.002 s as :34), 16 clients
 SERVE_SHAPE = dict(G=1024, R=3, W=64, tick=0.002, keys=1024)
 SERVE_CLIENTS = 16
-# the timed windows of phases 12-15 (once 10 s / 5 s) are short enough
+# the timed windows of phases 12-15 (once 10 s / 5 s, then 6 s) are short enough
 # that the script, phases 17-18 included, stays well inside its time
 # limit; their shapes are unchanged
-SERVE_SECS = 6.0          # MultiPaxos timed load window
+SERVE_SECS = 4.0          # MultiPaxos timed load window
+READ_BACK_CHUNK = 8       # keys per read-back reader thread
 SERVE_RAFT_SECS = 4.0     # Raft timed load window
 SERVE_PAUSE_S = 3.0       # a paused leader stays paused at least this
 SERVE_FAILOVER_MAX_S = 30.0
@@ -297,6 +327,28 @@ PROC_READY_S = 240.0
 BENCH_SMOKE_ENV = {"BENCH_TICKS": "256", "BENCH_RUNS": "3"}
 #: the card every phase runs on (a rehearsal on the CPU may override it)
 DEV = "cuda"
+#: config every ``_serve_run`` cluster starts from (empty: the servers'
+#: defaults, every observability and control plane on); ``planes_ab``
+#: sets PLANES_OFF here for its planes-off runs
+SERVE_BASE_CFG = {}
+PLANES_OFF = {"flight_record": 0, "health_enabled": 0, "graftwatch": 0,
+              "trace_sample": 0}
+# phase 20 (the observability and control planes)
+PLANES_SECS = 4.0          # (a): phase 12's load before the scrapes
+PLANES_SLOW_WAL = {"slow": 6.0, "slow_floor": 0.01}
+PLANES_FAILOVER_MAX_S = 60.0
+#: (b) runs under 4 of the 16 clients: the slow WAL stalls every append
+#: 50 ms (the fault's floor), so a tick costs 50 ms per record, and
+#: 16 clients' records would slow the leader's tick, and with it its
+#: health evaluations (every 10 of its own ticks), past the followers'
+#: election timers, turning the fail-slow leader into a fail-stop one
+PLANES_DEMOTE_CLIENTS = 4
+PLANES_HEAL_S = 4.0        # after the heal: no second demotion
+PLANES_ZIPF = 1.1          # (d): the hot-key mix's Zipf exponent
+PLANES_AP_SCRAPE_S = 1.5
+PLANES_AP_ROUNDS = 4       # observe-mode rounds
+PLANES_AP_MAX_S = 45.0     # act mode: the reshard installs by then
+PLANES_CUT_MAX_S = 60.0    # (c): seal to install
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
 # int32 ALU rate = 132 SMs x 64 INT32 lanes x 1.98 GHz boost
@@ -1543,8 +1595,21 @@ def _serve_harness():
     return harness
 
 
-def _require_clean(cluster, what):
-    """No replica fault, and every served replica's WAL opened native."""
+def _demotions(cluster):
+    """``leader_demotions`` per live replica (the health plane's count;
+    a replica restarted by a durable reset counts from 0 again)."""
+    return {str(me): rep.metrics.counter_value("leader_demotions")
+            for me, rep in sorted(cluster.replicas.items())}
+
+
+def _require_clean(cluster, what, demotions_ok=False):
+    """No replica fault, every served replica's WAL opened native, and
+    (unless the phase injected a fault) no leader demoted."""
+    dem = _demotions(cluster)
+    log(f"{what}: leader_demotions {dem}")
+    if not demotions_ok and any(dem.values()):
+        fail(f"{what}: the health plane demoted a leader with no fault "
+             f"injected: {dem}")
     if cluster.faults():
         fail(f"{what}: replica bring-up failures or crashes: "
              f"{cluster.faults()}")
@@ -1570,14 +1635,21 @@ class _LoadClient:
     returns (after a timeout or refusal it stays where the failover took
     it for ``PIN_RETURN_S``).  With ``shared_gets`` a get reads any key,
     so it meets other clients' puts to it (EPaxos: conflicting commands
-    at different replicas); puts stay on the client's own keys."""
+    at different replicas); puts stay on the client's own keys.  With
+    ``zipf`` = s, key ``k`` is drawn with weight ``1 / (k + 1) ** s``
+    from a seeded numpy generator (a hot-key mix).  A shed op (a sealed
+    range mid-cutover) was never executed: it is counted in ``sheds`` and
+    retried after its hint."""
 
     PIN_RETURN_S = 5.0
 
     def __init__(self, cluster, ci, stop, value_bytes=None, put_share=0.5,
-                 pin=None, op_timeout=SERVE_OP_TIMEOUT, shared_gets=False):
+                 pin=None, op_timeout=SERVE_OP_TIMEOUT, shared_gets=False,
+                 zipf=None):
         import random
         import threading
+
+        import numpy as np
 
         self.ci = ci
         self.stop = stop
@@ -1590,6 +1662,15 @@ class _LoadClient:
                      if k % SERVE_CLIENTS == ci]
         self.get_keys = ([f"key{k}" for k in range(SERVE_SHAPE["keys"])]
                          if shared_gets else self.keys)
+        self.zipf = None
+        if zipf:
+            def probs(keys):
+                w = np.array([1.0 / (int(k[3:]) + 1) ** zipf for k in keys])
+                return w / w.sum()
+
+            self.nprng = np.random.default_rng(SEED + 1000 + ci)
+            self.zipf = (probs(self.keys), probs(self.get_keys))
+        self.sheds = 0
         self.acked = {}      # key -> last acknowledged put value
         self.later = {}      # key -> puts unacknowledged since then
         self.ok = []         # (t_done, latency_s, server)
@@ -1624,7 +1705,12 @@ class _LoadClient:
                     t_fail = time.monotonic()
             t0 = time.monotonic()
             is_put = self.rng.random() < self.put_share
-            key = self.rng.choice(self.keys if is_put else self.get_keys)
+            keys = self.keys if is_put else self.get_keys
+            if self.zipf is None:
+                key = self.rng.choice(keys)
+            else:
+                key = keys[int(self.nprng.choice(
+                    len(keys), p=self.zipf[0 if is_put else 1]))]
             if is_put:
                 val = f"c{self.ci}.{seq}"
                 if self.value_bytes:
@@ -1637,7 +1723,7 @@ class _LoadClient:
                 if rep.kind == "success":
                     self.acked[key] = val
                     self.later[key] = set()
-                elif rep.kind != "redirect":
+                elif rep.kind not in ("redirect", "shed"):
                     # may or may not have executed
                     self.later.setdefault(key, set()).add(val)
             else:
@@ -1647,6 +1733,9 @@ class _LoadClient:
                 self.ok.append((t1, t1 - t0, ep.current))
                 if not is_put:
                     self.gets.append((t1, t1 - t0, ep.current, rep.local))
+            elif rep.kind == "shed":
+                self.sheds += 1
+                time.sleep(max(rep.retry_after, 0.01))
             elif rep.kind != "redirect":
                 self.errors += 1
                 t_fail = time.monotonic()
@@ -1952,7 +2041,8 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
     t_up = time.perf_counter()
     cluster = harness.Cluster(
         protocol, sh["R"], tmp, tick=sh["tick"], num_groups=sh["G"],
-        window=sh["W"], device=DEV, settle=2.0, config=config,
+        window=sh["W"], device=DEV, settle=2.0,
+        config=dict(SERVE_BASE_CFG, **(config or {})),
     )
     try:
         up_s = time.perf_counter() - t_up
@@ -2042,6 +2132,7 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
             "leader_pp_bytes_per_payload": (round(pp_per, 1)
                                             if pp_per is not None else None),
             "bitslice_launches_window": w_launches,
+            "leader_demotions": _demotions(cluster),
             "launches_per_leader_tick": round(
                 w_launches / max(lead_ticks, 1e-9), 3),
             **extra, "card": card,
@@ -2126,17 +2217,19 @@ def _raft_faults(cluster, clients):
 
 def _read_back(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
     """Every key's last acknowledged value reads back through the
-    cluster (after the durable resets)."""
+    cluster (after the durable resets).  Each client's keys are read by
+    readers of at most ``READ_BACK_CHUNK`` keys each, so a read-back
+    takes a few gets' time, not one per key of the busiest client."""
     import threading
 
     from summerset_tpu_torch.client.drivers import DriverClosedLoop
 
     bad = []
 
-    def reader(c):
+    def reader(c, items):
         ep = cluster.endpoint()
         drv = DriverClosedLoop(ep, timeout=timeout)
-        for key, val in c.acked.items():
+        for key, val in items:
             for _ in range(40):
                 rep = drv.get(key)
                 if rep.kind == "success":
@@ -2149,8 +2242,13 @@ def _read_back(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
                 bad.append((key, val, "no reply"))
         ep.leave()
 
-    ts = [threading.Thread(target=reader, args=(c,), daemon=True)
-          for c in clients]
+    ts = []
+    for c in clients:
+        items = list(c.acked.items())
+        for i in range(0, len(items), READ_BACK_CHUNK):
+            ts.append(threading.Thread(
+                target=reader, args=(c, items[i:i + READ_BACK_CHUNK]),
+                daemon=True))
     for t in ts:
         t.start()
     for t in ts:
@@ -2809,6 +2907,15 @@ def phase_process_cluster(np, card, mp=None):
             c.thread.join(timeout=30)
         n_read = _read_back(cluster, clients, what)
         alive("after the read-back")
+        from summerset_tpu_torch.client.endpoint import scrape_metrics
+
+        snaps = scrape_metrics(mgr, timeout=60)
+        dem = {sid: snap["host"]["counters"]["leader_demotions"]
+               for sid, snap in snaps.items()}
+        log(f"{what}: leader_demotions {dem}")
+        if len(dem) != sh["R"] or any(dem.values()):
+            fail(f"{what}: the health plane demoted a leader with no "
+                 f"fault injected, or a scrape missed a replica: {dem}")
         time.sleep(2.0)  # the followers' last applies land
         for _name, p, _path in procs:
             os.killpg(p.pid, signal.SIGTERM)
@@ -2841,6 +2948,7 @@ def phase_process_cluster(np, card, mp=None):
             "p99_ms": round(float(np.percentile(lats, 99)) * 1e3, 3),
             "bring_up_s": round(up_s, 2), "read_back_keys": n_read,
             "slots_agreed": slots, "applied_per_replica": floors,
+            "leader_demotions": dem,
             "phase12_one_interpreter": (
                 {k: mp[k] for k in ("ops_per_s", "p50_ms", "p99_ms")}
                 if mp else None),
@@ -3599,6 +3707,543 @@ def phase_read_tier(torch, np, card):
     return {"launches": launches, "max_abs_err": err}
 
 
+
+# ------------------------------------- observability and control planes --
+def _leads(cluster):
+    """{sid: [G] bool} of the live replicas' leader flags."""
+    return {me: rep._is_leader.copy()
+            for me, rep in sorted(cluster.replicas.items())}
+
+
+def _ctrl_req(cluster, kind, payload=None, servers=None, timeout=120):
+    from summerset_tpu_torch.host.messages import CtrlRequest
+
+    ep = cluster.endpoint()
+    try:
+        return ep.ctrl.request(CtrlRequest(kind, servers=servers,
+                                           payload=payload), timeout=timeout)
+    finally:
+        ep.leave()
+
+
+def _planes_scrapes(cluster, clients, what):
+    """(a): ``metrics_dump``, ``flight_dump`` and ``watch_series`` through
+    the manager with the port's client functions, each timed and sized,
+    and their checks."""
+    from summerset_tpu_torch.client.endpoint import (
+        scrape_fleet, scrape_flight, scrape_metrics,
+    )
+    from summerset_tpu_torch.core.telemetry import LANES
+
+    addr = cluster.manager_addr
+    got, out = {}, {}
+    # counted first: every op acknowledged by now was applied before the
+    # scrape reads the counters (acks ride execution)
+    acked = sum(len(c.ok) for c in clients)
+    for name, fn in (("metrics_dump", lambda: scrape_metrics(addr, 60)),
+                     ("flight_dump", lambda: scrape_flight(addr, None, 60)),
+                     ("watch_series", lambda: scrape_fleet(addr, 60))):
+        t = time.monotonic()
+        got[name] = fn()
+        out[name] = {"s": round(time.monotonic() - t, 3),
+                     "bytes": len(json.dumps(got[name]))}
+    snaps = got["metrics_dump"]
+    if sorted(snaps) != ["0", "1", "2"]:
+        fail(f"{what}: metrics_dump answered {sorted(snaps)}")
+    lead = str(cluster.leader_of(0))
+    for sid, snap in snaps.items():
+        lanes = snap["device"]["lanes"]
+        if set(lanes) != set(LANES):
+            fail(f"{what}: replica {sid}'s device lanes {sorted(lanes)}")
+        hs = snap["host"]["histograms"]
+        for h in ("wal_fsync_us", "loop_stage_us{stage=intake}"):
+            if not hs.get(h, {}).get("count"):
+                fail(f"{what}: replica {sid}'s {h} is empty")
+        for tr in snap["traces"]:
+            if not (tr["tick_committed"] <= tr["tick_applied"]
+                    and "latency_ms" in tr):
+                fail(f"{what}: replica {sid}'s slot trace {tr}")
+        if snap["host"]["gauges"]["health_score"] != 1.0 or \
+                snap["host"]["counters"]["leader_demotions"]:
+            fail(f"{what}: replica {sid} scored unhealthy with no fault")
+    ls = snaps[lead]
+    if (ls["device"]["lanes"]["commits"] < 1
+            or ls["host"]["counters"]["commits_applied_total"] < acked):
+        fail(f"{what}: the leader's committed counts "
+             f"{ls['device']['lanes']['commits']} slots / "
+             f"{ls['host']['counters']['commits_applied_total']} ops below "
+             f"the {acked} acknowledged ops")
+    traces = sum(len(s["traces"]) for s in snaps.values())
+    if not traces:
+        fail(f"{what}: no sampled slot trace completed")
+    dumps = got["flight_dump"]
+    if sorted(dumps) != ["0", "1", "2"]:
+        fail(f"{what}: flight_dump answered {sorted(dumps)}")
+    for sid, d in dumps.items():
+        if (d["dropped"] != d["count"] - len(d["events"])
+                or sum(d["dropped_by_type"].values()) != d["dropped"]
+                or len(d["events"]) < min(d["count"], 8192)):
+            fail(f"{what}: replica {sid}'s flight ring accounting: count "
+                 f"{d['count']}, {len(d['events'])} events, dropped "
+                 f"{d['dropped']} {d['dropped_by_type']}")
+    out["traces"] = traces
+    out["flight_events"] = {s: d["count"] for s, d in dumps.items()}
+    out["flight_dropped"] = {s: d["dropped"] for s, d in dumps.items()}
+    # graftwatch is lossless: each replica's frames in the manager's ring
+    # sum to the cumulative counters of its newest frame (the emitter's
+    # own cursor), re-read until the ring holds that frame
+    deadline = time.monotonic() + 30
+    while True:
+        cur = {me: (rep.watch.frames_emitted, dict(rep.watch._prev_counters))
+               for me, rep in sorted(cluster.replicas.items())}
+        fleet = scrape_fleet(addr, 60) or {}
+        series = {s["sid"]: s["frames"] for s in fleet.get("series", ())}
+        if all(len(series.get(me, ())) == n for me, (n, _c) in cur.items()):
+            break
+        if time.monotonic() > deadline:
+            fail(f"{what}: the fleet ring never caught up with the frames "
+                 f"emitted: {[(me, n) for me, (n, _c) in cur.items()]}")
+        time.sleep(0.5)
+    for me, (n, cum) in cur.items():
+        tot = {}
+        for f in series[me]:
+            for k, d in f["counters"].items():
+                tot[k] = tot.get(k, 0) + d
+        if n == 0 or {k: v for k, v in cum.items() if v} != tot:
+            fail(f"{what}: replica {me}'s {n} watch frames do not sum to "
+                 "its counters")
+    out["watch_frames"] = {str(me): n for me, (n, _c) in cur.items()}
+    log(f"{what}: scrapes " + ", ".join(
+        f"{k} {v['s']} s {v['bytes']} B" for k, v in out.items()
+        if isinstance(v, dict) and "s" in v))
+    return out
+
+
+def _planes_autopilot(np, cluster, what):
+    """(d): the autopilot over a Zipf-skewed put/get mix: ``observe``
+    sends no ctrl mutation, then ``act`` splits the hot key off its group
+    within the policy's budget, and the range change installs."""
+    import zlib
+
+    from summerset_tpu_torch.host.autopilot import (
+        AutopilotDriver, AutopilotPolicy,
+    )
+    from summerset_tpu_torch.host.resharding import ResharderPolicy
+
+    G = SERVE_SHAPE["G"]
+
+    def policy():
+        return AutopilotPolicy(
+            seed=SEED, population=SERVE_SHAPE["R"], num_groups=G,
+            streak_need=2, cooldown_rounds=3, window_rounds=4,
+            budget_per_window=2,
+            resharder=ResharderPolicy(
+                G, lambda k: zlib.crc32(k.encode()) % G, hot_frac=0.25,
+                cold_frac=0.02, min_total=10))
+
+    def mutations():
+        reps = dict(cluster.replicas)
+        return (sum(r.metrics.counter_value("autopilot_actions", actuator=a)
+                    for r in reps.values()
+                    for a in ("batch", "pipeline", "lead_move")),
+                [r.metrics.gauge_value("autopilot_mode")
+                 for r in reps.values()],
+                _ctrl_req(cluster, "query_info").ranges or [])
+
+    obs = AutopilotDriver(cluster.manager_addr, policy(), mode="observe",
+                          scrape_s=PLANES_AP_SCRAPE_S, timeout=30)
+    for _ in range(PLANES_AP_ROUNDS):
+        obs.step()
+        time.sleep(PLANES_AP_SCRAPE_S)
+    obs.close()
+    if obs.actuation_log or mutations() != (0, [0.0] * 3, []):
+        fail(f"{what}: observe mode mutated the cluster: "
+             f"{obs.actuation_log} {mutations()}")
+    pol = policy()
+    act = AutopilotDriver(cluster.manager_addr, pol, mode="act",
+                          scrape_s=PLANES_AP_SCRAPE_S, timeout=30)
+    t0 = time.monotonic()
+    ticks, installed = [], None
+    while installed is None:
+        lead = cluster.leader_of(0)
+        for d in act.step():
+            ticks.append((d.render(), cluster.replicas[lead].tick
+                          if lead is not None else None))
+        fired = [d for d in pol.decisions() if d.actuator == "reshard"]
+        if fired:
+            arg = fired[0].arg
+            key, dst = arg["start"], int(arg["dst_group"])
+            ranges = _ctrl_req(cluster, "query_info").ranges or []
+            if ranges and all(r.route_group(key) == dst
+                              for r in cluster.replicas.values()):
+                installed = {"key": key, "dst_group": dst,
+                             "s": round(time.monotonic() - t0, 3)}
+                break
+        if time.monotonic() - t0 > PLANES_AP_MAX_S:
+            act.close()
+            fail(f"{what}: no reshard installed in {PLANES_AP_MAX_S} s "
+                 f"of act mode: decisions {act.decision_log}")
+        time.sleep(PLANES_AP_SCRAPE_S)
+    act.close()
+    per_window = {}
+    for d in pol.decisions():
+        if d.actuator != "recommend":
+            w = d.round_no // pol.window_rounds
+            per_window[w] = per_window.get(w, 0) + 1
+    if any(n > pol.budget_per_window for n in per_window.values()):
+        fail(f"{what}: actuations per window {per_window} over the "
+             f"budget {pol.budget_per_window}")
+    out = {"observe_decisions": obs.decision_log,
+           "act_decisions": [t for t, _tick in ticks],
+           "decision_ticks": [tick for _t, tick in ticks],
+           "actuations": act.actuation_log, "installed": installed}
+    log(f"{what}: autopilot decisions (leader tick): "
+        + "; ".join(f"{t} @{k}" for t, k in ticks)
+        + f"; installed {installed}")
+    return out
+
+
+def _planes_demotion(np, cluster, clients, what):
+    """(b): a slow WAL at the leader: it self-indicts and demotes once,
+    every group elects another leader, the clients go on; healed, no
+    second demotion."""
+    G = SERVE_SHAPE["G"]
+    victim = cluster.leader_of(0)
+    leads = _leads(cluster)
+    if victim is None or not leads[victim].all():
+        fail(f"{what}: replica {victim} does not lead every group before "
+             "the fault")
+    t_fault = time.monotonic()
+    rep = _ctrl_req(cluster, "inject_faults", servers=[victim],
+                    payload={"wal": dict(PLANES_SLOW_WAL), "seed": SEED})
+    if rep.done != [victim]:
+        fail(f"{what}: inject_faults answered {rep.done}")
+    deadline = t_fault + PLANES_FAILOVER_MAX_S
+    t_demote = t_new = None
+    while True:
+        vr = cluster.replicas.get(victim)
+        if t_demote is None and vr is not None and \
+                vr.metrics.counter_value("leader_demotions"):
+            t_demote = time.monotonic()
+        leads = _leads(cluster)
+        others = np.zeros(G, bool)
+        for me, lv in leads.items():
+            if me != victim:
+                others |= lv
+        if t_demote is not None and others.all() and \
+                not leads.get(victim, np.zeros(G, bool)).any():
+            t_new = time.monotonic()
+            break
+        if time.monotonic() > deadline:
+            _ctrl_req(cluster, "inject_faults", servers=[victim],
+                      payload={"wal": None})
+            h = vr.health if vr is not None else None
+            diag = {} if h is None else {
+                "tick": vr.tick, "leads": int(vr._is_leader.sum()),
+                "self_bad": vr._health_self_bad,
+                "streak": dict(h._bad_streak),
+                "table": h._signal_table(time.monotonic())}
+            fail(f"{what}: {int((~others).sum())} groups without a new "
+                 f"leader {PLANES_FAILOVER_MAX_S} s after the slow WAL "
+                 f"(demoted: {t_demote is not None}); victim {diag}")
+        time.sleep(0.2)
+    dumps = cluster.replicas[victim].flight_snapshot()
+    demotes = [e for e in dumps["events"] if e["type"] == "demote"]
+    if len(demotes) != 1:
+        fail(f"{what}: {len(demotes)} demote events at replica {victim}")
+    time.sleep(3.0)  # the clients go on at the new leaders
+    t_heal = time.monotonic()
+    _ctrl_req(cluster, "inject_faults", servers=[victim],
+              payload={"wal": None})
+    time.sleep(PLANES_HEAL_S)
+    t_end = time.monotonic()
+    dem = _demotions(cluster)
+    if dem != {str(me): int(me == victim) for me in cluster.replicas}:
+        fail(f"{what}: demotions after the heal {dem} (one at replica "
+             f"{victim} expected)")
+
+    def rate(a, b):
+        n = sum(1 for c in clients for (t, _l, _s) in c.ok if a <= t < b)
+        return round(n / max(b - a, 1e-9), 1)
+
+    out = {"victim": victim, "demote_s": round(t_demote - t_fault, 3),
+           "new_leaders_s": round(t_new - t_fault, 3),
+           "signals": demotes[0].get("signals"),
+           "ops_per_s": {"before": rate(t_fault - 4.0, t_fault),
+                         "during": rate(t_fault, t_new),
+                         "after": rate(t_heal, t_end)},
+           "demotions": dem}
+    log(f"{what}: slow WAL at replica {victim}: demoted after "
+        f"{out['demote_s']} s, a new leader in all {G} groups after "
+        f"{out['new_leaders_s']} s; ops/s {out['ops_per_s']}")
+    return out
+
+
+class _KeyWriter:
+    """One closed-loop writer streaming unique values of ``value_bytes``
+    to one key, through sheds (counted) and failovers; ``acked`` holds
+    the last acknowledged value, ``later`` what may have executed."""
+
+    def __init__(self, cluster, key, stop, value_bytes):
+        import threading
+
+        self.cluster, self.key, self.stop = cluster, key, stop
+        self.value_bytes = value_bytes
+        self.acked = {}
+        self.later = {}
+        self.ok = []
+        self.sheds = 0
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+
+    def run(self):
+        from summerset_tpu_torch.client.drivers import DriverClosedLoop
+
+        ep = self.cluster.endpoint()
+        drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT)
+        seq = 0
+        while not self.stop.is_set():
+            val = f"w.{seq}.".ljust(self.value_bytes, "x")
+            rep = drv.put(self.key, val)
+            if rep.kind == "success":
+                self.acked[self.key] = val
+                self.later[self.key] = set()
+                self.ok.append((time.monotonic(), rep.latency, ep.current))
+            elif rep.kind == "shed":
+                self.sheds += 1
+                time.sleep(max(rep.retry_after, 0.01))
+            elif rep.kind != "redirect":
+                self.later.setdefault(self.key, set()).add(val)
+                drv._failover(rep)
+            seq += 1
+        ep.leave()
+
+
+def _range_cutover(cluster, key, dst, op, what):
+    """One ``range_change`` through the manager: sealed at every replica,
+    then adopted and installed at all three; returns the seconds."""
+    from summerset_tpu_torch.host.resharding import single_key_range
+
+    start, end = single_key_range(key)
+    t0 = time.monotonic()
+    rep = _ctrl_req(cluster, "range_change",
+                    payload={"op": op, "start": start, "end": end,
+                             "dst_group": dst})
+    if rep.kind != "range_change" or sorted(rep.done or ()) != [0, 1, 2]:
+        fail(f"{what}: {op} sealed at {rep.done} ({rep.kind})")
+    rc_id = rep.conf["rc_id"]
+    while True:
+        ents = [[e["rc_id"] for e in r.rangetab.entries()]
+                for r in cluster.replicas.values()]
+        if all(rc_id in e for e in ents) and all(
+                r.route_group(key) == dst for r in cluster.replicas.values()):
+            return rc_id, round(time.monotonic() - t0, 3)
+        if time.monotonic() - t0 > PLANES_CUT_MAX_S:
+            fail(f"{what}: {op} {rc_id} of {key!r} not installed at every "
+                 f"replica in {PLANES_CUT_MAX_S} s: {ents}")
+        time.sleep(0.1)
+
+
+def _planes_reshard(torch, np, card, harness, tmp, rs):
+    """(c): RSPaxos RS(2,1), phase 13's 3000 B puts: a key split to
+    another group with puts to it in flight, then merged back; the
+    adopt rides the destination group's log as shards
+    (``bitslice_gf256``)."""
+    import threading
+
+    what = "planes RSPaxos resharding"
+    cluster = _read_cluster(harness, "RSPaxos", tmp, config=SERVE_CW_CFG)
+    try:
+        G = SERVE_SHAPE["G"]
+        stop, wstop = threading.Event(), threading.Event()
+        clients = [_LoadClient(cluster, ci, stop,
+                               value_bytes=SERVE_CW_VALUE_BYTES)
+                   for ci in range(SERVE_CLIENTS)]
+        key = "zkey"
+        writer = _KeyWriter(cluster, key, wstop, SERVE_CW_VALUE_BYTES)
+        time.sleep(3.0)
+        # the load stops so the cutover's launches are its own; the
+        # writer's puts to the key stay in flight through the seal
+        stop.set()
+        for c in clients:
+            c.thread.join(timeout=30)
+        home = next(iter(cluster.replicas.values())).group_of(key)
+        dst = (home + 1) % G
+        shed0 = sum(r.metrics.counter_value("api_shed")
+                    for r in cluster.replicas.values())
+        n0 = rs.bitslice_gf256.launches
+        rc1, split_s = _range_cutover(cluster, key, dst, "split", what)
+        launches = rs.bitslice_gf256.launches - n0
+        if DEV == "cuda" and launches == 0:
+            fail(f"{what}: the adopt never launched bitslice_gf256")
+        lead = cluster.leader_of(dst)
+        lanes = None
+        if lead is not None:
+            lr = cluster.replicas[lead]
+            for g, vid in sorted(lr.origin):
+                b = lr.payloads.get(g, vid)
+                held = lr.codewords.shards_for(g, vid)
+                if b and b[0][1].cmd.kind == "adopt" and held is not None:
+                    lanes = int(next(iter(held[1].values())).shape[-1])
+        time.sleep(1.0)
+        rc2, merge_s = _range_cutover(cluster, key, home, "merge", what)
+        time.sleep(1.0)
+        wstop.set()
+        writer.thread.join(timeout=30)
+        sheds = writer.sheds
+        shed_srv = sum(r.metrics.counter_value("api_shed")
+                       for r in cluster.replicas.values()) - shed0
+        if not writer.acked:
+            fail(f"{what}: the writer's puts were never acknowledged")
+        routes = {me: [r.route_group(k) for k in (key, "key1", "key2")]
+                  for me, r in cluster.replicas.items()}
+        if len({tuple(v) for v in routes.values()}) != 1:
+            fail(f"{what}: route_group differs between replicas: {routes}")
+        n_keys = _read_back(cluster, clients + [writer], what)
+        # a snapshot, then a restart of one follower: the ranges stand
+        rep = cluster.ctrl("take_snapshot", timeout=300)
+        if sorted(rep.done) != [0, 1, 2]:
+            fail(f"{what}: take_snapshot answered {rep.done}")
+        victim = next(me for me in sorted(cluster.replicas)
+                      if me != cluster.leader_of(0))
+        t = time.monotonic()
+        rep = cluster.ctrl("reset_servers", servers=[victim], timeout=300)
+        if rep.done != [victim]:
+            fail(f"{what}: restart of {victim} not acknowledged")
+        restart_s = round(time.monotonic() - t, 3)
+        ents = {me: [e["rc_id"] for e in r.rangetab.entries()]
+                for me, r in cluster.replicas.items()}
+        if ents[victim] != [rc1, rc2] or len(
+                {tuple(v) for v in ents.values()}) != 1:
+            fail(f"{what}: the ranges after the restart of {victim}: "
+                 f"{ents}")
+        _read_back(cluster, [writer], f"{what} after the restart")
+        _require_clean(cluster, what)
+        line = {"planes_reshard": "RSPaxos", "key": key, "home": home,
+                "dst_group": dst, "split_s": split_s, "merge_s": merge_s,
+                "sheds": sheds, "api_shed": shed_srv,
+                "writer_acked_puts": len(writer.ok),
+                "bitslice_launches_split": launches,
+                "adopt_shard_lanes": lanes, "read_back_keys": n_keys,
+                "restart_s": restart_s, "ranges": ents[victim],
+                "card": card}
+        log(json.dumps(line))
+    finally:
+        cluster.stop()
+    # held against the plain version at the adopt's shape, timed with
+    # the cluster stopped
+    err = serving_kernel_numbers(torch, np, rs, card, [lanes]) \
+        if lanes else 0
+    return {"launches": launches, "max_abs_err": err, "line": line}
+
+
+def phase_planes(torch, np, card):
+    """Phase 20: the observability and control planes at phase 12's
+    shape, the JAX default planes on.  MultiPaxos: (a) the scrapes, (d)
+    the autopilot, (b) health and demotion; RSPaxos: (c) resharding.
+    Returns the kernel's launches in the cutover and its max_abs_err."""
+    import shutil
+    import tempfile
+    import threading
+    import types
+
+    from summerset_tpu_torch.ops import rscoding as rs
+
+    harness = _serve_harness()
+    sh = SERVE_SHAPE
+    what = "planes MultiPaxos"
+    log(f"== phase 20: observability and control planes, {sh['G']} groups "
+        f"x {sh['R']} replicas, W={sh['W']}, {SERVE_CLIENTS} clients")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="planes_")
+    try:
+        cluster = _read_cluster(harness, "MultiPaxos",
+                                os.path.join(tmp, "mp"))
+        try:
+            stop = threading.Event()
+            clients = [_LoadClient(cluster, ci, stop)
+                       for ci in range(SERVE_CLIENTS)]
+            time.sleep(1.0)
+            w = _window(np, cluster, clients, PLANES_SECS, what)
+            scrapes = _planes_scrapes(cluster, clients, what)
+            stop.set()
+            for c in clients:
+                c.thread.join(timeout=30)
+            # the hot-key mix; its first PLANES_DEMOTE_CLIENTS clients
+            # run on through (b), the rest stop before the fault
+            zstop = [threading.Event(), threading.Event()]
+            zipf = [_LoadClient(cluster, ci,
+                                zstop[ci < PLANES_DEMOTE_CLIENTS],
+                                shared_gets=True, zipf=PLANES_ZIPF)
+                    for ci in range(SERVE_CLIENTS)]
+            auto = _planes_autopilot(np, cluster, what)
+            zstop[0].set()
+            for c in zipf[PLANES_DEMOTE_CLIENTS:]:
+                c.thread.join(timeout=30)
+            demote = _planes_demotion(np, cluster,
+                                      zipf[:PLANES_DEMOTE_CLIENTS], what)
+            zstop[1].set()
+            for c in zipf[:PLANES_DEMOTE_CLIENTS]:
+                c.thread.join(timeout=30)
+            # a key's last acked put is its zipf client's if that client
+            # wrote it, else the uniform client's of (a)
+            writers = []
+            for u, z in zip(clients, zipf):
+                later = dict(u.later)
+                for k, vals in z.later.items():
+                    later[k] = (set() if k in z.acked else
+                                set(later.get(k, ()))) | vals
+                writers.append(types.SimpleNamespace(
+                    acked={**u.acked, **z.acked}, later=later))
+            n_keys = _read_back(cluster, writers, what)
+            _require_clean(cluster, what, demotions_ok=True)
+            log(json.dumps({"planes": "MultiPaxos", **w,
+                            "scrapes": scrapes, "autopilot": auto,
+                            "demotion": demote,
+                            "zipf_sheds": sum(c.sheds for c in zipf),
+                            "read_back_keys": n_keys,
+                            "bring_up_s": cluster.up_s, "card": card}))
+        finally:
+            cluster.stop()
+        t = time.perf_counter()
+        res = _planes_reshard(torch, np, card, harness,
+                              os.path.join(tmp, "rsp"), rs)
+        log(f"phase 20 resharding: {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({"phase": 20, "seconds": round(
+        time.perf_counter() - t_phase, 1),
+        "bitslice_launches": res["launches"], "card": card}))
+    return {"launches": res["launches"], "max_abs_err": res["max_abs_err"]}
+
+
+def planes_ab(torch, np, card, order=("on", "off", "off", "on")):
+    """Phase 12's MultiPaxos run (its window, pause, resets, snapshot and
+    profile) with the servers' default planes on and with ``PLANES_OFF``,
+    in turns within one call; one ``planes_ab`` JSON line per run.  Not
+    part of ``main``: ``python3 -c 'import torch, numpy as np,
+    chip_smoke as cs; cs.phase_build(); cs.planes_ab(torch, np,
+    cs.card_label())'``."""
+    global SERVE_BASE_CFG
+    out = []
+    try:
+        for planes in order:
+            SERVE_BASE_CFG = dict(PLANES_OFF) if planes == "off" else {}
+            line = _serve_run(torch, np, card, "MultiPaxos", SERVE_SECS,
+                              _pause_and_resets("MultiPaxos"),
+                              read_back=True, profile=True, snapshot=True)
+            rec = {"planes_ab": planes, "config": SERVE_BASE_CFG,
+                   **{k: line[k] for k in ("ops_per_s", "p50_ms", "p99_ms",
+                                           "ticks_per_s", "stage_mean_us")},
+                   "failover_s": line["faults"]["pause"]["recovered_s"],
+                   "profile": line.get("profile"), "card": card}
+            log(json.dumps(rec))
+            out.append(rec)
+    finally:
+        SERVE_BASE_CFG = {}
+    return out
+
+
 def main():
     import torch
 
@@ -3650,6 +4295,8 @@ def main():
         f"{rs.bitslice_gf256.launches}")
     rs.bitslice_gf256.launches = 0
     paths["read_tier"] = phase_read_tier(torch, np, card)
+    rs.bitslice_gf256.launches = 0
+    paths["planes"] = phase_planes(torch, np, card)
     log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -8,7 +8,10 @@ exchanges ``ApiRequest``/``ApiReply`` (apistub.rs:16-95);
 both and handles server (re)selection with leader failover
 (endpoint.rs:17-54).  The data-plane stub speaks the wire codec for its hot
 requests (``req``/``probe``) unless pinned off (``wire_codec=False``); the
-control stub stays pickle.  The ingress-proxy tier is not ported.
+control stub stays pickle.  ``scrape_metrics``, ``scrape_flight`` and
+``scrape_fleet`` are one-shot scrapes through the manager
+(``metrics_dump``, ``flight_dump``, ``watch_series``).  The
+ingress-proxy tier is not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +24,100 @@ from ..host.messages import ApiReply, ApiRequest, CtrlReply, CtrlRequest
 from ..host.statemach import Command
 from ..utils import safetcp
 from ..utils.errors import SummersetError
+
+
+def _ctrl_scrape(manager_addr: Tuple[str, int], req: "CtrlRequest",
+                 timeout: float) -> Optional[dict]:
+    """Best-effort one-shot gather through the manager ctrl plane: send
+    ``req``, return ``{server id (str): payload}`` sorted by id, or
+    ``None`` when the manager is unreachable/mid-fault — the shared
+    plumbing under every ``*_dump`` scrape helper."""
+    try:
+        stub = ClientCtrlStub(manager_addr)
+        try:
+            rep = stub.request(req, timeout=timeout)
+        finally:
+            stub.close()
+    except Exception:
+        return None
+    return {
+        str(sid): payload
+        for sid, payload in sorted((rep.payloads or {}).items())
+    }
+
+
+def scrape_metrics(manager_addr: Tuple[str, int],
+                   timeout: float = 30.0, compact: bool = False) -> dict:
+    """One-shot telemetry scrape: ``metrics_dump`` through the manager,
+    returning ``{server id (str): snapshot}`` — the JSON-able per-server
+    combination of device metric lanes, host registry histograms, and
+    sampled slot traces (``server.metrics_snapshot``).  ``compact=True``
+    trims each snapshot to the device lane totals plus the headline
+    histograms (for artifacts committing many runs, e.g. the soak
+    matrix).  Best-effort: an unreachable manager or mid-fault cluster
+    yields ``{}`` rather than failing the caller's bench/soak run."""
+    # only the NETWORK half is best-effort: a snapshot-schema mismatch in
+    # the trimming below must raise loudly, not silently commit
+    # server_metrics: {} into bench artifacts while CI stays green
+    out = _ctrl_scrape(
+        manager_addr, CtrlRequest("metrics_dump"), timeout
+    )
+    if out is None:
+        return {}
+    if compact:
+        keep = ("ticks_to_commit", "api_request_latency_us",
+                "wal_fsync_us", "wal_group_commit_batch")
+        out = {
+            sid: {
+                "tick": snap["tick"],
+                "device_lanes": snap["device"]["lanes"],
+                "histograms": {
+                    k: v
+                    for k, v in snap["host"]["histograms"].items()
+                    if k.split("{", 1)[0] in keep
+                },
+            }
+            for sid, snap in out.items()
+        }
+    return out
+
+
+def scrape_flight(manager_addr: Tuple[str, int],
+                  last_n: Optional[int] = None,
+                  timeout: float = 30.0) -> dict:
+    """One-shot graftscope scrape: ``flight_dump`` through the manager,
+    returning ``{server id (str): flight dump}`` — each replica's typed
+    event ring (``server.flight_snapshot``), trimmed to the ``last_n``
+    newest events per replica when given.  Best-effort like
+    :func:`scrape_metrics`: an unreachable manager yields ``{}`` so a
+    failing soak's bundle writer never dies on its own diagnostics."""
+    out = _ctrl_scrape(
+        manager_addr,
+        CtrlRequest(
+            "flight_dump",
+            payload=(
+                {"last_n": int(last_n)}
+                if last_n is not None else None
+            ),
+        ),
+        timeout,
+    )
+    return {} if out is None else out
+
+
+def scrape_fleet(manager_addr: Tuple[str, int],
+                 timeout: float = 15.0) -> Optional[dict]:
+    """One-shot graftwatch scrape: ``watch_series`` through the manager,
+    returning the FleetSeries export (``{"v", "retain", "series": [...]}``)
+    or ``None`` when the manager is unreachable.  Answered from the
+    manager's own ring — no server fan-out, so it stays cheap enough
+    for a dashboard to poll every second."""
+    out = _ctrl_scrape(
+        manager_addr, CtrlRequest("watch_series"), timeout
+    )
+    if out is None:
+        return None
+    return out.get("fleet")
 
 
 class ClientCtrlStub:

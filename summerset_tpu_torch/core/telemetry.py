@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -91,3 +92,29 @@ def bump(telem: torch.Tensor, name: str, v: torch.Tensor) -> torch.Tensor:
     return torch.cat(
         [telem[:, :, :i], lane.unsqueeze(-1), telem[:, :, i + 1:]], dim=-1
     )
+
+
+def snapshot_row(telem, me: int) -> Dict[str, Any]:
+    """Host decode of one replica's ``[G, K]`` block: per-lane group totals
+    (sum for counters, max for high-water) plus the per-group matrix when
+    ``G <= 64``.  ``telem`` is a host array (the server passes the
+    prefetched view of its last retired step) or a tensor; a tensor on the
+    card crosses in one device-to-host copy of the ``[G, K]`` row, never
+    the whole block."""
+    if isinstance(telem, torch.Tensor):
+        block = telem[:, me].cpu().numpy()
+    else:
+        block = np.asarray(telem)[:, me]
+    # int64 before reducing: a counter summed over many groups may pass
+    # int32, where the JAX decode sums in int64 too
+    block = block.astype(np.int64)
+    lanes = {}
+    for name, i in LANE_IDX.items():
+        col = block[:, i]
+        lanes[name] = int(col.max() if name in _MAX_SET else col.sum())
+    out: Dict[str, Any] = {"lanes": lanes}
+    if block.shape[0] <= 64:
+        out["per_group"] = {
+            name: block[:, i].tolist() for name, i in LANE_IDX.items()
+        }
+    return out

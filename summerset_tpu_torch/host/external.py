@@ -56,6 +56,7 @@ class ExternalApi:
         max_pending: int = 16384,
         registry=None,
         codec: Optional[bool] = None,
+        flight=None,
     ):
         self.api_addr = api_addr
         self.max_batch_size = max_batch_size
@@ -71,6 +72,9 @@ class ExternalApi:
         # telemetry seam: request->reply latency at the socket plane,
         # request/reply/shed counts and the queue depth gauge
         self.registry = registry
+        # flight seam (host/tracing.FlightRecorder): api_ingress,
+        # api_reply and api_shed events
+        self.flight = flight
         if registry is not None:
             registry.counter_add("api_shed", 0)
             registry.gauge_set("api_queue_depth", 0)
@@ -206,6 +210,9 @@ class ExternalApi:
                 reg.observe_s("api_request_latency_us",
                               time.monotonic() - t0)
             reg.counter_add("api_replies_total", kind=reply.kind)
+        if self.flight is not None:
+            self.flight.record("api_reply", client=client,
+                               req_id=reply.req_id, kind=reply.kind)
         w = self._writers.get(client)
         if w is None or w.is_closing():
             self._writers.pop(client, None)
@@ -244,15 +251,25 @@ class ExternalApi:
                     depth = len(self._pending)
                 if (req.kind in self.BOUNDED_KINDS
                         and depth >= self.max_pending):
+                    hint = self._retry_after_ms(depth)
                     if reg is not None:
                         reg.counter_add("api_requests_total")
                         reg.counter_add("api_shed")
                         reg.counter_add("api_replies_total", kind="shed")
+                    if self.flight is not None:
+                        self.flight.record("api_shed", client=int(client),
+                                           req_id=req.req_id, retry_ms=hint,
+                                           depth=depth)
                     await self._wire_send(writer, ApiReply(
                         kind="shed", req_id=req.req_id, success=False,
-                        retry_after_ms=self._retry_after_ms(depth),
+                        retry_after_ms=hint,
                     ))
                     continue
+                # stamped before the append: a request's api_ingress
+                # precedes any propose that consumed it
+                if self.flight is not None:
+                    self.flight.record("api_ingress", client=int(client),
+                                       req_id=req.req_id, kind=req.kind)
                 if reg is not None:
                     reg.counter_add("api_requests_total")
                     arr = self._arrivals

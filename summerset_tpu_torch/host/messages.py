@@ -109,8 +109,15 @@ class CtrlMsg:
     ``responders`` and, on Bodega, ``leader``); conf_forward (delta: a
     client ConfChange a server that does not lead every group relays) ->
     install_conf (delta, seq: the manager's total order, newest wins) to
-    every server; pause / resume / reset_state (durable) and their
-    ``_reply`` forms; leave / leave_reply."""
+    every server; pause / resume / reset_state (durable) /
+    take_snapshot and their ``_reply`` forms; metrics_dump ->
+    metrics_reply (snapshot), flight_dump -> flight_reply (flight);
+    range_change -> range_reply (change), range_installed (entry),
+    install_ranges (seq, installed, pending, expired), adopt_intent ->
+    adopt_decision (rc_id, ok), range_expire (rc_id); autopilot_ctl ->
+    autopilot_reply (act + actuator fields); fault_ctl -> fault_reply
+    (net, wal, seed); watch_frame (one graftwatch delta frame, one-way);
+    leave / leave_reply."""
 
     kind: str
     payload: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -121,11 +128,19 @@ class CtrlRequest:
     """Client -> manager (parity: ``CtrlRequest``, reactor.rs:29-64).
 
     Kinds: query_info | query_conf | pause_servers | resume_servers |
-    reset_servers | leave."""
+    reset_servers | take_snapshot | leave; the observability and control
+    planes: metrics_dump | flight_dump (payload ``{"last_n": n}`` trims
+    each replica's ring to its n newest events) | watch_series (the
+    manager's graftwatch ring, answered without a fan-out) |
+    inject_faults (payload ``{"net": spec, "wal": spec, "seed": n}``,
+    relayed to each target server as a ``fault_ctl``) | range_change
+    (payload op/start/end/dst_group, replied with ``conf={"rc_id": n}``)
+    | autopilot_ctl (payload act + actuator fields, relayed verbatim)."""
 
     kind: str
     servers: Optional[List[int]] = None  # None = all
     durable: bool = True                 # reset: keep durable files?
+    payload: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,8 +153,17 @@ class CtrlReply:
         default_factory=dict
     )  # id -> (api_addr, p2p_addr)
     leader: Optional[int] = None
-    done: Optional[List[int]] = None
-    # query_conf: the last conf a server reported installed
+    # query_conf: the last conf a server reported installed;
+    # range_change: {"rc_id": n}
     conf: Optional[dict] = None
-    # fan-out targets that did not answer (or could not be reached)
+    done: Optional[List[int]] = None
+    # fan-out targets that did not answer within the gather's deadline
+    # (or could not be reached)
     missing: Optional[List[int]] = None
+    # per-server reply payloads of a gather (metrics_dump: sid ->
+    # snapshot; watch_series: {"fleet": export})
+    payloads: Optional[Dict[int, Any]] = None
+    # registered ingress proxies (no proxy tier in the port yet)
+    proxies: Optional[Dict[int, Any]] = None
+    # installed range overrides, in adoption order (query_info)
+    ranges: Optional[list] = None

@@ -68,10 +68,10 @@ its voted tail (``_tail_writes_key``).  Everything else redirects or goes
 through the log.  The conf state rides the vote records the kernel
 declares durable (QuorumLeases' ``conf_cur``/``conf_slot``); Bodega's
 conf is lease-installed and re-learned after a restart, as in the JAX
-package.  Unlike the JAX server, ``_can_local_read`` has no health
-mitigation branch (health is not ported), and a resumed replica serves
-no local read until every lease from before its pause has run out in
-its own tick count (``_resume``).
+package.  A replica the health plane indicts serves no local read
+(``_can_local_read``), and, unlike the JAX server, a resumed replica
+serves no local read until every lease from before its pause has run out
+in its own tick count (``_resume``).
 
 EPaxos is leaderless: every replica proposes into its own row of the
 2-D instance space, one batch per key bucket with pending requests in the
@@ -116,12 +116,34 @@ The wire: tick frames and hot replies leave through the wire codec
 disabled), and the WAL is the native C++ backend (``csrc/wal.cpp``; the
 Python mirror when its build fails, logged).
 
-Not in this slice (ROADMAP.md, Queue 1): health/demotion and the
-autopilot's conf revokes, resharding (the range seals a scan or probe
-consults read "no seal", which is what the JAX server reads with an empty
-range table; the snapshot keys ``ranges``/``radopted``/``rseals``), the
-ingress proxy's ``batch`` forwards (answered ``error``), the nemesis
-snapshot crash point, the flight recorder and slot traces.
+The observability planes, on by default as in the JAX server: the flight
+recorder (``flight_capacity``, ``flight_record``; every hub seam records
+typed events), slot traces (``trace_sample``: every n-th proposed batch
+is traced from arrival to reply), graftwatch (``graftwatch``,
+``watch_ticks``: a delta frame of the registry to the manager every
+``watch_ticks`` ticks) and the ``metrics_dump``/``flight_dump`` scrapes
+(``metrics_snapshot``, ``flight_snapshot``; the device lanes come from the
+host view of the last retired step, so a scrape never waits on the card).
+
+The control planes.  Health (``health_enabled``, ``health_mitigation``
+and the ``health_*`` pacing knobs): a beacon of this replica's fsync and
+frame-delay EWMAs rides every tick frame (``hb``), and every
+``health_eval_ticks`` ticks the quorum-median outlier rule scores every
+replica; an indicted leader arms the kernel's ``demote`` input (a
+QuorumLeases or Bodega leader revokes its lease responders first).  The
+``fault_ctl`` ctrl swaps the transport's and the WAL's fault specs (the
+``net`` and ``wal`` planes).  Live resharding: a ``range_change`` seals a
+key range at every replica (``rseal`` WAL record; ops on it are shed),
+the destination group's leader proposes one ``adopt`` command through
+that group's log once the seal is confirmed cluster-wide and no voted
+write to the range is pending, and its apply installs the range override
+(``route_group``) at every replica; the snapshot carries ``ranges``,
+``radopted`` and ``rseals``.  The autopilot's actuations arrive as
+``autopilot_ctl`` (demote, retune, announce).
+
+Not in this slice (ROADMAP.md, Queue 1): the ingress proxy's ``batch``
+forwards (answered ``error``), and the nemesis planes of ``fault_ctl``
+(``skew``, ``snap_crash``: refused with a logged warning).
 """
 
 from __future__ import annotations
@@ -151,11 +173,15 @@ from .codeword import CodewordStore, assigned_sids
 from .control import ControlHub
 from .epaxos_exec import EPaxosExecutor
 from .external import ExternalApi
+from .graftwatch import WatchEmitter
+from .health import HealthScorer
 from .messages import ApiReply, ApiRequest, CtrlMsg, ShardPayload
 from .payload import PayloadStore
-from .statemach import CommandResult, StateMachine, apply_command
+from .resharding import RangeHeat, RangeTable
+from .statemach import Command, CommandResult, StateMachine, apply_command
 from .storage import LogAction, StorageHub
-from .telemetry import MetricsRegistry
+from .telemetry import MetricsRegistry, SlotTraces
+from .tracing import FlightRecorder
 from .transport import TransportHub
 
 logger = pf_logger("server")
@@ -267,7 +293,7 @@ class ServerReplica:
             self.external = ExternalApi(
                 api_addr, max_batch_size=self.api_max_batch,
                 max_pending=self.api_max_pending, registry=self.metrics,
-                codec=self.wire_codec,
+                codec=self.wire_codec, flight=self.flight,
             )
         except BaseException:
             # a failed bring-up releases every port and handle it took:
@@ -315,17 +341,113 @@ class ServerReplica:
             wirecodec.default_on() if _wc is None else bool(_wc)
         )
         self.near_quorum_reads = bool(cfg.pop("near_quorum_reads", False))
-        self._kcfg = cfg
-        # one registry threaded through every hub seam; the scan plane's
-        # series pre-registered, so "no scans yet" reads as 0
+        # one registry threaded through every hub seam
         self.metrics = MetricsRegistry()
+        # the flight recorder (host/tracing.py): a ring of typed events
+        # threaded through every hub seam; flight_record=0 records
+        # nothing.  trace_sample: every n-th proposed batch gets a slot
+        # trace (0 = off)
+        self.flight = FlightRecorder(
+            capacity=int(cfg.pop("flight_capacity", 8192)),
+            enabled=bool(cfg.pop("flight_record", True)),
+        )
+        self.traces = SlotTraces(
+            self.metrics, sample_every=int(cfg.pop("trace_sample", 8)),
+            flight=self.flight,
+        )
+        # graftwatch (host/graftwatch.py): every watch_ticks ticks one
+        # delta frame goes to the manager as a one-way watch_frame;
+        # graftwatch=0 builds no emitter
+        self.graftwatch = bool(cfg.pop("graftwatch", True))
+        self.watch_ticks = max(1, int(cfg.pop("watch_ticks", 50)))
+        self.watch: Optional[WatchEmitter] = None
+        self._trace_replied: List[Tuple[int, int]] = []
+        # the health plane (host/health.py): health_enabled=0 builds no
+        # scorer; health_mitigation gates only its actions (demotion,
+        # lease-read steering).  A demotion keeps the kernel's demote
+        # input armed health_demote_ticks ticks, and no new one fires
+        # for health_cooldown_ticks after it
+        self.health_enabled = bool(cfg.pop("health_enabled", True))
+        self.health_mitigation = bool(cfg.pop("health_mitigation", True))
+        self.health_eval_ticks = max(1, int(cfg.pop("health_eval_ticks", 10)))
+        self.health_demote_ticks = int(cfg.pop("health_demote_ticks", 40))
+        self.health_cooldown_ticks = int(
+            cfg.pop("health_cooldown_ticks", 800)
+        )
+        self._health_kw = {
+            k: cfg.pop(f"health_{k}")
+            for k in ("ratio", "hysteresis", "clear_after", "stale_s")
+            if f"health_{k}" in cfg
+        }
+        # live resharding: a sealed range whose destination never adopts
+        # is un-sealed after seal_ttl_ticks (0 = never)
+        self.seal_ttl_ticks = int(cfg.pop("seal_ttl_ticks", 2400))
+        self._kcfg = cfg
+        # series pre-registered, so "nothing happened yet" reads as 0
+        self.metrics.counter_add("leader_demotions", 0)
+        self.metrics.gauge_set("health_score", 1.0)
+        self.metrics.counter_add("reshard_splits", 0)
+        self.metrics.counter_add("reshard_merges", 0)
+        self.metrics.gauge_set("range_heat", 0.0)
+        self.metrics.observe("reshard_cutover_us", 0)
+        self.metrics.counter_add("reshard_seal_expired", 0)
         for name in ("scan_served", "scan_shed", "scan_keys"):
             self.metrics.counter_add(name, 0)
+        self.metrics.counter_add("autopilot_actions", 0)
+        self.metrics.gauge_set("autopilot_mode", 0.0)
+        self.metrics.gauge_set("autopilot_cooldown", 0.0)
+        self.metrics.counter_add("trace_dropped_total", 0)
+        self.metrics.counter_add("watch_frames_total", 0)
+        self.metrics.observe("watch_emit_us", 0)
 
     def _setup_core(self, backer_dir: str) -> None:
         """Kernel, state on the device, WAL (recovered) and bookkeeping."""
         dev = self.device
         proto = self.protocol
+        self.flight.me = self.me
+        if self.graftwatch:
+            self.watch = WatchEmitter(
+                self.metrics, self.me, span_ticks=self.watch_ticks,
+                tier="shard", group=0,
+            )
+        # the gray-failure scorer: beacons ride the tick frames, every
+        # replica assembles the same signal table, and an indicted leader
+        # sees its own indictment
+        self.health = (
+            HealthScorer(self.me, self.population, **self._health_kw)
+            if self.health_enabled else None
+        )
+        self._health_self_bad = False
+        # demotion state: _demote_until arms the kernel's demote input; a
+        # QuorumLeases/Bodega leader first revokes its lease responders
+        # (an empty-responders conf change) until _demote_revoke_deadline,
+        # and restores _demote_restore_resp if the indictment clears
+        # meanwhile.  _ap_demote_pending: the autopilot started the revoke
+        # and _autopilot_tick resolves it
+        self._demote_until = 0
+        self._demote_cooldown_until = 0
+        self._demote_revoke_deadline: Optional[int] = None
+        self._demote_restore_resp: Optional[List[int]] = None
+        self._ap_demote_pending = False
+        # live resharding (host/resharding.py): installed range overrides,
+        # ranges sealed awaiting adoption (rc_id -> change + sealed_at),
+        # rc_ids whose adopt executed here (its merge happened) apart from
+        # those whose routing override alone came from a manager
+        # re-announce (the replicated adopt must still merge), the newest
+        # install_ranges seq, adopt re-propose marks, adopts awaiting
+        # intake, per-key heat at the api seam, and the seal-TTL state
+        self.rangetab = RangeTable()
+        self._range_sealed: Dict[int, dict] = {}
+        self._range_adopted: Set[int] = set()
+        self._range_override: Set[int] = set()
+        self._range_seq_seen = 0
+        self._range_adopt_mark: Dict[int, int] = {}
+        self._range_adopt_ready: List[Tuple[int, ApiRequest]] = []
+        self._range_heat = RangeHeat()
+        self._range_adopt_granted: Set[int] = set()
+        self._range_expired: Set[int] = set()
+        self._range_intent_sent: Dict[int, int] = {}
+        self._range_expire_sent: Dict[int, int] = {}
         kercfg_cls = type(
             make_protocol(proto, 1, self.population, 32, device="cpu").config
         )
@@ -360,7 +482,13 @@ class ServerReplica:
         os.makedirs(backer_dir, exist_ok=True)
         self.wal_path = os.path.join(backer_dir, f"r{self.me}.wal")
         self.snap_path = os.path.join(backer_dir, f"r{self.me}.snap")
-        self.wal = StorageHub(self.wal_path, registry=self.metrics)
+        # checked before the hub creates the file: the restart event's
+        # cold flag (first boot on an empty backer)
+        self._cold_boot = not (os.path.exists(self.wal_path)
+                               or os.path.exists(self.snap_path))
+        self.wal = StorageHub(self.wal_path, registry=self.metrics,
+                              flight=self.flight)
+        self.wal.health = self.health
         # set by _recover_from_snapshot: the error of a present snapshot
         # that failed to load, and the floors a loaded one restored; a
         # compacted WAL demands a snapshot covering its marker's floors
@@ -445,6 +573,10 @@ class ServerReplica:
 
         self._recover_from_snapshot()
         self._recover_from_wal()
+        self.flight.record(
+            "restart", cold=self._cold_boot, wal_size=self.wal.size,
+            applied=int(sum(self.applied)),
+        )
 
         # the device seam: the replica's own stream, which waits once on
         # the default stream init_state and recovery ran on; two sets of
@@ -543,8 +675,9 @@ class ServerReplica:
         until the mesh completes — a lower-id peer may join after us."""
         self.transport = TransportHub(
             self.me, self.population, self.p2p_addr, registry=self.metrics,
-            codec=self.wire_codec,
+            flight=self.flight, codec=self.wire_codec,
         )
+        self.transport.health = self.health
         join = CtrlMsg("new_server_join", {
             "protocol": protocol,
             "api_addr": self.api_addr,
@@ -581,6 +714,33 @@ class ServerReplica:
         if self.G == 1:
             return 0
         return zlib.crc32(key.encode()) % self.G
+
+    def route_group(self, key: str) -> int:
+        """Live placement: an installed range override (an adopted split
+        or merge) first, the hash placement otherwise."""
+        if len(self.rangetab):
+            e = self.rangetab.lookup(key)
+            if e is not None:
+                return int(e["group"]) % self.G
+        return self.group_of(key)
+
+    def _range_sealed_for(self, key: str) -> Optional[dict]:
+        """The sealed (mid-cutover) range change covering ``key``."""
+        for ch in self._range_sealed.values():
+            end = ch.get("end")
+            if key >= ch["start"] and (end is None or key < end):
+                return ch
+        return None
+
+    def _range_seal_overlaps(self, start: str, end: Optional[str]) -> bool:
+        """Does a sealed range intersect ``[start, end)``?  A scan across
+        one is shed before any proposal."""
+        for ch in self._range_sealed.values():
+            ce = ch.get("end")
+            if (end is None or ch["start"] < end) and (
+                    ce is None or start < ce):
+                return True
+        return False
 
     # ----------------------------------------------------- host state views
     def _on_stream(self):
@@ -656,6 +816,22 @@ class ServerReplica:
             self.applied[g] = max(self.applied[g], fl)
         for k, slot in meta.get("wslots", {}).items():
             self._wslot[k] = max(self._wslot.get(k, -1), int(slot))
+        # range installs travel with the KV they moved, each rc_id back in
+        # the set it lived in: an override-only install leaves the adopt
+        # replay free to merge (a snapshot without ``radopted`` counts
+        # every install as adopted)
+        radopted = meta.get("radopted")
+        radopted = None if radopted is None else {int(r) for r in radopted}
+        for entry in meta.get("ranges", []):
+            rc_id = int(entry["rc_id"])
+            if radopted is None or rc_id in radopted:
+                self._range_adopted.add(rc_id)
+            else:
+                self._range_override.add(rc_id)
+            self.rangetab.install(entry)
+        for ch in meta.get("rseals", []):
+            # sealed but unadopted at snapshot time: re-seal
+            self._reseal(ch)
         for g, rows in enumerate(meta.get("ep_rows", [])[: self.G]):
             ex = self._ep_exec.get(g)
             if ex is not None:
@@ -700,6 +876,11 @@ class ServerReplica:
                     )
                 for g, fl in enumerate(marker):
                     self.applied[g] = max(self.applied[g], fl)
+            elif isinstance(rec, tuple) and rec and rec[0] == "rseal":
+                # a range sealed before the crash and, as far as this WAL
+                # knows, never adopted: recovery must not admit ops the
+                # replica was refusing
+                self._reseal(rec[1])
             elif isinstance(rec, tuple) and rec and rec[0] == "eapply":
                 # EPaxos exec record: replayed in logged (= execution)
                 # order; the per-row floors advance contiguously
@@ -737,6 +918,18 @@ class ServerReplica:
                     for _client, req in batch:
                         if req.cmd is None:
                             continue
+                        if req.cmd.kind == "adopt":
+                            # the replicated adoption replays as it
+                            # applied live (idempotent per rc_id)
+                            self._apply_adopt(req.cmd.value, announce=False,
+                                              recovery=True)
+                            continue
+                        if req.cmd.kind == "put":
+                            fg = self._handoff_floor(g, req.cmd.key)
+                            if fg is not None and slot < fg:
+                                # below the handoff floor: the value
+                                # already rode the adopt
+                                continue
                         apply_command(self.statemach._kv, req.cmd)
                         if req.cmd.kind == "put":
                             k = req.cmd.key
@@ -911,6 +1104,16 @@ class ServerReplica:
         meta: Dict[str, Any] = {
             "applied": list(self.applied),
             "wslots": dict(self._wslot),
+            # adopted range installs travel with the KV they moved;
+            # radopted tells true adoptions from override-only installs;
+            # still-sealed changes re-seal on recovery
+            "ranges": self.rangetab.entries(),
+            "radopted": sorted(self._range_adopted),
+            "rseals": [
+                {k: ch[k] for k in
+                 ("rc_id", "op", "start", "end", "dst_group")}
+                for ch in self._range_sealed.values()
+            ],
         }
         if self._epaxos:
             meta["ep_rows"] = [list(self._ep_exec[g].floor)
@@ -970,7 +1173,9 @@ class ServerReplica:
         compact.stop()
         self.wal.stop()
         os.replace(wtmp, self.wal_path)
-        self.wal = StorageHub(self.wal_path, registry=self.metrics)
+        self.wal = StorageHub(self.wal_path, registry=self.metrics,
+                              flight=self.flight)
+        self.wal.health = self.health
         self._logged_vids = new_logged
         self._rebuild_logged_keys()
         self._sig = None  # the next tick re-logs any drift
@@ -1108,6 +1313,15 @@ class ServerReplica:
         if q:
             self._reply_queue = []
             self.external.send_replies(q, fence=self._fence_wait)
+        self._mark_traces_replied()
+
+    def _mark_traces_replied(self) -> None:
+        """Close the sampled slot traces whose replies just left."""
+        if self._trace_replied:
+            now = time.monotonic()
+            for g, vid in self._trace_replied:
+                self.traces.mark_replied(g, vid, now)
+            self._trace_replied.clear()
 
     def _intake(self) -> Tuple[np.ndarray, np.ndarray, Dict]:
         """Drain the client plane: queue conf changes, answer probes and
@@ -1121,12 +1335,18 @@ class ServerReplica:
         batch = self.external.get_req_batch(timeout=0)
         if self._scan_pend:
             self._scan_gc()
-        if not batch:
+        if not batch and not self._range_adopt_ready:
             if self._epaxos and any(self._ep_defer.values()):
                 # deferred buckets drain on idle intake ticks too
                 return self._intake_epaxos({}, n_prop, vbase, piggy)
             return n_prop, vbase, piggy
         by_group: Dict[int, list] = {}
+        if self._range_adopt_ready:
+            # adoptions whose barrier cleared enter the destination
+            # group's log like any write (client None: internal)
+            for g, areq in self._range_adopt_ready:
+                by_group.setdefault(g, []).append((None, areq))
+            self._range_adopt_ready = []
         for client, req in batch:
             if req.kind == "conf":
                 self._handle_conf_req(client, req)
@@ -1144,9 +1364,18 @@ class ServerReplica:
                 self._reply(client, ApiReply(
                     "error", req_id=req.req_id, success=False,
                 ))
+            elif self._range_sealed_for(req.cmd.key) is not None:
+                # mid-cutover seal: refused before any proposal, so a
+                # shed op can never have been acked
+                self._reply(client, ApiReply(
+                    "shed", req_id=req.req_id, success=False,
+                    retry_after_ms=50,
+                ))
+                self.metrics.counter_add("api_shed", 1)
             else:
+                self._range_heat.note(req.cmd.key)
                 by_group.setdefault(
-                    self.group_of(req.cmd.key), []
+                    self.route_group(req.cmd.key), []
                 ).append((client, req))
         if self._epaxos:
             return self._intake_epaxos(by_group, n_prop, vbase, piggy)
@@ -1159,6 +1388,10 @@ class ServerReplica:
                 local_ok = self._can_local_read(g)
                 pending = []
                 for client, req in reqs:
+                    if client is None:
+                        # an internal adopt and we no longer lead its
+                        # destination: _range_progress re-proposes it
+                        continue
                     if local_ok and req.cmd.kind == "get":
                         self._reply_local(client, req)
                     elif self._nqr_ok and req.cmd.kind == "get":
@@ -1191,6 +1424,13 @@ class ServerReplica:
                 g, reqs, stride=self.population, residue=self.me
             )
             self.origin.add((g, vid))
+            # slot trace sampling, stamped at intake; the batch's first
+            # (client, req_id) joins the request span to the slot span
+            self.traces.maybe_start(
+                g, vid, self.tick, time.monotonic(),
+                client=-1 if reqs[0][0] is None else reqs[0][0],
+                req_id=reqs[0][1].req_id,
+            )
             n_prop[g] = 1
             vbase[g] = vid
             if self.codewords is not None and not (
@@ -1257,6 +1497,10 @@ class ServerReplica:
                 vid = self.payloads.put(g, take, stride=K * R,
                                         residue=b + K * self.me)
                 self.origin.add((g, vid))
+                self.traces.maybe_start(
+                    g, vid, self.tick, time.monotonic(),
+                    client=take[0][0], req_id=take[0][1].req_id,
+                )
                 self._ep_prop_vids[g, i] = vid
                 piggy[(g, vid)] = take
             n_prop[g] = len(take_buckets)
@@ -1280,6 +1524,10 @@ class ServerReplica:
         localread.rs:8-26)."""
         ex = self._last_extra
         if not ex or self.tick < self._lease_hold_off:
+            return False
+        if self._health_self_bad and self.health_mitigation:
+            # a limping replica stops serving local reads: clients get
+            # the leader redirect (steering; the lease stays valid)
             return False
         K = getattr(self.kernel.config, "num_key_buckets", 0)
         if "lease_held" in ex:      # QuorumLeases
@@ -1360,17 +1608,6 @@ class ServerReplica:
                 return False
         return not self._tail_writes_range(start, end)
 
-    def _range_sealed_for(self, key: str) -> Optional[dict]:
-        """The sealed (mid-cutover) range covering ``key``.  Resharding is
-        not ported, so no range is ever sealed: None, which is what the
-        JAX server returns with an empty range table."""
-        return None
-
-    def _range_seal_overlaps(self, start: str, end: Optional[str]) -> bool:
-        """Does a sealed range intersect ``[start, end)``?  Never, for the
-        reason given in ``_range_sealed_for``."""
-        return False
-
     # ------------------------------------------------------- commit feed
     def _handle_subscribe(self, client: int, req: ApiRequest) -> None:
         """Register a read-tier learner: the reply carries a consistent
@@ -1391,7 +1628,7 @@ class ServerReplica:
         ok = False
         cmd = req.cmd
         if cmd is not None and cmd.kind == "get":
-            g = self.group_of(cmd.key)
+            g = self.route_group(cmd.key)
             if self._range_sealed_for(cmd.key) is not None:
                 ok = False
             elif self._is_leader[g]:
@@ -1483,14 +1720,16 @@ class ServerReplica:
             for g in range(self.G):
                 by_group.setdefault(g, []).append((None, marker))
             return
-        hint = int(self._leader_hint[self.group_of(cmd.key)])
+        hint = int(self._leader_hint[self.route_group(cmd.key)])
         self._reply(client, ApiReply(
             "redirect", req_id=req.req_id, redirect=hint, success=False,
         ))
 
     def _scan_served(self, res: CommandResult) -> None:
+        keys = len(res.items or ())
         self.metrics.counter_add("scan_served", 1)
-        self.metrics.counter_add("scan_keys", len(res.items or ()))
+        self.metrics.counter_add("scan_keys", keys)
+        self.flight.record("scan_serve", keys=keys, tick=self.tick)
 
     def _scan_barrier_hit(self, g: int, sbid: int) -> None:
         """One group's scan marker reached the apply bar at its proposer.
@@ -1772,6 +2011,228 @@ class ServerReplica:
                     self._distribute_shards(g, vid, b)
         return b
 
+    # ------------------------------------------------- live resharding
+    def _reseal(self, ch: dict) -> None:
+        """Re-seal a range change found in a snapshot or a ``rseal`` WAL
+        record unless its adopt (or override) is already known here; the
+        cutover clock restarts with the process."""
+        rc_id = int(ch["rc_id"])
+        if rc_id in self._range_adopted or rc_id in self._range_override:
+            return
+        ch = dict(ch)
+        ch["sealed_at"] = time.monotonic()
+        self._range_sealed[rc_id] = ch
+
+    def _handoff_floor(self, g: int, key: str) -> Optional[int]:
+        """Group ``g``'s handoff floor when ``key``'s range moved away from
+        ``g`` (a put to it below that slot already rode the adopt), else
+        None."""
+        if not len(self.rangetab):
+            return None
+        ent = self.rangetab.lookup(key)
+        if ent is None or int(ent["group"]) % self.G == g:
+            return None
+        floors = ent.get("floors") or []
+        return int(floors[g]) if g < len(floors) else 0
+
+    def _range_begin(self, ch: dict, replayed: bool = False) -> None:
+        """Seal a range for cutover (the revoke half of revoke-then-adopt):
+        from here on an op on the range is shed at intake, never silently
+        dropped, until the destination group's adopt applies.  The seal is
+        WAL-durable (``rseal``); a ``replayed`` seal (a manager
+        re-announce) skips the append.  EPaxos, and the kernels with no
+        inspectable vote window (ChainRep, SimplePush, RepNothing), refuse
+        the cutover: their barrier could never clear."""
+        rc_id = int(ch.get("rc_id", 0))
+        if rc_id in self._range_adopted or rc_id in self._range_sealed \
+                or rc_id in self._range_override \
+                or rc_id in self._range_expired:
+            return
+        if self._epaxos:
+            pf_warn(logger, f"range_change {rc_id} refused: leaderless "
+                            "protocol has no seal barrier")
+            return
+        if "win_abs" not in self.state or not any(
+                k in self.state for k in ("win_bal", "win_term")):
+            pf_warn(logger, f"range_change {rc_id} refused: kernel "
+                            "family has no inspectable vote window")
+            return
+        ch = dict(ch)
+        ch["sealed_at"] = time.monotonic()
+        # the seal TTL counts from this tick (a replayed seal restarts it)
+        ch["sealed_tick"] = self.tick
+        self._range_sealed[rc_id] = ch
+        if not replayed:
+            self._wal_append(("rseal", {
+                k: ch[k] for k in ("rc_id", "op", "start", "end", "dst_group")
+            }))
+        self.flight.record("range_seal", rc_id=rc_id, op=str(ch.get("op")),
+                           tick=self.tick)
+
+    def _range_progress(self) -> None:
+        """Propose the adopt of each sealed range whose barrier cleared:
+        this replica leads the destination group, the manager confirmed
+        the seal at every server (``sealed_ok``) and granted the adopt
+        intent, and no voted-unexecuted write to the range remains in any
+        group.  The range-filtered KV, write slots and apply floors ride
+        one ``adopt`` command through the destination group's log.  A
+        seal with no grant past ``seal_ttl_ticks`` asks the manager to
+        expire it."""
+        if not self._range_sealed or self._epaxos:
+            return
+        for rc_id in sorted(self._range_sealed):
+            ch = self._range_sealed[rc_id]
+            dst = int(ch["dst_group"]) % self.G
+            if (self.seal_ttl_ticks > 0
+                    and rc_id not in self._range_adopt_granted
+                    and self.tick - int(ch.get("sealed_tick", 0))
+                    > self.seal_ttl_ticks):
+                last = self._range_expire_sent.get(rc_id)
+                if last is None or self.tick - last >= 200:
+                    self._range_expire_sent[rc_id] = self.tick
+                    self.ctrl.send_ctrl(CtrlMsg(
+                        "range_expire", {"rc_id": rc_id},
+                    ))
+                continue
+            if not bool(self._is_leader[dst]):
+                continue
+            if not ch.get("sealed_ok"):
+                # a server the seal fan-out has not reached could still
+                # admit a write to the range
+                continue
+            mark = self._range_adopt_mark.get(rc_id)
+            if mark is not None and self.tick - mark < 400:
+                continue  # an adopt in flight (re-proposed after 400)
+            if self._tail_writes_range(ch["start"], ch.get("end")):
+                continue
+            if rc_id not in self._range_adopt_granted:
+                # the grant pins the change against expiry, so adopt and
+                # expire can never both win
+                last = self._range_intent_sent.get(rc_id)
+                if last is None or self.tick - last >= 200:
+                    self._range_intent_sent[rc_id] = self.tick
+                    self.ctrl.send_ctrl(CtrlMsg(
+                        "adopt_intent", {"rc_id": rc_id},
+                    ))
+                continue
+            start, end = ch["start"], ch.get("end")
+
+            def _inr(k: str) -> bool:
+                return k >= start and (end is None or k < end)
+
+            val = {
+                "rc_id": rc_id, "op": ch.get("op", "split"),
+                "start": start, "end": end, "dst_group": dst,
+                "kv": {k: v for k, v in self.statemach._kv.items()
+                       if _inr(k)},
+                "wslots": {k: s for k, s in self._wslot.items() if _inr(k)},
+                "floors": list(self.applied),
+            }
+            self._range_adopt_ready.append((dst, ApiRequest(
+                "req", req_id=0,
+                cmd=Command("adopt", key=f"__adopt__{rc_id}", value=val),
+            )))
+            self._range_adopt_mark[rc_id] = self.tick
+
+    def _apply_adopt(self, val: Any, announce: bool,
+                     recovery: bool = False) -> None:
+        """Execute an ``adopt`` at its destination-group slot: install the
+        range override, merge the handed-off KV and write slots, unseal,
+        and (the proposer, live) tell the manager.  Idempotent per
+        rc_id."""
+        val = dict(val or {})
+        rc_id = int(val.get("rc_id", 0))
+        if rc_id in self._range_adopted:
+            return
+        self._range_adopted.add(rc_id)
+        # a re-announce may have installed the override first; this is
+        # the real adoption
+        self._range_override.discard(rc_id)
+        entry = {
+            "rc_id": rc_id, "op": val.get("op", "split"),
+            "start": val["start"], "end": val.get("end"),
+            "group": int(val.get("dst_group", 0)) % self.G,
+            "floors": [int(f) for f in (val.get("floors") or [])],
+        }
+        self.rangetab.install(entry)
+        kv = dict(val.get("kv") or {})
+        self.statemach._kv.update(kv)
+        for k, v in kv.items():
+            # moved keys re-enter the commit feed
+            self._note_put(k, v)
+        for k, sl in (val.get("wslots") or {}).items():
+            self._wslot[k] = max(self._wslot.get(k, -1), int(sl))
+        sealed = self._range_sealed.pop(rc_id, None)
+        self._range_adopt_mark.pop(rc_id, None)
+        self.metrics.counter_add(
+            "reshard_splits" if entry["op"] == "split" else "reshard_merges",
+            1,
+        )
+        if sealed is not None and not recovery and "sealed_at" in sealed:
+            self.metrics.observe(
+                "reshard_cutover_us",
+                int((time.monotonic() - sealed["sealed_at"]) * 1e6),
+            )
+        self.flight.record("range_adopt", rc_id=rc_id, op=str(entry["op"]),
+                           dst=entry["group"], keys=len(kv), tick=self.tick)
+        if announce and not recovery:
+            self.ctrl.send_ctrl(CtrlMsg("range_installed", {"entry": entry}))
+
+    def _range_unseal(self, rc_id: int, why: str) -> None:
+        """Roll back a sealed, never-adopted range change (the manager
+        expired it): the source serves the range again, and the rc_id is
+        remembered so a straggling re-announce cannot re-seal it."""
+        rc_id = int(rc_id)
+        if rc_id in self._range_expired or rc_id in self._range_adopted:
+            return
+        self._range_expired.add(rc_id)
+        self._range_adopt_granted.discard(rc_id)
+        self._range_intent_sent.pop(rc_id, None)
+        self._range_expire_sent.pop(rc_id, None)
+        sealed = self._range_sealed.pop(rc_id, None)
+        self._range_adopt_mark.pop(rc_id, None)
+        # an adopt still waiting for intake must not reach the log
+        self._range_adopt_ready = [
+            (g, req) for g, req in self._range_adopt_ready
+            if int((req.cmd.value or {}).get("rc_id", -1)) != rc_id
+        ]
+        if sealed is None:
+            return
+        self.metrics.counter_add("reshard_seal_expired", 1)
+        self.flight.record("range_unseal", rc_id=rc_id, why=str(why),
+                           tick=self.tick)
+        pf_warn(logger, f"range_change {rc_id} un-sealed ({why}): "
+                        "source resumes serving the range")
+
+    def _install_ranges(self, payload: dict) -> None:
+        """The manager's re-announce (late joiners, fan-out stragglers),
+        newest seq wins: installed entries land as routing overrides only
+        (the replicated adopt still merges at its slot), pending changes
+        seal or learn ``sealed_ok``, expired ones un-seal."""
+        seq = int(payload.get("seq", 0))
+        if seq <= self._range_seq_seen:
+            return
+        self._range_seq_seen = seq
+        for entry in payload.get("installed", []):
+            rc_id = int(entry["rc_id"])
+            if rc_id not in self._range_adopted \
+                    and rc_id not in self._range_override:
+                self._range_override.add(rc_id)
+                self.rangetab.install(entry)
+                self._range_sealed.pop(rc_id, None)
+                self._range_adopt_mark.pop(rc_id, None)
+        for ch in payload.get("pending", []):
+            rc_id = int(ch.get("rc_id", 0))
+            sealed = self._range_sealed.get(rc_id)
+            if sealed is not None:
+                if ch.get("sealed_ok"):
+                    sealed["sealed_ok"] = True
+            elif rc_id not in self._range_adopted \
+                    and rc_id not in self._range_override:
+                self._range_begin(dict(ch), replayed=True)
+        for rc_id in payload.get("expired", []):
+            self._range_unseal(int(rc_id), why="seal-ttl")
+
     # ---------------------------------------------------------- tick loop
     def run(self) -> bool:
         """Event loop; returns True to request a crash-restart."""
@@ -1873,8 +2334,12 @@ class ServerReplica:
             "pp": piggy,
             "kv_need": bool(self.kv_need),
             "ts": time.monotonic(),
-            "need": needs,
         }
+        if self.health is not None:
+            # the health beacon: own signal EWMAs and this replica's
+            # observations of every peer's frame delay
+            payload_msg["hb"] = self.health.beacon()
+        payload_msg["need"] = needs
         cw_need = self._cw_needs(needs) if self.codewords is not None else {}
         if self._pending_kv_serve:
             payload_msg["kv"] = self.statemach.snapshot_items()
@@ -1912,8 +2377,8 @@ class ServerReplica:
     def _build_inputs(self, n_prop, vbase) -> Dict[str, Any]:
         """This tick's kernel step inputs: ``n_proposals``,
         ``value_base``, ``exec_floor``, the conf plane's inputs and
-        (kernels declaring it) an all-false ``demote``, on the step's
-        device."""
+        (kernels declaring it) ``demote``, true at this
+        replica's rows while a demotion is armed, on the step's device."""
         floor = np.repeat(
             np.asarray(self.applied, np.int32)[:, None],
             self.population, axis=1,
@@ -1922,7 +2387,10 @@ class ServerReplica:
                   "exec_floor": floor}
         self._conf_inputs(arrays)
         if self._demote_supported:
-            arrays["demote"] = np.zeros((self.G, self.population), bool)
+            dem = np.zeros((self.G, self.population), bool)
+            if self.tick < self._demote_until:
+                dem[:, self.me] = True
+            arrays["demote"] = dem
         if self._adaptive is not None:
             # the choice that sliced this tick's shard sends
             arrays["spr_override"] = np.asarray(self._spr_tick, np.int32)
@@ -2032,6 +2500,15 @@ class ServerReplica:
             self.ctrl.send_ctrl(CtrlMsg(
                 "snapshot_up_to", {"new_start": list(self.applied)}
             ))
+        if self.watch is not None and self.tick % self.watch_ticks == 0:
+            # one graftwatch delta frame on the watch cadence, one-way
+            # over the ctrl connection
+            t_emit = time.monotonic()
+            frame = self.watch.frame(self.tick)
+            self.ctrl.send_ctrl(CtrlMsg("watch_frame", frame))
+            self.metrics.counter_add("watch_frames_total", 1)
+            self.metrics.observe_s("watch_emit_us",
+                                   time.monotonic() - t_emit)
         rem = deadline - time.monotonic()
         if rem > 0:
             time.sleep(rem)
@@ -2039,7 +2516,7 @@ class ServerReplica:
     def _tick_serial(self, t0: float) -> None:
         """One strictly ordered tick: intake -> send/recv -> step (waited)
         -> WAL log -> group-commit fsync -> apply/reply."""
-        _, _stage = self._stage_clock(t0)
+        stage_us, _stage = self._stage_clock(t0)
         self._fold_adaptive()
         n_prop, vbase, piggy = self._intake()
         _stage("intake")
@@ -2064,8 +2541,13 @@ class ServerReplica:
         self._flush_durability()
         self._qread_expire()
         self._conf_progress()
+        self._range_progress()
         self._leader_edges(fx)
+        self._health_tick()
+        self._autopilot_tick()
         _stage("apply")
+        # the stage stopwatches ride the tick event as child spans
+        self.flight.record("tick", tick=self.tick, **stage_us)
         self._tick_end(t0, deadline)
 
     def _tick_pipelined(self, t0: float) -> None:
@@ -2087,7 +2569,7 @@ class ServerReplica:
             (sleep to the deadline, the fsync running under it)
             drain    replies released if fence N settled, else at N+1
         """
-        _, _stage = self._stage_clock(t0)
+        stage_us, _stage = self._stage_clock(t0)
         deadline = t0 + self.tick_interval
 
         self._fold_adaptive()
@@ -2112,12 +2594,20 @@ class ServerReplica:
         self._ingest_payloads(got)
         self._qread_expire()
         self._conf_progress()
+        self._range_progress()
+        self._health_tick()
+        self._autopilot_tick()
         _stage("overlap")
 
         pl = self._pl
         self._pl = None
         fx = self._retire(pl)
         _stage("device_wait")
+        self.flight.record(
+            "device_step", tick=pl["tick"],
+            dur_us=int((time.monotonic() - pl["t_dispatch"]) * 1e6),
+            wait_us=stage_us["device_wait"],
+        )
         self._apply_committed(fx)
         self._leader_edges(fx)
         _stage("apply")
@@ -2125,6 +2615,7 @@ class ServerReplica:
         self._fence_begin()
         _stage("log")
 
+        self.flight.record("tick", tick=self.tick, pipelined=1, **stage_us)
         self._tick_end(t0, deadline)
         self._drain_replies_if_settled()
 
@@ -2149,6 +2640,8 @@ class ServerReplica:
         cw = self.codewords
         for src, fl in got.items():
             for f in fl or ():
+                if self.health is not None and "hb" in f:
+                    self.health.ingest(src, f["hb"], time.monotonic())
                 for (g, vid), batch in f.get("pp", {}).items():
                     self.payloads.install(g, vid, batch, overwrite=False)
                     self.missing.discard((g, vid))
@@ -2222,7 +2715,7 @@ class ServerReplica:
         ok_groups = {g for g in self.kv_need if dominates(g)}
         if not ok_groups:
             return
-        upd = {k: v for k, v in kv.items() if self.group_of(k) in ok_groups}
+        upd = {k: v for k, v in kv.items() if self.route_group(k) in ok_groups}
         self.statemach._kv.update(upd)
         # the jump bypasses the per-slot apply, so the commit feed
         # carries the transferred values too
@@ -2253,6 +2746,9 @@ class ServerReplica:
             self._wal_append(("eapply", g, row, col, vid, batch))
             if batch is None:
                 return
+            self.traces.mark_committed(g, vid, self.tick)
+            self.flight.record("commit", g=g, vid=vid, row=row, col=col,
+                               tick=self.tick)
             mine = (g, vid) in self.origin
             for client, req in batch:
                 res = apply_command(self.statemach._kv, req.cmd)
@@ -2263,6 +2759,11 @@ class ServerReplica:
                         "reply", req_id=req.req_id, result=res,
                     )))
             self.metrics.counter_add("commits_applied_total", len(batch))
+            self.traces.mark_applied(g, vid, self.tick)
+            self.flight.record("apply", g=g, vid=vid, row=row, col=col,
+                               tick=self.tick)
+            if mine:
+                self._trace_replied.append((g, vid))
         return apply_fn
 
     def _apply_committed_epaxos(self) -> None:
@@ -2334,6 +2835,11 @@ class ServerReplica:
                 self.kv_need.add(g)
                 return
             vid = 0 if bool(marker[pos[0]]) else int(win_val[pos[0]])
+            if vid != 0:
+                # the slot passed under the commit bar, on every replica
+                self.traces.mark_committed(g, vid, self.tick)
+                self.flight.record("commit", g=g, vid=vid, slot=slot,
+                                   tick=self.tick)
             batch = self._resolve_payload(g, vid)
             if vid != 0 and batch is None:
                 self.missing.add((g, vid))
@@ -2344,6 +2850,12 @@ class ServerReplica:
             if batch is not None:
                 mine = (g, vid) in self.origin
                 for client, req in batch:
+                    if req.cmd is not None and req.cmd.kind == "adopt":
+                        # the replicated range adoption executes at its
+                        # destination-group slot on every replica; the
+                        # proposer announces it to the manager
+                        self._apply_adopt(req.cmd.value, announce=mine)
+                        continue
                     if req.cmd.kind == "scan" and client is None:
                         # a scan barrier marker: no effect anywhere; its
                         # proposer reads the cut when the last group's
@@ -2351,6 +2863,25 @@ class ServerReplica:
                         if mine:
                             self._scan_barrier_hit(g, req.req_id)
                         continue
+                    if req.cmd.kind == "put":
+                        fg = self._handoff_floor(g, req.cmd.key)
+                        if fg is not None:
+                            if slot < fg:
+                                # a write to a moved-away range in its old
+                                # group's log, below the handoff floor:
+                                # its value rode the adopt, so it is
+                                # acked without applying
+                                if mine:
+                                    self._reply_queue.append((
+                                        client, ApiReply(
+                                            "reply", req_id=req.req_id,
+                                            result=CommandResult("put"),
+                                        ),
+                                    ))
+                                continue
+                            pf_warn(logger, f"post-floor write to moved "
+                                            f"range at g{g} slot {slot} "
+                                            f"key {req.cmd.key!r}: applying")
                     res = apply_command(self.statemach._kv, req.cmd)
                     if req.cmd.kind == "put":
                         k = req.cmd.key
@@ -2364,6 +2895,11 @@ class ServerReplica:
                 self.metrics.counter_add(
                     "commits_applied_total", len(batch)
                 )
+                self.traces.mark_applied(g, vid, self.tick)
+                self.flight.record("apply", g=g, vid=vid, slot=slot,
+                                   tick=self.tick)
+                if mine:
+                    self._trace_replied.append((g, vid))
             self.applied[g] = slot + 1
 
     def _flush_durability(self) -> None:
@@ -2382,6 +2918,7 @@ class ServerReplica:
             self._reply(client, reply)
         self._reply_queue.clear()
         self._flush_notes()
+        self._mark_traces_replied()
 
     def _leader_edges(self, fx: HostEffects) -> None:
         is_l = self._last_extra.get("is_leader")
@@ -2404,6 +2941,159 @@ class ServerReplica:
         elif g0 and self.tick - self._lead_announced >= 200:
             self.ctrl.send_ctrl(CtrlMsg("leader_status", {"step_up": True}))
             self._lead_announced = self.tick
+
+
+    # ------------------------------------------------------ gray failure
+    def _health_tick(self) -> None:
+        """Feed the scorer, and every ``health_eval_ticks`` ticks run the
+        quorum-median outlier round.  An indicted leader steps down
+        through the kernel's ``demote`` input (a QuorumLeases or Bodega
+        leader first revokes its lease responders through the conf plane
+        and restores them if the indictment clears meanwhile); an
+        indicted responder stops serving local reads
+        (``_can_local_read``).  With ``health_mitigation`` off the plane
+        only scores."""
+        h = self.health
+        if h is None:
+            return
+        h.end_tick(self.metrics.gauge_value("api_queue_depth", 0.0))
+        if self.tick % self.health_eval_ticks:
+            return
+        verdict = h.evaluate(time.monotonic())
+        self.metrics.gauge_set(
+            "health_score", verdict.scores.get(self.me, 1.0)
+        )
+        self._health_self_bad = self.me in verdict.indicted
+        if not (self.health_mitigation and self._demote_supported):
+            return
+        if self._ap_demote_pending:
+            return  # _autopilot_tick owns an autopilot-started revoke
+        if self._demote_revoke_deadline is not None:
+            # an in-flight lease revoke resolves either way
+            conf_idle = self._conf_active is None and not self._conf_queue
+            if not conf_idle and self.tick <= self._demote_revoke_deadline:
+                return  # still installing
+            self._demote_revoke_deadline = None
+            restore = self._demote_restore_resp
+            self._demote_restore_resp = None
+            if verdict.evaluated and not self._health_self_bad:
+                # a false alarm: cancel, and bring the responders back
+                if restore:
+                    self._handle_conf_req(None, ApiRequest(
+                        "conf", conf_delta={"responders": restore},
+                    ))
+                return
+            self._arm_demotion(verdict)
+            return
+        if not (verdict.evaluated and self._health_self_bad):
+            return
+        if self.tick < max(self._demote_cooldown_until, self._demote_until):
+            return
+        if not self._is_leader.any():
+            return  # a responder's indictment only steers reads
+        if self._conf_kind is not None:
+            # revoke the read-lease responders first, so local reads
+            # drain instead of riding lease expiry under a gone leader
+            self._demote_restore_resp = self._current_responders()
+            self._handle_conf_req(None, ApiRequest(
+                "conf", conf_delta={"responders": []},
+            ))
+            self._demote_revoke_deadline = self.tick + 600
+            pf_warn(logger, f"health: replica {self.me} (leader) indicted "
+                            f"{verdict.outliers.get(self.me)}; revoking "
+                            "leases before demotion")
+            return
+        self._arm_demotion(verdict)
+
+    def _current_responders(self) -> List[int]:
+        """The installed lease responders (group 0's conf), restored after
+        a false alarm."""
+        if self._conf_kind == "ql":
+            bits = int(self._np_state("conf_cur")[0, self.me])
+        elif self._conf_kind == "bodega":
+            bits = int(self._np_state("conf_resp")[0, self.me, 0])
+        else:
+            return []
+        if bits <= 0:
+            return []
+        return [r for r in range(self.population) if bits >> r & 1]
+
+    def _arm_demotion(self, verdict) -> None:
+        """Arm the kernel's ``demote`` input at this replica's rows and
+        stamp the demotion (counter, flight event, log)."""
+        self._demote_until = self.tick + self.health_demote_ticks
+        self._demote_cooldown_until = (
+            self._demote_until + self.health_cooldown_ticks
+        )
+        self.metrics.counter_add("leader_demotions")
+        self.flight.record(
+            "demote", tick=self.tick,
+            signals=",".join(verdict.outliers.get(self.me, ())),
+            score=verdict.scores.get(self.me, 0.0),
+        )
+        pf_warn(logger, f"health: replica {self.me} stepping down "
+                        f"(outlier on {verdict.outliers.get(self.me)})")
+
+    # ---------------------------------------------------------- autopilot
+    def _autopilot_demote(self, reason: str) -> bool:
+        """A voluntary demotion for the autopilot's ``lead_move``
+        actuator, through the health plane's machinery (the same demote
+        input, lease revoke and cooldown).  False when it cannot apply
+        here: no demote input, cooldown, not a leader, or a revoke in
+        flight."""
+        if not self._demote_supported:
+            return False
+        if self._ap_demote_pending \
+                or self._demote_revoke_deadline is not None:
+            return False
+        if self.tick < max(self._demote_cooldown_until, self._demote_until):
+            return False
+        if not self._is_leader.any():
+            return False
+        if self._conf_kind is not None:
+            self._demote_restore_resp = self._current_responders()
+            self._handle_conf_req(None, ApiRequest(
+                "conf", conf_delta={"responders": []},
+            ))
+            self._demote_revoke_deadline = self.tick + 600
+            self._ap_demote_pending = True
+            pf_warn(logger, f"autopilot: replica {self.me} revoking "
+                            f"leases before demotion ({reason})")
+            return True
+        self._ap_arm_demotion(reason)
+        return True
+
+    def _ap_arm_demotion(self, reason: str) -> None:
+        """``_arm_demotion`` for the autopilot: the same input and pacing,
+        attributed to the policy tier."""
+        self._demote_until = self.tick + self.health_demote_ticks
+        self._demote_cooldown_until = (
+            self._demote_until + self.health_cooldown_ticks
+        )
+        self.metrics.counter_add("leader_demotions")
+        self.metrics.counter_add("autopilot_actions", 1,
+                                 actuator="lead_move")
+        self.flight.record("autopilot_act", act="demote",
+                           reason=str(reason), tick=self.tick)
+        pf_warn(logger, f"autopilot: replica {self.me} stepping down "
+                        f"({reason})")
+
+    def _autopilot_tick(self) -> None:
+        """Resolve an autopilot-started lease revoke: once the
+        empty-responders conf installs (or its deadline passes), arm the
+        demotion.  No false-alarm restore: the policy decided."""
+        if not self._ap_demote_pending:
+            return
+        if self._demote_revoke_deadline is None:
+            self._ap_demote_pending = False
+            return
+        conf_idle = self._conf_active is None and not self._conf_queue
+        if not conf_idle and self.tick <= self._demote_revoke_deadline:
+            return
+        self._demote_revoke_deadline = None
+        self._demote_restore_resp = None
+        self._ap_demote_pending = False
+        self._ap_arm_demotion("lease-revoke-complete")
 
     # ------------------------------------------------------- control plane
     def _handle_ctrl(self) -> Optional[bool]:
@@ -2428,6 +3118,39 @@ class ServerReplica:
             return True
         elif msg.kind == "install_conf":
             self._install_conf(msg.payload)
+        elif msg.kind == "range_change":
+            # every replica seals at once; always acked, a refused change
+            # (EPaxos, no vote window) too
+            self._range_begin(dict(msg.payload.get("change") or {}))
+            self.ctrl.send_ctrl(CtrlMsg("range_reply"))
+        elif msg.kind == "install_ranges":
+            self._install_ranges(msg.payload)
+        elif msg.kind == "adopt_decision":
+            # a grant pins the change against expiry; a refusal means it
+            # expired under us
+            rc_id = int(msg.payload.get("rc_id", 0))
+            if msg.payload.get("ok"):
+                if rc_id in self._range_sealed:
+                    self._range_adopt_granted.add(rc_id)
+            else:
+                self._range_unseal(rc_id, why="adopt-refused")
+        elif msg.kind == "fault_ctl":
+            self._fault_ctl(msg.payload or {})
+            self.ctrl.send_ctrl(CtrlMsg("fault_reply"))
+        elif msg.kind == "autopilot_ctl":
+            self.ctrl.send_ctrl(CtrlMsg(
+                "autopilot_reply", self._autopilot_ctl(msg.payload or {})
+            ))
+        elif msg.kind == "metrics_dump":
+            self.ctrl.send_ctrl(CtrlMsg(
+                "metrics_reply", {"snapshot": self.metrics_snapshot()}
+            ))
+        elif msg.kind == "flight_dump":
+            self.ctrl.send_ctrl(CtrlMsg("flight_reply", {
+                "flight": self.flight_snapshot(
+                    last_n=(msg.payload or {}).get("last_n")
+                ),
+            }))
         elif msg.kind == "take_snapshot":
             self._take_snapshot()
             self.ctrl.send_ctrl(CtrlMsg("snapshot_reply"))
@@ -2437,6 +3160,121 @@ class ServerReplica:
         elif msg.kind == "leave":
             return False
         return None
+
+    def _fault_ctl(self, p: dict) -> None:
+        """Swap the message-plane (``net``) and disk-plane (``wal``) fault
+        specs: a key present with None clears its plane, an absent key
+        leaves it.  The clock-skew and snapshot-crash planes (``skew``,
+        ``snap_crash``) belong to the nemesis plane, not ported yet: they
+        are refused with a logged warning."""
+        seed = int(p.get("seed", 0))
+        if "net" in p:
+            self.transport.set_faults(p.get("net"), seed=seed)
+        if "wal" in p:
+            self.wal.set_faults(p.get("wal"), seed=seed)
+        refused = sorted(k for k in ("skew", "snap_crash") if k in p)
+        if refused:
+            pf_warn(logger, f"fault_ctl planes {refused} refused: the "
+                            "nemesis plane is not ported")
+        planes = sorted(k for k in ("net", "wal") if k in p)
+        self.flight.record("fault_ctl", tick=self.tick,
+                           planes=",".join(planes),
+                           heal=all(not p.get(k) for k in planes))
+
+    def _autopilot_ctl(self, p: dict) -> Dict[str, Any]:
+        """One autopilot actuation: ``demote`` re-places leadership
+        through the health plane's machinery, ``retune`` turns the live
+        serving knobs (``api_max_batch``, ``pipeline``), ``announce``
+        exports the driver's mode and cooldowns as gauges.  Returns what
+        applied."""
+        act = str(p.get("act", ""))
+        applied: Dict[str, Any] = {"act": act, "ok": True}
+        if act == "demote":
+            applied["ok"] = self._autopilot_demote(
+                str(p.get("reason", "autopilot"))
+            )
+        elif act == "retune":
+            if "api_max_batch" in p:
+                nb = max(1, int(p["api_max_batch"]))
+                self.api_max_batch = nb
+                self.external.max_batch_size = nb
+                applied["api_max_batch"] = nb
+            if "pipeline" in p:
+                want = bool(p["pipeline"])
+                if want != self.pipeline:
+                    # settle the in-flight step before the loop switches
+                    # tick bodies (this runs on the loop thread)
+                    self._pipeline_flush()
+                    self.pipeline = want
+                applied["pipeline"] = want
+            self.metrics.counter_add(
+                "autopilot_actions", 1,
+                actuator="pipeline" if "pipeline" in p else "batch",
+            )
+            self.flight.record(
+                "autopilot_act", act="retune", tick=self.tick,
+                **{k: p[k] for k in ("api_max_batch", "pipeline") if k in p},
+            )
+        elif act == "announce":
+            self.metrics.gauge_set("autopilot_mode",
+                                   1.0 if p.get("mode") == "act" else 0.0)
+            for a, cd in (p.get("cooldowns") or {}).items():
+                self.metrics.gauge_set("autopilot_cooldown", float(cd),
+                                       actuator=str(a))
+        else:
+            applied["ok"] = False
+        return applied
+
+    def _telemetry_row(self) -> Dict[str, Any]:
+        """This replica's device metric lanes, decoded from the host view
+        of the last retired step (on the card, the pinned prefetch copy:
+        a scrape never waits on an in-flight step)."""
+        return dev_telemetry.snapshot_row(
+            self._np_state(dev_telemetry.TELEM_KEY), self.me
+        )
+
+    def metrics_snapshot(self) -> dict:
+        """The ``metrics_dump`` scrape: this replica's device metric lanes
+        (``[G, K]`` block decoded per lane), the host registry and the
+        last sampled slot traces; JSON-able."""
+        for dst in range(self.population):
+            if dst == self.me:
+                continue
+            self.metrics.gauge_set("pp_bytes", self.pp_bytes[dst], peer=dst)
+            self.metrics.gauge_set("pp_items", self.pp_items[dst], peer=dst)
+            self.metrics.gauge_set("cw_bytes", self.cw_bytes[dst], peer=dst)
+        # per-key-range heat at the api seam: the top 8 as labeled gauges
+        # and the bare total
+        self.metrics.gauge_set("range_heat",
+                               float(self._range_heat.total()))
+        for k, n in self._range_heat.top(8):
+            self.metrics.gauge_set("range_heat", float(n), key=k)
+        self.flight.publish_drops(self.metrics)
+        return {
+            "me": self.me,
+            "protocol": self.protocol,
+            "tick": self.tick,
+            "wire_codec": self.wire_codec,
+            "pipeline": self.pipeline,
+            "api_max_batch": self.api_max_batch,
+            "applied": list(self.applied),
+            "device": self._telemetry_row(),
+            "host": self.metrics.snapshot(),
+            "traces": self.traces.sampled(),
+        }
+
+    def flight_snapshot(self, last_n: Optional[int] = None) -> dict:
+        """The ``flight_dump`` scrape: the recorder ring with its drop
+        accounting, plus the progress header and the device lane
+        totals."""
+        out = self.flight.dump(last_n=last_n)
+        out.update({
+            "protocol": self.protocol,
+            "tick": self.tick,
+            "applied": list(self.applied),
+            "device_lanes": self._telemetry_row()["lanes"],
+        })
+        return out
 
     def _resume(self) -> None:
         """Leave a pause.  The kernel's leases count ticks, and while this

@@ -226,7 +226,8 @@ class StorageHub:
     mirror when its build fails); ``native`` says which backend did.
     """
 
-    def __init__(self, path: str, registry=None, prefer_native: bool = True):
+    def __init__(self, path: str, registry=None, prefer_native: bool = True,
+                 flight=None):
         lib = load_wal() if prefer_native else None
         self.backend = _NativeWal(lib, path) if lib else _PyWal(path)
         self.native = lib is not None
@@ -255,7 +256,14 @@ class StorageHub:
         # telemetry seam (host/telemetry.MetricsRegistry): fsync latency
         # and the group-commit batch size
         self.registry = registry
+        # flight seam (host/tracing.FlightRecorder): wal_append and
+        # wal_fsync events on the logger thread
+        self.flight = flight
+        # health seam (host/health.HealthScorer, attached by the server):
+        # each sync point's duration feeds the slow_disk signal
+        self.health = None
         self._since_sync = 0
+        self._unsynced_bytes = 0  # the mem fault's write-back meter
         # disk fault injection: a mutable spec consulted by the logger
         # thread before each action.  None = no faults.
         self._faults: Optional[dict] = None
@@ -273,8 +281,17 @@ class StorageHub:
           gated ack leaves, and recovery truncates the tear.
         - ``{"fsync_fail": n}`` — the next ``n`` sync points fail
           (EIO-style); the durability gate turns this into a crash.
+        - ``{"slow": f}`` — a slow disk: every sync point (and sync
+          append) takes ``f`` times its measured time, at least
+          ``slow_floor`` seconds (default 500 us), paid as a sleep inside
+          the timed region so ``wal_fsync_us`` and the health scorer see
+          it; ``{"slow_count": n}`` disarms it after ``n`` sync points.
+        - ``{"mem": cap}`` — memory pressure: unsynced appended bytes
+          beyond ``cap`` force an inline sync point plus a ``mem_stall``
+          second stall (default 0.04) before the append.
 
-        ``seed`` is accepted for interface symmetry with the JAX hub."""
+        ``seed`` is accepted for interface symmetry with
+        ``TransportHub.set_faults``."""
         del seed
         self._faults = dict(spec) if spec else None
 
@@ -380,15 +397,47 @@ class StorageHub:
             f["fsync_fail"] -= 1
             raise OSError("injected: fsync failed (EIO)")
 
+    def _slow_stall(self, elapsed: float, floor: float,
+                    is_sync: bool = True) -> float:
+        """Seconds of injected slow-disk stall for an op that took
+        ``elapsed`` seconds (0.0 when the fault is unarmed).  Sync points
+        count down the optional ``slow_count`` arm."""
+        f = self._faults
+        if not f:
+            return 0.0
+        factor = float(f.get("slow", 0.0) or 0.0)
+        if factor <= 1.0:
+            return 0.0
+        floor = float(f.get("slow_floor", floor) or floor)
+        cnt = f.get("slow_count")
+        if cnt is not None and is_sync:
+            if cnt <= 0:
+                f.pop("slow", None)
+                return 0.0
+            f["slow_count"] = cnt - 1
+        return (factor - 1.0) * max(elapsed, floor)
+
     def _sync_point(self, fn):
-        """Run a durability point, timed, closing the group-commit batch
-        opened by the appends since the last sync."""
+        """Run a durability point, timed (an injected slow-disk stall
+        included), closing the group-commit batch opened by the appends
+        since the last sync; the duration feeds the registry, the health
+        scorer and the flight recorder."""
         t0 = time.monotonic()
         res = fn()
+        stall = self._slow_stall(time.monotonic() - t0, 500e-6)
+        if stall > 0:
+            time.sleep(stall)
+        self._unsynced_bytes = 0
+        dur = time.monotonic() - t0
         reg = self.registry
         if reg is not None:
-            reg.observe_s("wal_fsync_us", time.monotonic() - t0)
+            reg.observe_s("wal_fsync_us", dur)
             reg.observe("wal_group_commit_batch", self._since_sync)
+        if self.health is not None:
+            self.health.note_fsync(dur)
+        if self.flight is not None:
+            self.flight.record("wal_fsync", dur_us=int(dur * 1e6),
+                               batch=self._since_sync)
         self._since_sync = 0
         return res
 
@@ -407,11 +456,22 @@ class StorageHub:
             if self.registry is not None:
                 self.registry.counter_add("wal_appends_total")
             self._since_sync += 1
+            if self.flight is not None:
+                self.flight.record("wal_append", sync=bool(a.sync))
             data = pickle.dumps(a.entry)
+            f = self._faults
+            cap = int(f.get("mem", 0) or 0) if f else 0
+            if cap > 0 and self._unsynced_bytes + len(data) > cap:
+                stall = float(f.get("mem_stall", 0.04) or 0.0)
+                self._sync_point(lambda: (b.sync(), time.sleep(stall)))
             if a.sync:
                 end = self._sync_point(lambda: b.append(data, True))
             else:
                 end = b.append(data, False)
+                self._unsynced_bytes += len(data)
+                stall = self._slow_stall(0.0, 50e-6, is_sync=False)
+                if stall > 0:
+                    time.sleep(stall)
             return LogResult("append", end_offset=end)
         if a.kind == "truncate":
             ok = b.truncate(a.offset, a.sync)

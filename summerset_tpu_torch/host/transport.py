@@ -35,8 +35,16 @@ pinned buffers a card replica's outbox views are free to be written again
 by a later prefetch.  Ingress always dispatches per frame on the body's
 first byte, so codec and pickle peers share one mesh.  Every 64th encoded
 frame is also pickled to meter the bytes the codec saved
-(``wire_bytes_saved``); ``wire_codec_on`` gauges the knob.  The JAX hub's
-fault verdicts and health hooks are not ported.
+(``wire_bytes_saved``); ``wire_codec_on`` gauges the knob.
+
+Seams of the observability and control planes: ``flight`` (a
+``host/tracing.FlightRecorder``) gets ``frame_tx``/``frame_rx`` events
+with the sender's tick as ``seq`` and a ``transport_handshake_fail`` event
+per failed dial; ``health`` (a ``host/health.HealthScorer``, attached by
+the server) gets every same-host delivery delay, which also feeds the
+``peer_ack_delay_us`` histogram; ``set_faults`` installs a
+``safetcp.FrameFaults`` spec (the ``net`` plane of ``fault_ctl``) that
+drops, duplicates, delays and rate-limits frames.
 """
 
 from __future__ import annotations
@@ -96,7 +104,7 @@ def _same_host(sock: socket.socket) -> bool:
 
 class TransportHub:
     def __init__(self, me: int, population: int, p2p_addr: Tuple[str, int],
-                 registry=None, codec: Optional[bool] = None):
+                 registry=None, flight=None, codec: Optional[bool] = None):
         self.me = me
         self.population = population
         self.p2p_addr = p2p_addr
@@ -110,6 +118,10 @@ class TransportHub:
         if registry is not None:
             registry.counter_add("wire_bytes_saved", 0)
             registry.gauge_set("wire_codec_on", 1 if self.codec else 0)
+        self.flight = flight
+        self.health = None
+        # FrameFaults verdict engine (None = the zero-cost fast path)
+        self._faults: Optional[safetcp.FrameFaults] = None
         self._conns: Dict[int, socket.socket] = {}
         self._wlocks: Dict[int, threading.Lock] = {}
         # (peer, frame bytes, delay ms) delivery samples; deque appends
@@ -139,6 +151,14 @@ class TransportHub:
             target=self._acceptor, daemon=True
         )
         self._accept_thread.start()
+
+    # ------------------------------------------------------ fault injection
+    def set_faults(self, spec: Optional[dict], seed: int = 0) -> None:
+        """Install (or clear, with ``spec=None``) a message-fault spec:
+        partitions (mute/deaf), iid drop, duplication, added delay, the
+        egress bandwidth cap and CPU starve (``safetcp.FrameFaults``),
+        with verdicts drawn from a RNG seeded by ``seed``."""
+        self._faults = safetcp.FrameFaults(spec, seed) if spec else None
 
     # ---------------------------------------------------------- mesh setup
     def peers(self) -> list:
@@ -200,8 +220,11 @@ class TransportHub:
                 return
             try:
                 peer = int(safetcp.recv_msg_sync(sock))
-            except Exception:
+            except Exception as e:
                 # a dialer that never completes the id handshake
+                if self.flight is not None:
+                    self.flight.record("transport_handshake_fail",
+                                       error=f"{type(e).__name__}: {e}")
                 sock.close()
                 continue
             self._register(peer, sock)
@@ -220,15 +243,35 @@ class TransportHub:
                 if reg is not None:
                     reg.observe_s("wire_decode_us",
                                   time.monotonic() - t_dec, plane="p2p")
+                faults = self._faults
+                if faults is not None and faults.ingress_drop(peer):
+                    continue  # deaf to this peer (one partition half)
+                if reg is not None:
                     reg.counter_add("transport_frames_recv", peer=peer)
                     reg.counter_add("transport_bytes_recv", nbytes,
                                     peer=peer)
+                if faults is not None:
+                    d = faults.ingress_delay(peer)
+                    if d > 0:
+                        # the per-peer messenger sleeps: a slow link,
+                        # never a reordering
+                        time.sleep(d)
+                if self.flight is not None:
+                    self.flight.record("frame_rx", peer=peer, seq=int(tick),
+                                       nbytes=nbytes)
                 self._rq[peer].put((tick, payload))
                 ts = payload.get("ts") if isinstance(payload, dict) else None
                 if ts is not None and self._same_host.get(peer, False):
-                    self.samples.append(
-                        (peer, nbytes, (time.monotonic() - ts) * 1e3)
-                    )
+                    delay_s = time.monotonic() - ts
+                    self.samples.append((peer, nbytes, delay_s * 1e3))
+                    # the frame delay is the heartbeat-delivery latency
+                    # of the tick mesh: the health scorer's slow_peer
+                    # signal
+                    if reg is not None:
+                        reg.observe_s("peer_ack_delay_us", delay_s,
+                                      peer=peer)
+                    if self.health is not None:
+                        self.health.note_peer_delay(peer, delay_s)
         except Exception:
             pf_warn(logger, f"peer {peer} connection lost")
             if self._conns.get(peer) is sock:
@@ -249,10 +292,18 @@ class TransportHub:
             fence()
         reg = self.registry
         enc = self._enc
+        faults = self._faults
         for peer, payload in per_peer.items():
             sock = self._conns.get(peer)
             if sock is None:
                 continue
+            copies = 1
+            if faults is not None:
+                verdict = faults.egress(peer)
+                if verdict == "drop":
+                    continue  # lost: the kernels' loss machinery heals
+                if verdict == "dup":
+                    copies = 2
             t_enc = time.monotonic()
             segs, nbytes = safetcp.encode_frame_into(
                 (tick, payload), enc, codec=self.codec
@@ -269,13 +320,26 @@ class TransportHub:
                         ))
                         reg.counter_add("wire_bytes_saved",
                                         max(0, base - nbytes))
+            if copies > 1:
+                segs = segs * copies
+            if faults is not None:
+                # fail-slow host: the egress token bucket and the CPU
+                # starve stall the sender's own tick loop, after the
+                # frame's ts stamp, so peers' delay samples see the limp
+                stall = faults.host_stall(copies * nbytes, time.monotonic())
+                if stall > 0:
+                    time.sleep(stall)
             try:
                 with self._wlocks[peer]:
-                    safetcp.sendmsg_all(sock, segs, nbytes)
+                    safetcp.sendmsg_all(sock, segs, copies * nbytes)
                 if reg is not None:
-                    reg.counter_add("transport_frames_sent", peer=peer)
-                    reg.counter_add("transport_bytes_sent", nbytes,
+                    reg.counter_add("transport_frames_sent", copies,
                                     peer=peer)
+                    reg.counter_add("transport_bytes_sent", copies * nbytes,
+                                    peer=peer)
+                if self.flight is not None:
+                    self.flight.record("frame_tx", peer=peer, seq=int(tick),
+                                       nbytes=copies * nbytes)
             except OSError:
                 if self._conns.get(peer) is sock:
                     self._conns.pop(peer, None)

@@ -89,13 +89,26 @@ class MultiPaxosKernel(ProtocolKernel):
     EXTRA_INPUTS: Tuple[Tuple[str, str], ...] = (("demote", "gr"),)
 
     def restore_durable(self, st, g, me, rec, floor):
-        """Reinstate our acceptor row from the last logged record."""
+        """Reinstate our acceptor row from the last logged record.
+
+        The commit bar comes back at the applied floor.  A vote run that
+        starts above it would never let this follower commit again at
+        its leader's ballot (the commit rule needs ``vote_from <=
+        commit_bar``, and the leader counts the run as matched, so it
+        never resends below it).  So the run comes back empty at the
+        floor: the leader's next accept then lands past ``vote_bar``
+        and is nacked with the floor as hint, and the leader resends
+        from there.  The votes stay in the window.  (A deliberate
+        difference from the JAX kernel, which keeps the run and stalls
+        such a follower for good.)"""
         fl = int(floor)
+        vfrom = int(rec["vote_from"])
         vbar = max(int(rec["vote_bar"]), fl)
+        if vfrom > fl:
+            vfrom = vbar = fl
         st["bal_max"] = _max_row(st["bal_max"], g, me, int(rec["bal_max"]))
         st["vote_bal"] = _set_row(st["vote_bal"], g, me, int(rec["vote_bal"]))
-        st["vote_from"] = _set_row(st["vote_from"], g, me,
-                                   int(rec["vote_from"]))
+        st["vote_from"] = _set_row(st["vote_from"], g, me, vfrom)
         st["vote_bar"] = _max_row(st["vote_bar"], g, me, vbar)
         st["dur_bar"] = _set_row(st["dur_bar"], g, me, vbar)
         st["commit_bar"] = _max_row(st["commit_bar"], g, me, fl)

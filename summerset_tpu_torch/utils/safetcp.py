@@ -20,8 +20,12 @@ list (the length prefix, the small-field chunks and zero-copy ndarray
 views, no join copy); ingress reads the length prefix into a reusable
 buffer and the body into one exact-size buffer with ``recv_into``.  Body
 buffers are per frame on purpose: the codec decodes ndarray lanes as
-views into the received body.  The JAX module's seeded frame faults
-(``FrameFaults``) belong to the nemesis plane and are not ported.
+views into the received body.
+
+``FrameFaults`` is the seeded per-frame fault engine a server's
+``TransportHub.set_faults`` installs (the ``net`` plane of the
+``fault_ctl`` ctrl): partitions, loss, duplication, delay, and the
+fail-slow egress token bucket, CPU starve and stall cap.
 """
 
 from __future__ import annotations
@@ -29,9 +33,11 @@ from __future__ import annotations
 import asyncio
 import errno
 import pickle
+import random
 import struct
+import threading
 import time
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from . import wirecodec
 from .errors import SummersetError
@@ -47,6 +53,136 @@ _IOV_MAX = 512
 #: the one decode dispatch (codec bodies by magic, else pickle); raises
 #: :class:`wirecodec.WireDecodeError` on a truncated or garbage body
 decode_body = wirecodec.decode_body
+
+
+class FrameFaults:
+    """Seeded per-frame fault verdicts for the live TCP planes (the
+    host-side analog of the netmodel's loss/partition masks; parity role:
+    ``tc qdisc netem`` loss/delay/duplicate per veth in the reference's
+    ``scripts/utils/net.py``).
+
+    The spec is a plain dict (it rides a CtrlMsg through the manager):
+
+    - ``mute``:  [peer, ...] — egress to these peers is silently dropped
+                 (one half of a partition; asymmetric faults use only one
+                 side's mute).
+    - ``deaf``:  [peer, ...] — ingress from these peers is discarded.
+    - ``drop``:  {peer or "*": prob} — iid per-frame egress loss.
+    - ``dup``:   {peer or "*": prob} — per-frame egress duplication.
+    - ``delay``: {peer or "*": seconds} — added one-way ingress delay
+                 (applied in the per-peer receive thread, so per-link
+                 FIFO order is preserved — a slow link, not reordering).
+    - ``bw``:    bytes/second — token-bucket cap on TOTAL egress
+                 bandwidth; the deficit is paid as a sleep in the
+                 SENDER's tick loop (``TransportHub.send_tick``), so a
+                 rate-limited NIC backpressures the host it sits in.
+                 This is the fail-slow ``slow_peer`` host model: unlike
+                 ``delay`` (which slows the LINK in the receiver's
+                 messenger thread and leaves the sender at full speed),
+                 a bandwidth cap limps the replica itself while it stays
+                 alive enough to keep leases and leadership.
+    - ``starve``: fraction in [0, 1) — CPU-starvation duty cycle: the
+                 victim's send path sleeps ``f / (1 - f)`` times the
+                 real work time elapsed since the last send, i.e. the
+                 host only gets ``1 - f`` of the CPU.  Rides the same
+                 ``slow_peer`` nemesis class as ``bw``.
+
+    Verdict draws come from one seeded ``random.Random`` behind a lock:
+    the verdict *sequence* is deterministic per (spec, seed), which is
+    what makes a nemesis schedule a one-line repro; wall-clock
+    interleaving with the replica's tick loop is the only nondeterminism
+    left, exactly as with real netem.
+    """
+
+    def __init__(self, spec: Dict[str, Any], seed: int = 0):
+        self.spec = dict(spec or {})
+        self._mute = {int(p) for p in self.spec.get("mute", ())}
+        self._deaf = {int(p) for p in self.spec.get("deaf", ())}
+        self._drop = {
+            str(k): float(v) for k, v in self.spec.get("drop", {}).items()
+        }
+        self._dup = {
+            str(k): float(v) for k, v in self.spec.get("dup", {}).items()
+        }
+        self._delay = {
+            str(k): float(v) for k, v in self.spec.get("delay", {}).items()
+        }
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+        # fail-slow host faults (slow_peer): egress token bucket + CPU
+        # starve duty cycle, both consulted by TransportHub.send_tick
+        self._bw = float(self.spec.get("bw", 0.0) or 0.0)
+        self._starve = min(0.95, max(
+            0.0, float(self.spec.get("starve", 0.0) or 0.0)
+        ))
+        # gray, not dead: the per-call stall cap keeps the victim's
+        # heartbeats landing inside its peers' election timeouts — the
+        # whole point of fail-slow is a leader that LIMPS while holding
+        # leadership, so the stall must slow the tick loop ~10-20x, not
+        # freeze it (an unbounded token-bucket deficit would read as
+        # fail-stop and the ordinary election machinery would mask it)
+        self._stall_cap = float(self.spec.get("stall_cap", 0.04) or 0.04)
+        self._tokens = self._bw  # one second of headroom at arm time
+        self._t_last: Optional[float] = None
+        self._last_stall = 0.0
+
+    def host_stall(self, nbytes: int, now: float) -> float:
+        """Seconds the SENDER must stall before putting ``nbytes`` more
+        on the wire: the token-bucket deficit at the ``bw`` cap plus the
+        CPU-starve share of the WORK time elapsed since the last call
+        (the previously injected stall is subtracted out — feeding the
+        sleep back into the duty cycle would compound exponentially and
+        freeze the victim).  0.0 when neither knob is armed."""
+        if self._bw <= 0.0 and self._starve <= 0.0:
+            return 0.0
+        stall = 0.0
+        with self._lock:
+            dt = 0.0 if self._t_last is None else max(0.0, now - self._t_last)
+            self._t_last = now
+            if self._bw > 0.0:
+                # the bucket refills over the FULL elapsed time (real
+                # seconds pass while the victim sleeps)
+                self._tokens = min(
+                    self._bw, self._tokens + dt * self._bw
+                ) - float(nbytes)
+                if self._tokens < 0.0:
+                    stall += -self._tokens / self._bw
+            if self._starve > 0.0:
+                work = max(0.0, dt - self._last_stall)
+                stall += work * self._starve / (1.0 - self._starve)
+            stall = min(stall, self._stall_cap)
+            if self._bw > 0.0:
+                # deficit beyond what the capped stall repays is
+                # forgiven, or it would accumulate into a freeze anyway
+                self._tokens = max(self._tokens, -stall * self._bw)
+            self._last_stall = stall
+        return stall
+
+    @staticmethod
+    def _rate(table: Dict[str, float], peer: int) -> float:
+        return table.get(str(peer), table.get("*", 0.0))
+
+    def egress(self, peer: int) -> str:
+        """Verdict for one outgoing frame: "drop" | "dup" | "send"."""
+        if peer in self._mute:
+            return "drop"
+        p_drop = self._rate(self._drop, peer)
+        p_dup = self._rate(self._dup, peer)
+        if p_drop <= 0.0 and p_dup <= 0.0:
+            return "send"
+        with self._lock:
+            u = self._rng.random()
+        if u < p_drop:
+            return "drop"
+        if u < p_drop + p_dup:
+            return "dup"
+        return "send"
+
+    def ingress_drop(self, peer: int) -> bool:
+        return peer in self._deaf
+
+    def ingress_delay(self, peer: int) -> float:
+        return self._rate(self._delay, peer)
 
 
 def encode_frame(obj: Any, codec: Optional[bool] = None) -> bytes:

@@ -14,6 +14,7 @@ package's own checker is imported inside the one test that uses it.
 """
 
 import asyncio
+import contextlib
 import hashlib
 import os
 import pickle
@@ -743,16 +744,47 @@ def lockstep_sides(base, protocol, sides, cfg, G, R, W, exact_rows=False,
     return out
 
 
+@contextlib.contextmanager
+def port_restore_rule(mod):
+    """While a JAX replica (``mod`` the JAX server module) is built and
+    recovers, its MultiPaxos-family ``restore_durable`` follows the port's
+    rule: a vote run starting above the restored floor comes back empty
+    at the floor (``summerset_tpu_torch/protocols/multipaxos.py``;
+    ROADMAP Queue 3).  Everything else of the reference is unchanged, so
+    the lockstep gates still compare the rest of a restart tick by tick.
+    A no-op for any other module."""
+    if not mod.__name__.startswith("summerset_tpu."):
+        yield
+        return
+    from summerset_tpu.protocols.multipaxos import MultiPaxosKernel
+
+    orig = MultiPaxosKernel.restore_durable
+
+    def restore(self, st, g, me, rec, floor):
+        orig(self, st, g, me, rec, floor)
+        if int(rec["vote_from"]) > int(floor):
+            for k in ("vote_from", "vote_bar", "dur_bar"):
+                st[k] = st[k].at[g, me].set(int(floor))
+
+    MultiPaxosKernel.restore_durable = restore
+    try:
+        yield
+    finally:
+        MultiPaxosKernel.restore_durable = orig
+
+
 def restart_replica(sides, specs, r, base, protocol, cfg, G, R, W):
     """A durable reset of replica ``r`` on every side of ``specs`` (the
     ``sides`` argument of ``lockstep_sides``): the replica shuts down and
-    a new one recovers from its WAL, on the same in-memory mesh."""
+    a new one recovers from its WAL, on the same in-memory mesh.  The JAX
+    side recovers under ``port_restore_rule``."""
     for name, mod, _pkg, _encode, kw in specs:
         reps, net, _p, wals, _norm = sides[name]
         reps[r].shutdown()
-        reps[r] = build(mod, protocol, r, R, G, W,
-                        os.path.join(str(base), name, str(r)), cfg, net=net,
-                        **kw)
+        with port_restore_rule(mod):
+            reps[r] = build(mod, protocol, r, R, G, W,
+                            os.path.join(str(base), name, str(r)), cfg,
+                            net=net, **kw)
         wals[r] = record_wal(reps[r])
 
 

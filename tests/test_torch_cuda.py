@@ -549,3 +549,72 @@ def test_near_quorum_read_served_on_card(cuda_device, tmp_path):
     finally:
         c.stop()
     assert not c.faults(), c.faults()
+
+
+# ------------------------------------------------ observability planes
+@pytest.mark.cuda
+def test_snapshot_row_on_card_matches_cpu(cuda_device):
+    """The scrape's decode of one replica's ``[G, K]`` lane block: a block
+    on the card decodes equal to the same block on the CPU (one row
+    crosses), with and without the per-group matrix."""
+    from summerset_tpu_torch.core import telemetry
+
+    rng = np.random.default_rng(5)
+    for G in (8, 100):
+        block = torch.from_numpy(rng.integers(
+            0, 2 ** 30, size=(G, 3, telemetry.K), dtype=np.int32))
+        for me in range(3):
+            want = telemetry.snapshot_row(block, me)
+            assert telemetry.snapshot_row(block.to(cuda_device), me) == want
+            assert telemetry.snapshot_row(block.numpy(), me) == want
+
+
+@pytest.mark.cuda
+def test_metrics_snapshot_on_card_matches_cpu(cuda_device, tmp_path):
+    """Three MultiPaxos replicas on the card against three on the CPU in
+    per-tick lockstep with the flight recorder, slot traces and
+    graftwatch on: every card replica's ``metrics_snapshot`` (read from
+    the pinned view of its last retired step) is JSON-able, its device
+    lanes equal the CPU replica's after the same ticks, and so do its
+    slot traces and deterministic counters."""
+    import json
+    import os
+    import sys
+    import types
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import summerset_tpu_torch.host.server as srv
+    from summerset_tpu_torch.host import messages, statemach
+    from test_torch_cluster import (
+        CARD_CPU_CFG, lockstep_sides, lockstep_tick, shutdown_sides,
+    )
+
+    pkg = types.SimpleNamespace(msg=messages, sm=statemach)
+    cfg = dict(CARD_CPU_CFG, health_enabled=False, flight_record=True,
+               trace_sample=2, graftwatch=True, watch_ticks=5)
+    sides = lockstep_sides(tmp_path, "MultiPaxos", (
+        ("card", srv, pkg, trs.encode_payload, {"device": cuda_device}),
+        ("cpu", srv, pkg, trs.encode_payload, {"device": "cpu"}),
+    ), cfg, 16, 3, 32)
+    try:
+        for t in range(30):
+            seen = lockstep_tick(sides, t, mute=0 if 10 <= t < 18 else None,
+                                 port_sides=("card", "cpu"))
+            for part in ("state", "wal", "replies", "kv"):
+                assert seen["card"][part] == seen["cpu"][part], (t, part)
+        got = {}
+        for name, (reps, *_rest) in sides.items():
+            snaps = [rep.metrics_snapshot() for rep in reps]
+            for s in snaps:
+                json.dumps(s)
+            got[name] = [(s["device"], s["applied"],
+                          [{k: v for k, v in tr.items() if k != "latency_ms"}
+                           for tr in s["traces"]],
+                          {k: s["host"]["counters"][k] for k in
+                           ("commits_applied_total", "wal_appends_total",
+                            "watch_frames_total", "leader_demotions")})
+                         for s in snaps]
+        assert got["card"] == got["cpu"]
+        assert got["card"][0][0]["lanes"]["commits"] > 0
+    finally:
+        shutdown_sides(sides)

@@ -230,6 +230,39 @@ def test_reset_and_restore_durable_match_jax():
         np.testing.assert_array_equal(tn[k], np.asarray(jst[k]), err_msg=k)
 
 
+@pytest.mark.parametrize("proto", ["multipaxos", "rspaxos"])
+def test_restore_durable_empties_a_run_above_the_floor(proto):
+    """A logged vote run that starts above the restored floor: the JAX
+    kernel keeps it (the follower then never commits again at that
+    ballot; ROADMAP Queue 3), the port brings it back empty at the floor
+    (``vote_from`` = ``vote_bar`` = ``dur_bar`` = floor).  Every other
+    leaf equals the JAX restore; a run reaching the floor is restored
+    as in JAX."""
+    jk, tk = _kernels(proto, dict(fault_tolerance=1)
+                      if proto == "rspaxos" else {})
+    jeng, teng = JEngine(jk, seed=3), TEngine(tk, seed=3, device="cpu")
+    rng = np.random.default_rng(5)
+    for vfrom, floor in ((9, 4), (4, 4), (2, 4)):
+        bal = 2 * 256 + 1
+        rec = {"bal_max": bal, "vote_bal": bal, "vote_from": vfrom,
+               "vote_bar": 12, "win_abs": list(range(W)),
+               "win_bal": [bal] * 12 + [0] * (W - 12),
+               "win_val": rng.integers(0, 1 << 20, W).tolist()}
+        for k in jk.DURABLE_SCALARS + jk.DURABLE_WINDOWS:
+            rec.setdefault(k, np.asarray(jeng._boot[k][1, 2]).tolist())
+        jst, tst = dict(jeng._boot), dict(teng._boot)
+        jk.restore_durable(jst, 1, 2, rec, floor=floor)
+        tk.restore_durable(tst, 1, 2, rec, floor=floor)
+        tn = to_numpy(tst)
+        empty = vfrom > floor
+        for k in jst:
+            want = np.asarray(jst[k]).copy()
+            if empty and k in ("vote_from", "vote_bar", "dur_bar"):
+                assert want[1, 2] > floor, k
+                want[1, 2] = floor
+            np.testing.assert_array_equal(tn[k], want, err_msg=k)
+
+
 def test_lease_margin_refusal_and_unported_paths():
     for margin, delay in ((3, 3), (2, 3), (1, 1)):
         cfg = dict(max_proposals_per_tick=P, leader_leases=True,

@@ -74,7 +74,9 @@ SERVING_MODULES = tuple("summerset_tpu_torch." + m for m in (
     "utils.qdisc", "ops.native",
     "host.statemach", "host.messages", "host.payload", "host.storage",
     "host.control", "host.transport", "host.external", "host.telemetry",
-    "host.adaptive", "host.codeword", "host.server", "manager",
+    "host.adaptive", "host.codeword", "host.tracing", "host.graftwatch",
+    "host.health", "host.resharding", "host.autopilot", "utils.keyrange",
+    "host.server", "manager",
     "manager.clusman", "client", "client.endpoint", "client.drivers",
     "cli", "cli.server", "cli.manager",
 ))

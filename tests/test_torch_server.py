@@ -63,8 +63,10 @@ from test_torch_cluster import (  # noqa: E402
 
 torch.set_num_threads(1)
 
-# JAX-only host planes off (health beacons, watch frames, the flight
-# recorder, slot traces, the wire codec); the port ignores these keys
+# host planes off in both packages (health beacons, watch frames, the
+# flight recorder, slot traces, the wire codec), so these gates hold the
+# serving core alone; tests/test_torch_{health,tracing,resharding}.py
+# hold the planes on
 BASE_CFG = {
     "health_enabled": False, "graftwatch": False, "flight_record": False,
     "trace_sample": 0, "wire_codec": False,
@@ -574,7 +576,7 @@ def test_qdisc_and_linreg_equal_jax_and_degrade(monkeypatch):
 #: while it rebuilds values from shards, votes that run and is reset at
 #: once (the state of the ``chip_smoke.py`` phase-13 lag dump).  ``None``
 #: resets the leader of group 0; ``stall`` names the (replica, group)
-#: that stays stalled from its reset to the end.
+#: that the reference's own recovery stalls from its reset to the end.
 RS_RESET = {
     "pause_leader": dict(
         drops=[((0, 1), 10, 40), ((0, 2), 10, 40), ((1, 0), 10, 40),
@@ -601,12 +603,13 @@ def test_rspaxos_durable_reset_lockstep(tmp_path, schedule):
     off, so its recovered ``bal_max`` is above the leader's ballot, it
     refuses the leader's accepts, and its commit bar stays at its
     restored floor in a group the leader commits in, until the next
-    leader's run (found by this case, not a port fault).  In
-    ``follower_reset_at_new_ballot`` both packages stall the restarted
-    follower alike and for good: its vote run at the leader's ballot
-    starts above the commit bar its reset restored (its applied floor),
-    the follower commit rule needs ``vote_from <= commit_bar``, and the
-    leader, which counts the run as matched, never resends below it."""
+    leader's run (found by this case, not a port fault).  Restarts on
+    the JAX side follow the port's restore rule (``port_restore_rule``):
+    in ``follower_reset_at_new_ballot``, where the reference's own rule
+    stalls the restarted follower for good
+    (``test_rspaxos_reference_stall_after_follower_reset``), both
+    packages then nack the leader's next accept, and the follower
+    commits up with its leader."""
     sc = RS_RESET[schedule]
     G, R, W = 4, 3, 16
     cfg = lock_cfg("RSPaxos")
@@ -646,16 +649,58 @@ def test_rspaxos_durable_reset_lockstep(tmp_path, schedule):
             > stuck[0] + 10
         assert cbs[-1][1][1] > stuck[0] + 10
     if "stall" in sc:
+        # the reference stalls this follower for good
+        # (test_rspaxos_reference_stall_after_follower_reset); under the
+        # port's restore rule its next accept is nacked, the leader
+        # resends from its floor, and it commits up with its leader
         r, g = sc["stall"]
         t0 = min(sc["resets"])
         lead = next(rep.me for rep in reps if rep._is_leader[g])
-        stuck = [c[r][g] for c in cbs[t0:]]
-        assert len(set(stuck)) == 1, stuck
-        assert cbs[-1][lead][g] > stuck[0] + 20, (lead, cbs[-1])
-        # the stalled state: a vote run at the leader's ballot that
-        # starts above the restored commit bar
-        assert rows["vote_from"][r][g] > stuck[0]
+        assert cbs[-1][lead][g] > cbs[t0][r][g] + 20, (lead, cbs[-1])
+        assert cbs[-1][r][g] > cbs[t0][r][g] + 20, cbs[-1]
+        assert cbs[-1][r][g] >= cbs[-1][lead][g] - 4, (lead, cbs[-1])
+        assert rows["vote_from"][r][g] <= cbs[-1][r][g]
         assert rows["vote_bal"][r][g] == rows["bal_max"][lead][g]
+
+
+def test_rspaxos_reference_stall_after_follower_reset(tmp_path):
+    """The reference's side of ``follower_reset_at_new_ballot``, its own
+    ``restore_durable`` unpatched: the restarted follower stalls for
+    good.  Its vote run at the leader's ballot starts above the commit
+    bar its reset restored (its applied floor), the follower commit rule
+    needs ``vote_from <= commit_bar``, and the leader, which counts the
+    run as matched, never resends below it (ROADMAP Queue 3; the port's
+    restore rule is the repair)."""
+    sc = RS_RESET["follower_reset_at_new_ballot"]
+    G, R, W = 4, 3, 16
+    cfg = lock_cfg("RSPaxos")
+    name, mod, _pkg, _enc, kw = SIDES[0]
+    sides = _lockstep_sides(tmp_path, "RSPaxos", SIDES[:1], cfg, G, R, W,
+                            drops=sc["drops"])
+    reps = sides[name][0]
+    r, g = sc["stall"]
+    t0 = min(sc["resets"])
+    cbs = []
+    try:
+        for t in range(sc["ticks"]):
+            if t == t0:
+                reps[r].shutdown()
+                reps[r] = build(mod, "RSPaxos", r, R, G, W,
+                                os.path.join(str(tmp_path), name, str(r)),
+                                cfg, net=sides[name][1], **kw)
+            lockstep_tick(sides, t)
+            cbs.append([rep._np_state("commit_bar")[:, rep.me].tolist()
+                        for rep in reps])
+        rows = {k: [rep._np_state(k)[:, rep.me].tolist() for rep in reps]
+                for k in ("vote_from", "vote_bal", "bal_max")}
+    finally:
+        shutdown_sides(sides)
+    lead = next(rep.me for rep in reps if rep._is_leader[g])
+    stuck = [c[r][g] for c in cbs[t0:]]
+    assert len(set(stuck)) == 1, stuck
+    assert cbs[-1][lead][g] > stuck[0] + 20, (lead, cbs[-1])
+    assert rows["vote_from"][r][g] > stuck[0]
+    assert rows["vote_bal"][r][g] == rows["bal_max"][lead][g]
 
 
 # ---------------------------------------- lease and conf planes, lockstep
