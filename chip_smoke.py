@@ -180,7 +180,7 @@ before printing any result.  Phases, each printed as it runs:
              on the CPU in per-tick lockstep at 32 groups through a
              durable reset, serial and pipelined.
 18. basic serving — phase 12's harness and shape serving ChainRep,
-             SimplePush and RepNothing: a 5 s window each, a durable
+             SimplePush and RepNothing: a 4 s window each, a durable
              reset of the serving node under load, every acked key read
              back, agreement (RepNothing replicates nothing: its serving
              replica's KV alone) and a linearizable 3-client history.
@@ -233,13 +233,43 @@ before printing any result.  Phases, each printed as it runs:
              plain version at the adopt's shape).
 Every served replica of phases 12-14 and 17-20 must have opened the native
 WAL, and a phase with no injected fault fails on any demoted leader
-(phases 12-19 each log ``leader_demotions``).  Phases 4, 6, 7, 13, 19 and
-20 each count their own kernel launches and fail on none; phases 8-12
-and 14-18 run no codeword plane and launch no hand kernel.
+21. nemesis and workload planes — (a) the device plane: seed 11's
+             ``FaultPlan`` over crash, device_reset, pause, partition,
+             isolate, one_way, drop and clock_skew, compiled on the card
+             for G (``compile_device``) and run through
+             ``Engine.run_ticks`` on RSPaxos 1024 x 5 (phase 4's shape)
+             and MultiPaxos 4096 x 5 (phase 3's) for 160 ticks, then a
+             200-tick heal: agreement, commits in every group, a
+             commit-bar spread of at most 4P after the heal, the first 64
+             groups equal to a CPU run given the card's masks sliced to
+             them (ms/tick under faults and in the heal); RSPaxos's heal
+             values encoded and rebuilt through ``bitslice_gf256``
+             (counted, held against the plain version).  (b) the host
+             plane on a live RSPaxos cluster at phase 12's shape: the
+             first seed whose 120-tick plan (the soak's horizon) over
+             crash, partition, pause, drop, wal_torn, take_snapshot and
+             clock_skew holds a crash-armed snapshot, a clock skew, a
+             crash and a partition, played through
+             ``nemesis_soak.soak`` (``NemesisRunner`` under 3 recorded
+             clients, then ``heal_all``): a put acked within 20 s, more
+             than 20 ops, no crash but the injected ones (their errors
+             say "injected"), the soak's WAL and window bounds, no failed
+             action, every acked key read back into a linearizable
+             history.  (c) the workload
+             plane on the same cluster: a ``hot_burst`` plan through
+             ``start_workload_clients`` for 6 s against an 8-deep ingress
+             queue: sheds on the scrape and a linearizable history (shed
+             puts as negative acks); accepted ops/s and p99.
+Every served replica of phases 12-14 and 17-20 must have opened the native
+WAL, and a phase with no injected fault fails on any demoted leader
+(phases 12-19 each log ``leader_demotions``).  Phases 4, 6, 7, 13, 19,
+20 and 21 each count their own kernel launches and fail on none; phases
+8-12 and 14-18 run no codeword plane and launch no hand kernel.
 
-The last two lines are a JSON object ``{"kernels": [...]}`` and the card's
-``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
-Any mismatch or exception exits non-zero.
+The last lines are a ``{"phase_seconds": {...}, "total_s": ...}`` line
+(each phase's seconds), a JSON object ``{"kernels": [...]}`` and the
+card's ``nvidia-smi`` name and power limit, then ``{"ok": true,
+"device": ...}``.  Any mismatch or exception exits non-zero.
 """
 
 import itertools
@@ -290,6 +320,11 @@ SERVE_RAFT_SECS = 4.0     # Raft timed load window
 SERVE_PAUSE_S = 3.0       # a paused leader stays paused at least this
 SERVE_FAILOVER_MAX_S = 30.0
 SERVE_OP_TIMEOUT = 1.0
+# a load client's per-op budget stretches to this many ticks of the
+# cluster's fastest live replica when that is longer than its fixed
+# budget: the card machine's host speed swings about 2x between calls,
+# and at 2.5 ticks/s a codeword put needs about 2 s
+OP_BUDGET_TICKS = 8
 SERVE_HISTORY_OPS = 30    # the 3-client history is at least this long
 # phase 13: the codeword family at phase 12's shape, RS(2,1), puts of
 # the value size of the JAX package's shard-economy check
@@ -309,12 +344,14 @@ LEASE_HISTORY_PUT_SHARE = 0.1  # the history clients' puts (3 keys)
 # a logged op at 1024 groups takes ~5 ticks, and the lease planes tick at
 # 3.6-6.2/s on an H100 at this shape: a 1 s budget timed out every Bodega put
 SERVE_LEASE_OP_TIMEOUT = 5.0
-# phase 17: EPaxos served at phase 12's shape; the card-against-CPU
-# lockstep's groups
+# phase 17: EPaxos served at phase 12's shape, a 10 s window (with 6 s
+# the snapshot's WAL-shrink check failed once: a replica wrote 7.8 MB in
+# the run and compacted to 8.1 MB); the card-against-CPU lockstep's
+# groups
 SERVE_EP_SECS = 10.0
 EP_SERVE_LOCK_GROUPS = 32
-# phase 18: the basic kernels' timed windows
-SERVE_BASIC_SECS = 5.0
+# phase 18: the basic kernels' timed windows (once 5 s)
+SERVE_BASIC_SECS = 4.0
 # phase 19: the read tier's timed window, its scan span (about 136 of the
 # 1024 load keys, over most groups) and the RSPaxos scans' puts
 SERVE_READ_SECS = 4.0
@@ -349,6 +386,26 @@ PLANES_AP_SCRAPE_S = 1.5
 PLANES_AP_ROUNDS = 4       # observe-mode rounds
 PLANES_AP_MAX_S = 45.0     # act mode: the reshard installs by then
 PLANES_CUT_MAX_S = 60.0    # (c): seal to install
+# phase 21: the nemesis and workload planes
+NEM_DEVICE_SEED = 11
+NEM_DEVICE_TICKS = 160
+NEM_HEAL_TICKS = 200
+NEM_DEVICE_CLASSES = ("crash", "device_reset", "pause", "partition",
+                      "isolate", "one_way", "drop", "clock_skew")
+NEM_HOST_CLASSES = ("crash", "partition", "pause", "drop", "wal_torn",
+                    "take_snapshot", "clock_skew")
+NEM_HOST_TICKS = 120       # (b): the soak's horizon in nemesis ticks
+NEM_TICK_LEN = 0.25        # wall seconds per nemesis tick
+NEM_CLIENTS = 3
+NEM_KEYS = ("nem0", "nem1", "nem2")
+NEM_RECOVERY_MAX_S = 20.0
+NEM_MIN_OPS = 20
+# a small ingress queue, so (c)'s burst sheds visibly
+NEM_HOST_CFG = {"fault_tolerance": 0, "api_max_batch": 4,
+                "api_max_pending": 8}
+WL_SEED = 3
+WL_SECS = 6.0              # (c): the hot_burst plan's wall window
+WL_CAP = 60.0              # (c): offered ops/s at rate_x 1.0
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
 # int32 ALU rate = 132 SMs x 64 INT32 lanes x 1.98 GHz boost
@@ -1586,8 +1643,9 @@ def phase_epaxos(torch, np, card):
 
 # ---------------------------------------------------------- serving path --
 def _serve_harness():
-    """The in-process cluster harness (``tests/test_torch_cluster.py``,
-    jax-free): a manager and replica threads on this process."""
+    """The card/CPU lockstep harnesses and the recorded-client helpers of
+    ``tests/test_torch_cluster.py`` (jax-free; the live ``Cluster`` itself
+    comes from ``summerset_tpu_torch.cluster``)."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "tests"))
     import test_torch_cluster as harness
@@ -1689,6 +1747,28 @@ class _LoadClient:
         ep.connect()
         return ep
 
+    def _ticks(self):
+        """Each in-process replica's tick (none for a cluster of
+        processes: its budget stays ``op_timeout``)."""
+        reps = getattr(self.cluster, "replicas", {})
+        return {me: r.tick for me, r in list(reps.items())}
+
+    def _stretch_budget(self, drv, mark):
+        """Once a second, set the driver's per-op budget to
+        ``op_timeout`` or ``OP_BUDGET_TICKS`` ticks at the fastest live
+        replica's tick rate since the last mark, whichever is longer;
+        returns the new mark."""
+        t0, ticks0 = mark
+        now = time.monotonic()
+        if now - t0 < 1.0:
+            return mark
+        ticks = self._ticks()
+        rate = max([(ticks[me] - ticks0[me]) / (now - t0)
+                    for me in ticks if me in ticks0] or [0.0])
+        if rate > 0:
+            drv.timeout = max(self.op_timeout, OP_BUDGET_TICKS / rate)
+        return now, ticks
+
     def run(self):
         from summerset_tpu_torch.client.drivers import DriverClosedLoop
 
@@ -1696,7 +1776,9 @@ class _LoadClient:
         drv = DriverClosedLoop(ep, timeout=self.op_timeout)
         seq = 0
         t_fail = -1e9
+        mark = (time.monotonic(), self._ticks())
         while not self.stop.is_set():
+            mark = self._stretch_budget(drv, mark)
             if (self.pin is not None and ep.current != self.pin
                     and time.monotonic() - t_fail > self.PIN_RETURN_S):
                 try:
@@ -1895,6 +1977,16 @@ def _check_agreement(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
     return n, sum(first[0]), writes
 
 
+def _await_load(clients, secs=30.0):
+    """A second for the clients to connect, then until some client has
+    completed an op (at most ``secs``), so that a timed window measures
+    the running load and not the first ops' leader discovery."""
+    time.sleep(1.0)
+    deadline = time.monotonic() + secs
+    while not any(c.ok for c in clients) and time.monotonic() < deadline:
+        time.sleep(0.1)
+
+
 def _window(np, cluster, clients, secs, what):
     """One timed window of the running load: ops/s and p50/p99 of the
     successes completed in it, ticks/s per replica and the stage means."""
@@ -1909,7 +2001,11 @@ def _window(np, cluster, clients, secs, what):
     lats = sorted(lat for c in clients for (t, lat, _s) in c.ok
                   if t0 <= t < t1)
     if not lats:
-        fail(f"{what}: no operation succeeded in the {secs} s window")
+        fail(f"{what}: no operation succeeded in the {secs} s window "
+             f"(ticks/s {ticks}, leader of group 0 {cluster.leader_of(0)}, "
+             f"client errors {sum(c.errors for c in clients)}, successes "
+             f"before it {sum(len(c.ok) for c in clients)}, faults "
+             f"{cluster.faults()})")
     return {
         "secs": round(t1 - t0, 3),
         "ops_per_s": round(len(lats) / (t1 - t0), 1),
@@ -2033,13 +2129,14 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
     import threading
 
     harness = _serve_harness()
+    from summerset_tpu_torch.cluster import Cluster
     from summerset_tpu_torch.ops import rscoding as rs
     from summerset_tpu_torch.utils.linearize import check_history
 
     sh = SERVE_SHAPE
     tmp = tempfile.mkdtemp(prefix="serve_")
     t_up = time.perf_counter()
-    cluster = harness.Cluster(
+    cluster = Cluster(
         protocol, sh["R"], tmp, tick=sh["tick"], num_groups=sh["G"],
         window=sh["W"], device=DEV, settle=2.0,
         config=dict(SERVE_BASE_CFG, **(config or {})),
@@ -2111,6 +2208,10 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
         if not ok:
             fail(f"serving {protocol}: history not linearizable: {diag}")
         _require_clean(cluster, f"serving {protocol}")
+        # followers whose lost accept NACK the server repeated (read
+        # before the snapshot restart starts every count from 0)
+        renacks = {str(me): rep.metrics.counter_value("stall_renacks")
+                   for me, rep in sorted(cluster.replicas.items())}
         snap = (_snapshot_restart(cluster, clients, f"serving {protocol}",
                                   op_timeout) if snapshot else None)
         extra = {}
@@ -2133,6 +2234,7 @@ def _serve_run(torch, np, card, protocol, secs, fault_plan,
                                             if pp_per is not None else None),
             "bitslice_launches_window": w_launches,
             "leader_demotions": _demotions(cluster),
+            "stall_renacks": renacks,
             "launches_per_leader_tick": round(
                 w_launches / max(lead_ticks, 1e-9), 3),
             **extra, "card": card,
@@ -2624,12 +2726,13 @@ def _lease_run(torch, np, card, protocol, config, conf_at, pause):
     harness = _serve_harness()
     from summerset_tpu_torch.client.drivers import DriverClosedLoop
     from summerset_tpu_torch.client.endpoint import GenericEndpoint
+    from summerset_tpu_torch.cluster import Cluster
     from summerset_tpu_torch.utils.linearize import check_history
 
     what = f"lease serving {protocol}"
     sh = SERVE_SHAPE
     tmp = tempfile.mkdtemp(prefix="lease_")
-    cluster = harness.Cluster(
+    cluster = Cluster(
         protocol, sh["R"], tmp, tick=sh["tick"], num_groups=sh["G"],
         window=sh["W"], device=DEV, settle=2.0, config=config,
     )
@@ -2816,6 +2919,7 @@ def phase_process_cluster(np, card, mp=None):
 
     harness = _serve_harness()
     from summerset_tpu_torch.client.endpoint import GenericEndpoint
+    from summerset_tpu_torch.cluster import free_ports
 
     sh = SERVE_SHAPE
     what = "process cluster MultiPaxos"
@@ -2824,7 +2928,7 @@ def phase_process_cluster(np, card, mp=None):
         "clients")
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    ports = harness.free_ports(2 + 2 * sh["R"])
+    ports = free_ports(2 + 2 * sh["R"])
     tmp = tempfile.mkdtemp(prefix="proc_")
     env = dict(os.environ, PYTHONPATH=here)
     procs = []
@@ -3163,7 +3267,7 @@ def _reset_serving(protocol):
 
 def phase_basic_serving(torch, np, card):
     """Phase 18: ChainRep, SimplePush and RepNothing served by phase 12's
-    harness on the card: a 5 s window each, a durable reset of the
+    harness on the card: a 4 s window each, a durable reset of the
     serving node, every acked key read back (RepNothing, which
     replicates nothing, from its serving replica only)."""
     sh = SERVE_SHAPE
@@ -3181,15 +3285,16 @@ def phase_basic_serving(torch, np, card):
 
 
 # ------------------------------------------------- read tier and wire --
-def _read_cluster(harness, protocol, tmp, config=None, slot_config=None):
+def _read_cluster(protocol, tmp, config=None, slot_config=None):
     """Phase 12's cluster shape for phase 19; its bring-up seconds in
     ``cluster.up_s``."""
+    from summerset_tpu_torch.cluster import Cluster
+
     sh = SERVE_SHAPE
     t = time.perf_counter()
-    cluster = harness.Cluster(protocol, sh["R"], tmp, tick=sh["tick"],
-                              num_groups=sh["G"], window=sh["W"],
-                              device=DEV, settle=2.0, config=config,
-                              slot_config=slot_config)
+    cluster = Cluster(protocol, sh["R"], tmp, tick=sh["tick"],
+                      num_groups=sh["G"], window=sh["W"], device=DEV,
+                      settle=2.0, config=config, slot_config=slot_config)
     cluster.up_s = round(time.perf_counter() - t, 2)
     return cluster
 
@@ -3345,7 +3450,7 @@ def _nqr_history(cluster, followers, stop, ops):
     return ts
 
 
-def _read_tier_multipaxos(torch, np, card, harness, tmp):
+def _read_tier_multipaxos(torch, np, card, tmp):
     """Near-quorum reads under load from followers, the history, barrier
     scans and the commit feed, on one MultiPaxos cluster."""
     import threading
@@ -3354,7 +3459,7 @@ def _read_tier_multipaxos(torch, np, card, harness, tmp):
     from summerset_tpu_torch.utils.linearize import check_history
 
     what = "read tier MultiPaxos"
-    cluster = _read_cluster(harness, "MultiPaxos", tmp,
+    cluster = _read_cluster("MultiPaxos", tmp,
                             config={"near_quorum_reads": True})
     try:
         leader = cluster.leader_of(0)
@@ -3448,7 +3553,7 @@ def _read_tier_multipaxos(torch, np, card, harness, tmp):
         cluster.stop()
 
 
-def _read_tier_rspaxos(torch, np, card, harness, tmp, rs):
+def _read_tier_rspaxos(torch, np, card, tmp, rs):
     """A barrier scan on RSPaxos RS(2,1): its marker in every group is
     encoded at the leader with ``bitslice_gf256`` and rebuilt at the
     followers."""
@@ -3457,7 +3562,7 @@ def _read_tier_rspaxos(torch, np, card, harness, tmp, rs):
     from summerset_tpu_torch.client.drivers import DriverClosedLoop
 
     what = "read tier RSPaxos"
-    cluster = _read_cluster(harness, "RSPaxos", tmp, config=SERVE_CW_CFG)
+    cluster = _read_cluster("RSPaxos", tmp, config=SERVE_CW_CFG)
     try:
         stop = threading.Event()
         # 16 writers, each on its own keys: a few puts land in the span
@@ -3504,10 +3609,10 @@ def _read_tier_rspaxos(torch, np, card, harness, tmp, rs):
         cluster.stop()
 
 
-def _read_tier_epaxos(harness, tmp, card):
+def _read_tier_epaxos(tmp, card):
     """EPaxos answers a scan with ``error``."""
     what = "read tier EPaxos"
-    cluster = _read_cluster(harness, "EPaxos", tmp)
+    cluster = _read_cluster("EPaxos", tmp)
     try:
         ep = cluster.endpoint()
         ep.send_scan(1, READ_SPAN[0], READ_SPAN[1])
@@ -3522,7 +3627,7 @@ def _read_tier_epaxos(harness, tmp, card):
         cluster.stop()
 
 
-def _read_tier_probes(harness, tmp, card):
+def _read_tier_probes(tmp, card):
     """Probes on QuorumLeases with responders {0, 1, 2}: one key per
     group at every responder, each answered ``success``."""
     from summerset_tpu_torch.client.drivers import DriverClosedLoop
@@ -3532,7 +3637,7 @@ def _read_tier_probes(harness, tmp, card):
 
     what = "read tier probes QuorumLeases"
     G = SERVE_SHAPE["G"]
-    cluster = _read_cluster(harness, "QuorumLeases", tmp)
+    cluster = _read_cluster("QuorumLeases", tmp)
     try:
         ep = cluster.endpoint()
         t = time.monotonic()
@@ -3589,14 +3694,14 @@ def _frame_sizes(rep):
             "pickle": len(safetcp.encode_frame(frame, codec=False))}
 
 
-def _read_tier_mixed(harness, tmp, card):
+def _read_tier_mixed(tmp, card):
     """Replica 0 with the codec off, 1-2 on; a codec client and a pickle
     client read back each other's acked writes."""
     from summerset_tpu_torch.client.drivers import DriverClosedLoop
     from summerset_tpu_torch.client.endpoint import GenericEndpoint
 
     what = "read tier mixed formats"
-    cluster = _read_cluster(harness, "MultiPaxos", tmp, slot_config={
+    cluster = _read_cluster("MultiPaxos", tmp, slot_config={
         0: {"wire_codec": False}, 1: {"wire_codec": True},
         2: {"wire_codec": True}})
     eps = []
@@ -3670,7 +3775,6 @@ def phase_read_tier(torch, np, card):
 
     from summerset_tpu_torch.ops import rscoding as rs
 
-    harness = _serve_harness()
     sh = SERVE_SHAPE
     log(f"== phase 19: read tier and wire, {sh['G']} groups x {sh['R']} "
         f"replicas, W={sh['W']}, {SERVE_CLIENTS} clients")
@@ -3683,12 +3787,12 @@ def phase_read_tier(torch, np, card):
     try:
         for name, run in (
             ("multipaxos", lambda d: _read_tier_multipaxos(
-                torch, np, card, harness, d)),
+                torch, np, card, d)),
             ("rspaxos", lambda d: _read_tier_rspaxos(
-                torch, np, card, harness, d, rs)),
-            ("epaxos", lambda d: _read_tier_epaxos(harness, d, card)),
-            ("probes", lambda d: _read_tier_probes(harness, d, card)),
-            ("mixed", lambda d: _read_tier_mixed(harness, d, card)),
+                torch, np, card, d, rs)),
+            ("epaxos", lambda d: _read_tier_epaxos(d, card)),
+            ("probes", lambda d: _read_tier_probes(d, card)),
+            ("mixed", lambda d: _read_tier_mixed(d, card)),
         ):
             t = time.perf_counter()
             lines[name] = run(os.path.join(tmp, name))
@@ -3791,14 +3895,16 @@ def _planes_scrapes(cluster, clients, what):
     out["flight_dropped"] = {s: d["dropped"] for s, d in dumps.items()}
     # graftwatch is lossless: each replica's frames in the manager's ring
     # sum to the cumulative counters of its newest frame (the emitter's
-    # own cursor), re-read until the ring holds that frame
+    # own cursor), re-read until every replica has emitted a frame (one
+    # per ``watch_ticks`` ticks) and the ring holds its newest
     deadline = time.monotonic() + 30
     while True:
         cur = {me: (rep.watch.frames_emitted, dict(rep.watch._prev_counters))
                for me, rep in sorted(cluster.replicas.items())}
         fleet = scrape_fleet(addr, 60) or {}
         series = {s["sid"]: s["frames"] for s in fleet.get("series", ())}
-        if all(len(series.get(me, ())) == n for me, (n, _c) in cur.items()):
+        if all(n > 0 and len(series.get(me, ())) == n
+               for me, (n, _c) in cur.items()):
             break
         if time.monotonic() > deadline:
             fail(f"{what}: the fleet ring never caught up with the frames "
@@ -4044,7 +4150,7 @@ def _range_cutover(cluster, key, dst, op, what):
         time.sleep(0.1)
 
 
-def _planes_reshard(torch, np, card, harness, tmp, rs):
+def _planes_reshard(torch, np, card, tmp, rs):
     """(c): RSPaxos RS(2,1), phase 13's 3000 B puts: a key split to
     another group with puts to it in flight, then merged back; the
     adopt rides the destination group's log as shards
@@ -4052,7 +4158,7 @@ def _planes_reshard(torch, np, card, harness, tmp, rs):
     import threading
 
     what = "planes RSPaxos resharding"
-    cluster = _read_cluster(harness, "RSPaxos", tmp, config=SERVE_CW_CFG)
+    cluster = _read_cluster("RSPaxos", tmp, config=SERVE_CW_CFG)
     try:
         G = SERVE_SHAPE["G"]
         stop, wstop = threading.Event(), threading.Event()
@@ -4149,7 +4255,6 @@ def phase_planes(torch, np, card):
 
     from summerset_tpu_torch.ops import rscoding as rs
 
-    harness = _serve_harness()
     sh = SERVE_SHAPE
     what = "planes MultiPaxos"
     log(f"== phase 20: observability and control planes, {sh['G']} groups "
@@ -4157,13 +4262,13 @@ def phase_planes(torch, np, card):
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="planes_")
     try:
-        cluster = _read_cluster(harness, "MultiPaxos",
+        cluster = _read_cluster("MultiPaxos",
                                 os.path.join(tmp, "mp"))
         try:
             stop = threading.Event()
             clients = [_LoadClient(cluster, ci, stop)
                        for ci in range(SERVE_CLIENTS)]
-            time.sleep(1.0)
+            _await_load(clients)
             w = _window(np, cluster, clients, PLANES_SECS, what)
             scrapes = _planes_scrapes(cluster, clients, what)
             stop.set()
@@ -4206,8 +4311,8 @@ def phase_planes(torch, np, card):
         finally:
             cluster.stop()
         t = time.perf_counter()
-        res = _planes_reshard(torch, np, card, harness,
-                              os.path.join(tmp, "rsp"), rs)
+        res = _planes_reshard(torch, np, card, os.path.join(tmp, "rsp"),
+                              rs)
         log(f"phase 20 resharding: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4215,6 +4320,347 @@ def phase_planes(torch, np, card):
         time.perf_counter() - t_phase, 1),
         "bitslice_launches": res["launches"], "card": card}))
     return {"launches": res["launches"], "max_abs_err": res["max_abs_err"]}
+
+
+# ------------------------------ phase 21: the nemesis and workload planes --
+def _slot_agreement(torch, st, what):
+    """No two replicas of a group commit different values for one slot
+    (slot ``s`` sits at window position ``s % W``); returns the number of
+    replica pairs x slots compared."""
+    abs_, val = st["win_abs"], st["win_val"]
+    com = (abs_ >= 0) & (abs_ < st["commit_bar"][..., None])
+    both = ((abs_[:, :, None] == abs_[:, None])
+            & com[:, :, None] & com[:, None])
+    bad = both & (val[:, :, None] != val[:, None])
+    if bool(bad.any()):
+        g, r1, r2, p = (int(x) for x in bad.nonzero()[0])
+        fail(f"{what}: group {g} slot {int(abs_[g, r1, p])} committed "
+             f"{int(val[g, r1, p])} at replica {r1} and "
+             f"{int(val[g, r2, p])} at replica {r2}")
+    return int(both.sum())
+
+
+def _plan_window(torch, eng, st, ns, t0, ticks, P, masks=None):
+    """``ticks`` ticks of saturating load from absolute tick ``t0``
+    through ``run_ticks``, with the plan's per-tick ``alive``,
+    ``link_up`` and ``reset`` masks when given.  Returns the state, the
+    netstate and the last tick's effects extras."""
+    G, R = eng.kernel.G, eng.kernel.R
+    dev = eng.device
+    t = torch.arange(t0, t0 + ticks, dtype=torch.int32, device=dev)
+    seq = {
+        "n_proposals": torch.full((ticks, G), P, dtype=torch.int32,
+                                  device=dev),
+        "value_base": (t * P)[:, None].expand(ticks, G),
+        "exec_floor": torch.full((G, R), 1 << 30, dtype=torch.int32,
+                                 device=dev).expand(ticks, G, R),
+    }
+    for k, v in (masks or {}).items():
+        seq[k] = v[t0:t0 + ticks].to(dev)
+    st, ns, fx = eng.run_ticks(st, ns, seq, collect=True)
+    return st, ns, {k: v[-1] for k, v in fx.extra.items()}
+
+
+def _nemesis_engine(torch, eng, masks, P):
+    """The plan's ticks, then the fault-free heal segment: the state and
+    netstate after each, the heal's last-tick extras and the seconds."""
+    st, ns = eng.init()
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    st, ns, _ = _plan_window(torch, eng, st, ns, 0, NEM_DEVICE_TICKS, P,
+                             masks)
+    torch.cuda.synchronize()
+    b = time.perf_counter()
+    faulted = {k: v.clone() for k, v in st.items()}
+    st, ns, fx = _plan_window(torch, eng, st, ns, NEM_DEVICE_TICKS,
+                              NEM_HEAL_TICKS, P)
+    torch.cuda.synchronize()
+    return faulted, st, ns, fx, b - a, time.perf_counter() - b
+
+
+def _nemesis_device(torch, np, rs, card, proto, cfg, sh):
+    """(a) on one protocol: seed 11's plan compiled for the card's G
+    through ``Engine.run_ticks`` and a 200-tick heal, checked for
+    agreement, commits in every group after the plan, a commit-bar
+    spread of at most 4P after the heal, and the first 64 groups equal
+    to a CPU run given the card's masks sliced to them (``drop`` draws
+    over every group, so ``compile_device(64)`` would differ).  RSPaxos
+    then encodes the heal's last-tick values through the codeword plane
+    and rebuilds them from 3-of-5 subsets."""
+    import itertools
+
+    from summerset_tpu_torch.host.nemesis import FaultPlan
+
+    G, P = sh["G"], sh["P"]
+    what = f"nemesis device {proto}"
+    plan = FaultPlan.generate(NEM_DEVICE_SEED, sh["R"], NEM_DEVICE_TICKS,
+                              classes=NEM_DEVICE_CLASSES)
+    t = time.perf_counter()
+    masks = plan.compile_device(G, device=DEV)
+    compile_s = time.perf_counter() - t
+    if any(m.device.type != torch.device(DEV).type for m in masks.values()):
+        fail(f"{what}: masks not on {DEV}")
+    eng = make_engine(proto, cfg, sh, G, DEV)
+    faulted, st, ns, fx, fault_s, heal_s = _nemesis_engine(torch, eng,
+                                                           masks, P)
+    pairs = _slot_agreement(torch, faulted, what + " (plan)")
+    cb0 = faulted["commit_bar"].amax(dim=1)
+    if int(cb0.min()) <= 0:
+        fail(f"{what}: a group committed nothing under the plan")
+    pairs += _slot_agreement(torch, st, what + " (heal)")
+    cb = st["commit_bar"]
+    spread = cb.amax(dim=1) - cb.amin(dim=1)
+    if int(spread.max()) > 4 * P:
+        g = int(spread.argmax())
+        fail(f"{what}: commit bars of group {g} spread "
+             f"{cb[g].tolist()} after the heal")
+    if not bool((cb.amax(dim=1) > cb0).all()):
+        fail(f"{what}: a group made no progress in the heal")
+    cpu_masks = {k: v[:, :CPU_GROUPS].cpu() for k, v in masks.items()}
+    _f, st_c, ns_c, _fx, _a, _b = _nemesis_engine(
+        torch, make_engine(proto, cfg, sh, CPU_GROUPS, "cpu"), cpu_masks, P)
+    n = compare_groups(torch, (st, ns), (st_c, ns_c), CPU_GROUPS, what)
+    out = {"protocol": proto, "groups": G, "replicas": sh["R"],
+           "window": sh["W"], "P": P, "plan_digest": plan.digest(),
+           "plan_events": [e.render() for e in plan.events],
+           "compile_s": round(compile_s, 3),
+           "fault_ms_per_tick": round(fault_s / NEM_DEVICE_TICKS * 1e3, 3),
+           "heal_ms_per_tick": round(heal_s / NEM_HEAL_TICKS * 1e3, 3),
+           "commit_bar_min_after_plan": int(cb0.min()),
+           "commit_bar_min_after_heal": int(cb.amax(dim=1).min()),
+           "spread_max": int(spread.max()), "agreement_pairs": pairs,
+           "cpu_groups_equal": CPU_GROUPS, "leaves": n, "card": card}
+    if proto == "rspaxos":
+        code = rs.RSCode(3, 2, device=DEV)
+        n_acc = fx["n_accepted"].amax(dim=1).cpu().numpy()
+        B = int(n_acc.sum())
+        if B == 0:
+            fail(f"{what}: no values proposed in the heal's last tick")
+        groups = np.repeat(np.arange(G), n_acc)
+        payloads, _data, cw, e_enc = encode_values(
+            torch, np, rs, code, B, SEED + 21, what)
+        subsets = list(itertools.combinations(range(5), 3))
+        calls, e_dec = decode_values(
+            torch, np, rs, code, cw,
+            [subsets[(g + 3) % len(subsets)] for g in groups], payloads,
+            what)
+        out.update(encoded_values=B, decode_sets=calls,
+                   max_abs_err=max(e_enc, e_dec))
+    log(json.dumps({"nemesis_device": out}))
+    return out
+
+
+def _nemesis_seed():
+    """The first seed >= 1 whose host plan holds a crash-armed
+    ``take_snapshot``, a ``clock_skew``, a ``crash`` and a ``partition``
+    (chosen for coverage)."""
+    from summerset_tpu_torch.host.nemesis import FaultPlan
+
+    seed = 1
+    while True:
+        plan = FaultPlan.generate(seed, SERVE_SHAPE["R"], NEM_HOST_TICKS,
+                                  classes=NEM_HOST_CLASSES)
+        kinds = {(e.kind, e.arg > 0) for e in plan.events}
+        if ("take_snapshot", True) in kinds and {
+                "clock_skew", "crash", "partition"} <= {k for k, _ in kinds}:
+            return seed, plan
+        seed += 1
+
+
+def _api_sheds(cluster):
+    from summerset_tpu_torch.client.endpoint import scrape_metrics
+
+    snap = scrape_metrics(cluster.manager_addr, timeout=30.0)
+    return sum(s.get("host", {}).get("counters", {}).get("api_shed", 0)
+               for s in (snap or {}).values())
+
+
+def _nemesis_host(card, cluster):
+    """(b): a seeded host plan through ``nemesis_soak.soak`` on the live
+    cluster (3 recorded clients, ``NemesisRunner``, ``heal_all``; a put
+    acked within 20 s of the heal, more than 20 ops, only injected
+    crashes, the WAL and window bounds, a linearizable history), then no
+    action error and every acked key read back into the history, which
+    must stay linearizable."""
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.host.nemesis import NemesisRunner
+    from summerset_tpu_torch.nemesis_soak import soak
+    from summerset_tpu_torch.utils.linearize import check_history, record_get
+
+    what = "nemesis host RSPaxos"
+    seed, plan = _nemesis_seed()
+    log(f"{what}: seed {seed} digest {plan.digest()}")
+    for line in plan.timeline().splitlines():
+        log(f"  {line}")
+    ops = []
+    res = {"seed": seed, "digest": plan.digest(), "ok": False}
+    runner = NemesisRunner(cluster.manager_addr, plan,
+                           tick_len=NEM_TICK_LEN)
+    runner.range_keys = NEM_KEYS
+    try:
+        soak(cluster, runner, res, ops, seed=seed, clients=NEM_CLIENTS,
+             keys=NEM_KEYS, recovery_budget_s=NEM_RECOVERY_MAX_S,
+             min_ops=NEM_MIN_OPS)
+    finally:
+        runner.close()
+    res.pop("server_metrics", None)
+    if not res["ok"]:
+        fail(f"{what}: {res.get('error')} ({json.dumps(res, default=str)})")
+    if res["action_errors"]:
+        fail(f"{what}: fault actions failed: {res['action_errors']}")
+    n_ops = len(ops)
+    # every key read back after the heal, the reads joining the history
+    ep = cluster.endpoint()
+    drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT * 5)
+    for key in NEM_KEYS:
+        for _ in range(40):
+            t0 = time.monotonic()
+            rep = drv.get(key)
+            if rep.kind == "success":
+                ops.append(record_get(NEM_CLIENTS, key,
+                                      rep.result.value if rep.result
+                                      else None, t0, time.monotonic()))
+                break
+            drv._failover(rep)
+        else:
+            fail(f"{what}: {key} never read back")
+    ep.leave()
+    acked = {o.key for o in ops if o.kind == "put" and o.acked}
+    final = {o.key: o.value for o in ops[-len(NEM_KEYS):]}
+    if any(final.get(k) is None for k in acked):
+        fail(f"{what}: an acked key read back None: {final}")
+    ok, diag = check_history(ops)
+    if not ok:
+        fail(f"{what}: history with the read-back not linearizable: {diag}")
+    out = {"seed": seed, "digest": plan.digest(),
+           "executed": res["executed"],
+           "action_errors": res["action_errors"],
+           "injected_crashes": res["crashes"],
+           "leader_demotions": _demotions(cluster),
+           "play_s": res["play_s"], "recovery_s": res["recovery_s"],
+           "ops": n_ops, "history_ops": len(ops),
+           "wal_bytes": res["wal_bytes"], "window_span": res["window_span"],
+           "acked_keys_read_back": sorted(acked), "card": card}
+    log(json.dumps({"nemesis_host": out}))
+    return out
+
+
+def _workload_plane(card, cluster):
+    """(c): a ``hot_burst`` plan through ``start_workload_clients`` for
+    ``WL_SECS`` against the small ingress queue: sheds on the scrape, and
+    the history (shed puts as negative acks) linearizable."""
+    import threading
+
+    from summerset_tpu_torch.client.tester import start_workload_clients
+    from summerset_tpu_torch.host.workload import WorkloadPlan
+    from summerset_tpu_torch.utils.linearize import check_history
+
+    what = "workload hot_burst"
+    plan = WorkloadPlan.generate(WL_SEED, "hot_burst", clients=3)
+    tick_len = WL_SECS / plan.horizon()
+    shed0 = _api_sheds(cluster)
+    stop = threading.Event()
+    ops, stats = [], []
+    t0 = time.monotonic()
+
+    def rate_total_of():
+        return plan.rate_x_at((time.monotonic() - t0) / tick_len) * WL_CAP
+
+    threads = start_workload_clients(cluster.manager_addr, plan,
+                                     rate_total_of, stop, ops, stats,
+                                     timeout=5.0)
+    time.sleep(WL_SECS)
+    stop.set()
+    for th in threads:
+        th.join(timeout=30)
+    sheds = _api_sheds(cluster) - shed0
+    if sheds <= 0:
+        fail(f"{what}: no shed on the scrape (stats {stats})")
+    ok, diag = check_history(ops)
+    if not ok:
+        fail(f"{what}: history not linearizable: {diag}")
+    lat = sorted(o.t_resp - o.t_inv for o in ops
+                 if o.acked and o.t_resp != float("inf"))
+    if not lat:
+        fail(f"{what}: no op acked")
+    out = {"seed": WL_SEED, "digest": plan.digest(), "secs": WL_SECS,
+           "offered_ops_per_s_at_1x": WL_CAP,
+           "accepted_ops_per_s": round(len(lat) / WL_SECS, 1),
+           "p50_ms": round(lat[len(lat) // 2] * 1e3, 3),
+           "p99_ms": round(lat[min(len(lat) - 1,
+                                   int(len(lat) * 0.99))] * 1e3, 3),
+           "api_shed": sheds,
+           "client_counts": {k: sum(s[k] for s in stats)
+                             for k in ("issued", "acked", "shed", "held",
+                                       "expired", "window")},
+           "history_ops": len(ops), "card": card}
+    log(json.dumps({"workload": out}))
+    return out
+
+
+def phase_nemesis(torch, np, card):
+    """Phase 21: (a) the device plane on RSPaxos 1024x5 and MultiPaxos
+    4096x5, (b) the host plane and (c) the workload plane on a live
+    RSPaxos cluster at phase 12's shape.  Returns the kernel's launches
+    (the engine's codeword plane and the live cluster's encodes and
+    rebuilds) and its max_abs_err."""
+    import shutil
+    import tempfile
+
+    from summerset_tpu_torch.ops import rscoding as rs
+    from summerset_tpu_torch.protocols.multipaxos import (
+        ReplicaConfigMultiPaxos,
+    )
+    from summerset_tpu_torch.protocols.rspaxos import ReplicaConfigRSPaxos
+
+    log("== phase 21: nemesis and workload planes (device plan on RSPaxos "
+        f"{RS_SHAPE['G']}x{RS_SHAPE['R']} and MultiPaxos {MP_SHAPE['G']}x"
+        f"{MP_SHAPE['R']}; host plan and hot_burst on RSPaxos "
+        f"{SERVE_SHAPE['G']}x{SERVE_SHAPE['R']})")
+    t_phase = time.perf_counter()
+    rs.bitslice_gf256.launches = 0
+    rsp = _nemesis_device(torch, np, rs, card, "rspaxos",
+                          ReplicaConfigRSPaxos(
+                              max_proposals_per_tick=RS_SHAPE["P"],
+                              chunk_size=2 * RS_SHAPE["P"],
+                              exec_follows_commit=False, fault_tolerance=1),
+                          RS_SHAPE)
+    dev_launches = rs.bitslice_gf256.launches
+    if dev_launches == 0:
+        fail("nemesis device rspaxos: bitslice_gf256 never launched")
+    _nemesis_device(torch, np, rs, card, "multipaxos",
+                    ReplicaConfigMultiPaxos(
+                        max_proposals_per_tick=MP_SHAPE["P"],
+                        chunk_size=2 * MP_SHAPE["P"],
+                        exec_follows_commit=False),
+                    MP_SHAPE)
+    log(f"phase 21 (a): {time.perf_counter() - t_phase:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="nemesis_")
+    t = time.perf_counter()
+    try:
+        cluster = _read_cluster("RSPaxos", tmp,
+                                config=NEM_HOST_CFG)
+        try:
+            host = _nemesis_host(card, cluster)
+            log(f"phase 21 (b): {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            wl = _workload_plane(card, cluster)
+            log(f"phase 21 (c): {time.perf_counter() - t:.1f} s")
+        finally:
+            cluster.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = rs.bitslice_gf256.launches
+    if launches <= dev_launches:
+        fail("nemesis host RSPaxos: bitslice_gf256 never launched")
+    log(json.dumps({"phase": 21, "seconds": round(
+        time.perf_counter() - t_phase, 1), "bitslice_launches": launches,
+        "device_plane_launches": dev_launches,
+        "cluster_launches": launches - dev_launches,
+        "recovery_s": host["recovery_s"],
+        "accepted_ops_per_s": wl["accepted_ops_per_s"],
+        "card": card}))
+    return {"launches": launches, "max_abs_err": rsp["max_abs_err"]}
 
 
 def planes_ab(torch, np, card, order=("on", "off", "off", "on")):
@@ -4261,45 +4707,59 @@ def main():
     t_start = time.perf_counter()
     card = card_label()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    phase_build()
-    max_err = phase_kernels(torch, np, card)
-    phase_multipaxos(torch, card)
-    main_path = phase_rspaxos(torch, np, card)
-    phase_raft(torch, card)
-    paths = {"rspaxos": main_path, "craft": phase_craft(torch, np, card),
-             "crossword": phase_crossword(torch, np, card)}
+    secs = {}
+
+    def timed(n, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[str(n)] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed(1, phase_build)
+    max_err = timed(2, phase_kernels, torch, np, card)
+    timed(3, phase_multipaxos, torch, card)
+    main_path = timed(4, phase_rspaxos, torch, np, card)
+    timed(5, phase_raft, torch, card)
+    paths = {"rspaxos": main_path,
+             "craft": timed(6, phase_craft, torch, np, card),
+             "crossword": timed(7, phase_crossword, torch, np, card)}
     log("bitslice_gf256 launches by path: " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
     from summerset_tpu_torch.ops import rscoding as rs
 
     rs.bitslice_gf256.launches = 0
-    phase_quorum_leases(torch, card)
-    phase_bodega(torch, card)
-    phase_basic(torch, card)
+    timed(8, phase_quorum_leases, torch, card)
+    timed(9, phase_bodega, torch, card)
+    timed(10, phase_basic, torch, card)
     log(f"bitslice_gf256 launches in phases 8-10 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
     rs.bitslice_gf256.launches = 0
-    phase_epaxos(torch, np, card)
+    timed(11, phase_epaxos, torch, np, card)
     log(f"bitslice_gf256 launches in phase 11 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
-    mp, _raft = phase_serving(torch, np, card)
-    serving = phase_codeword_serving(torch, np, card, mp)
+    mp, _raft = timed(12, phase_serving, torch, np, card)
+    serving = timed(13, phase_codeword_serving, torch, np, card, mp)
     paths["serving"] = serving
     rs.bitslice_gf256.launches = 0
-    phase_lease_serving(torch, np, card)
-    phase_process_cluster(np, card, mp)
-    phase_bench(card)
-    phase_epaxos_serving(torch, np, card)
-    phase_basic_serving(torch, np, card)
+    timed(14, phase_lease_serving, torch, np, card)
+    timed(15, phase_process_cluster, np, card, mp)
+    timed(16, phase_bench, card)
+    timed(17, phase_epaxos_serving, torch, np, card)
+    timed(18, phase_basic_serving, torch, np, card)
     log(f"bitslice_gf256 launches in phases 14-18 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
     rs.bitslice_gf256.launches = 0
-    paths["read_tier"] = phase_read_tier(torch, np, card)
+    paths["read_tier"] = timed(19, phase_read_tier, torch, np, card)
     rs.bitslice_gf256.launches = 0
-    paths["planes"] = phase_planes(torch, np, card)
+    paths["planes"] = timed(20, phase_planes, torch, np, card)
+    rs.bitslice_gf256.launches = 0
+    paths["nemesis"] = timed(21, phase_nemesis, torch, np, card)
     log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    total = round(time.perf_counter() - t_start, 1)
+    log(f"total {total} s")
+    print(json.dumps({"phase_seconds": secs, "total_s": total}),
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "bitslice_gf256",
         "route": "cuda",

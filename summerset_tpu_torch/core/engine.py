@@ -155,7 +155,9 @@ def reset_durable_rows(kernel: ProtocolKernel, state: State,
     """Rebuild the ``reset``-masked ``[G, R]`` rows from only the kernel's
     declared durable leaves: those keep their values, every other leaf
     rewinds to its ``boot`` value (zeros for leaves absent from ``boot``,
-    such as the telemetry block)."""
+    such as the telemetry block); then the kernel's ``reset_rows`` rule
+    (the MultiPaxos family empties a vote run above the rewound commit
+    bar, as its ``restore_durable`` does)."""
     durable = frozenset(kernel.DURABLE_SCALARS or ()) | frozenset(
         kernel.DURABLE_WINDOWS or ()
     )
@@ -169,7 +171,8 @@ def reset_durable_rows(kernel: ProtocolKernel, state: State,
             fresh = torch.zeros_like(leaf)
         return torch.where(_row_mask(reset, leaf), fresh, leaf)
 
-    return {k: rewind(k, v) for k, v in state.items()}
+    return kernel.reset_rows({k: rewind(k, v) for k, v in state.items()},
+                             reset)
 
 
 def _tick(kernel: ProtocolKernel, net: NetModel, boot: State, state: State,

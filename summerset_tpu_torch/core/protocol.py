@@ -80,6 +80,23 @@ class ProtocolKernel:
     # [G, R], as (name, shape code): g=[G], gr=[G, R], grr=[G, R, R]
     EXTRA_INPUTS: Tuple[Tuple[str, str], ...] = ()
 
+    def reset_rows(self, st, reset):
+        """Hook run by the engine's device reset (``core/engine.py::
+        reset_durable_rows``) on the state whose ``reset``-masked rows
+        were just rebuilt from their durable leaves; returns the state.
+        Default: the rebuilt rows as they are."""
+        return st
+
+    def renack(self, frames, view, me: int, cbar, stall):
+        """Host hook run by a serving replica on its outgoing frames each
+        tick, before they are sent: ``frames`` maps a peer to its frame
+        (``ServerReplica._slice_outbox``), ``view(name)`` gives a state
+        leaf as a host array, ``cbar`` is this replica's commit bar per
+        group as of its last apply and ``stall`` a per-group tick counter
+        the replica keeps for the hook.  Returns the new counter and the
+        number of frames' groups it rewrote.  Default: no rewrite."""
+        return stall, 0
+
     def restore_durable(self, st, g: int, me: int, rec: dict, floor: int):
         """Reinstate acceptor row ``(g, me)`` from the logged durable record
         ``rec`` ({field: int | list}) given the host applier's recovered

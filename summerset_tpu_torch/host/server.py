@@ -141,9 +141,13 @@ write to the range is pending, and its apply installs the range override
 ``radopted`` and ``rseals``.  The autopilot's actuations arrive as
 ``autopilot_ctl`` (demote, retune, announce).
 
+The nemesis planes of ``fault_ctl`` (``host/nemesis.py``): ``skew``
+stretches this replica's tick period by a factor (clock skew), and
+``snap_crash`` arms a crash point in the next snapshots, after the
+snapshot is durably written and before the WAL is compacted.
+
 Not in this slice (ROADMAP.md, Queue 1): the ingress proxy's ``batch``
-forwards (answered ``error``), and the nemesis planes of ``fault_ctl``
-(``skew``, ``snap_crash``: refused with a logged warning).
+forwards (answered ``error``).
 """
 
 from __future__ import annotations
@@ -374,6 +378,13 @@ class ServerReplica:
         self.health_cooldown_ticks = int(
             cfg.pop("health_cooldown_ticks", 800)
         )
+        # nemesis clock skew: the tick period's stretch factor
+        # (fault_ctl {"skew": f}); 1.0 = healthy
+        self._tick_scale = 1.0
+        # nemesis snapshot crash point (fault_ctl {"snap_crash": n}): the
+        # next n snapshots crash between the snapshot write and the WAL
+        # compaction
+        self._snap_crash = 0
         self._health_kw = {
             k: cfg.pop(f"health_{k}")
             for k in ("ratio", "hysteresis", "clear_after", "stale_s")
@@ -595,6 +606,9 @@ class ServerReplica:
                      "cmt_row", "abs2", "st2", "seq2", "val2", "noop2",
                      "deps2", dev_telemetry.TELEM_KEY))
         self._prefetch_keys = sorted(k for k in cand if k in self.state)
+        # the kernel's ``renack`` hook's per-group tick counter
+        self._stall = np.zeros(self.G, np.int64)
+        self._last_cbar = np.full(self.G, np.iinfo(np.int64).max)
         self._np_cache = {}
         # outbox register the first tick's frames slice from (host views)
         self._last_out = {
@@ -1124,6 +1138,15 @@ class ServerReplica:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, self.snap_path)
+        if self._snap_crash > 0:
+            # the nemesis crash point: the snapshot is durable but the WAL
+            # is not compacted yet; recovery must reconcile the new
+            # snapshot with the old, longer WAL
+            self._snap_crash -= 1
+            raise SummersetError(
+                "injected snapshot crash point: snapshot written, WAL "
+                "not yet compacted"
+            )
 
         # compact: the marker first (recovery's proof that the history
         # below these floors lives only in the snapshot), then the latest
@@ -1198,6 +1221,15 @@ class ServerReplica:
                 for k, v in out.items()
             }
         return frames
+
+    def _renack_stalled(self, frames: Dict[int, Dict[str, Any]]) -> None:
+        """The kernel's ``renack`` hook on this tick's outgoing frames
+        (the MultiPaxos family repeats a lost accept NACK); each rewritten
+        group counts on ``stall_renacks``."""
+        self._stall, n = self.kernel.renack(
+            frames, self._np_state, self.me, self._last_cbar, self._stall)
+        if n:
+            self.metrics.counter_add("stall_renacks", n)
 
     def _peer_lanes(self, src: int, msgs: List[dict]) -> Optional[dict]:
         """The kernel lanes of peer ``src`` this tick, from the frames it
@@ -2490,7 +2522,7 @@ class ServerReplica:
 
     def _tick_end(self, t0: float, deadline: float) -> None:
         """Shared tick epilogue: advance the tick, the snapshot schedule,
-        sleep to the deadline."""
+        sleep to the deadline (stretched under the nemesis clock skew)."""
         self.tick += 1
         if (self.snapshot_interval
                 and self.tick % self.snapshot_interval == 0
@@ -2509,7 +2541,13 @@ class ServerReplica:
             self.metrics.counter_add("watch_frames_total", 1)
             self.metrics.observe_s("watch_emit_us",
                                    time.monotonic() - t_emit)
-        rem = deadline - time.monotonic()
+        now = time.monotonic()
+        rem = deadline - now
+        if self._tick_scale > 1.0:
+            # a compute-bound loop never reaches the deadline sleep, so
+            # the stretch pads by the scaled actual loop time: the skewed
+            # replica's period is ~scale x its natural period either way
+            rem = max(rem, (self._tick_scale - 1.0) * (now - t0))
         if rem > 0:
             time.sleep(rem)
 
@@ -2522,7 +2560,10 @@ class ServerReplica:
         _stage("intake")
 
         frames = self._slice_outbox(self._last_out)
-        deadline = t0 + self.tick_interval
+        self._renack_stalled(frames)
+        # _tick_scale > 1 is the nemesis clock skew: this replica's tick
+        # clock runs slow against its peers'
+        deadline = t0 + self.tick_interval * self._tick_scale
         tick_frames = self._build_tick_frames(frames, piggy)
         # these frames carry step N-1's outbox, whose WAL records
         # _flush_durability fsynced at the end of tick N-1
@@ -2570,13 +2611,14 @@ class ServerReplica:
             drain    replies released if fence N settled, else at N+1
         """
         stage_us, _stage = self._stage_clock(t0)
-        deadline = t0 + self.tick_interval
+        deadline = t0 + self.tick_interval * self._tick_scale
 
         self._fold_adaptive()
         n_prop, vbase, piggy = self._intake()
         _stage("intake")
 
         frames = self._slice_outbox(self._last_out)
+        self._renack_stalled(frames)
         tick_frames = self._build_tick_frames(frames, piggy)
         self.transport.send_tick(
             self.tick, tick_frames, fence=self._fence_wait
@@ -2811,6 +2853,7 @@ class ServerReplica:
             self._apply_committed_epaxos()
             return
         cbs = fx.commit_bar[:, self.me]
+        self._last_cbar = cbs
         applied = np.asarray(self.applied)
         for g in np.nonzero(cbs > applied)[0]:
             self._apply_group(int(g), int(cbs[g]))
@@ -3162,24 +3205,36 @@ class ServerReplica:
         return None
 
     def _fault_ctl(self, p: dict) -> None:
-        """Swap the message-plane (``net``) and disk-plane (``wal``) fault
-        specs: a key present with None clears its plane, an absent key
-        leaves it.  The clock-skew and snapshot-crash planes (``skew``,
-        ``snap_crash``) belong to the nemesis plane, not ported yet: they
-        are refused with a logged warning."""
+        """Swap the fault specs of four planes: the message plane
+        (``net``), the disk plane (``wal``), the clock skew (``skew``, the
+        tick period's stretch factor; None or 1.0 heals) and the snapshot
+        crash point (``snap_crash``, the number of coming snapshots that
+        crash; 0 or None clears).  A key present with None clears its
+        plane, an absent key leaves it."""
         seed = int(p.get("seed", 0))
         if "net" in p:
             self.transport.set_faults(p.get("net"), seed=seed)
         if "wal" in p:
             self.wal.set_faults(p.get("wal"), seed=seed)
-        refused = sorted(k for k in ("skew", "snap_crash") if k in p)
-        if refused:
-            pf_warn(logger, f"fault_ctl planes {refused} refused: the "
-                            "nemesis plane is not ported")
-        planes = sorted(k for k in ("net", "wal") if k in p)
+        if "skew" in p:
+            f = p.get("skew")
+            self._tick_scale = float(f) if f else 1.0
+        if "snap_crash" in p:
+            self._snap_crash = int(p.get("snap_crash") or 0)
+
+        def is_heal(k: str) -> bool:
+            # net/wal heal with None and snap_crash with 0/None; only
+            # skew heals at 1.0 (snap_crash=1 arms a crash point)
+            v = p.get(k)
+            if k == "skew":
+                return v is None or v == 1.0
+            return not v
+
+        planes = sorted(k for k in ("net", "wal", "skew", "snap_crash")
+                        if k in p)
         self.flight.record("fault_ctl", tick=self.tick,
                            planes=",".join(planes),
-                           heal=all(not p.get(k) for k in planes))
+                           heal=all(is_heal(k) for k in planes))
 
     def _autopilot_ctl(self, p: dict) -> Dict[str, Any]:
         """One autopilot actuation: ``demote`` re-places leadership

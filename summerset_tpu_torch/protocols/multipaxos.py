@@ -18,6 +18,7 @@ import dataclasses
 from types import SimpleNamespace
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from ..core import quorum as quorum_lib
@@ -56,6 +57,11 @@ AR_NACK = 64
 SNAPSHOT = 128
 # bits 256+ are reserved for subclass extensions
 
+#: a follower whose vote run has started above its commit bar for this
+#: many ticks repeats the accept NACK its leader never acted on
+#: (``MultiPaxosKernel.renack``, run by a serving replica)
+STALL_RENACK_TICKS = 150
+
 
 @dataclasses.dataclass
 class ReplicaConfigMultiPaxos:
@@ -87,6 +93,46 @@ class MultiPaxosKernel(ProtocolKernel):
     DURABLE_SCALARS = ("bal_max", "vote_bal", "vote_from", "vote_bar")
     DURABLE_WINDOWS = ("win_abs", "win_bal", "win_val")
     EXTRA_INPUTS: Tuple[Tuple[str, str], ...] = (("demote", "gr"),)
+
+    def reset_rows(self, st, reset):
+        """The device reset's rule for the rebuilt rows, ``restore_durable``'s
+        with the rewound commit bar as the floor: a vote run that starts
+        above it comes back empty there, so the leader's next accept is
+        nacked and it resends from the floor (or installs a snapshot).
+        (The JAX engine keeps the run, and under a saturating load such a
+        row never commits again; ROADMAP, Queue 3.)"""
+        floor = st["commit_bar"]
+        above = reset & (st["vote_from"] > floor)
+        for k in ("vote_from", "vote_bar", "dur_bar"):
+            st[k] = torch.where(above, floor, st[k])
+        return st
+
+    def renack(self, frames, view, me, cbar, stall):
+        """Repeat a lost accept NACK.  A follower that adopts a new run
+        starting above its commit bar nacks once, with the commit bar as
+        hint, and its leader resends from there; if that one NACK is lost
+        (a superseded or dropped frame, a peer restarting), the leader
+        counts the run as matched and never resends below it, and the
+        follower never commits again in that group (the commit needs
+        ``vote_from <= commit_bar``; both packages alike, ROADMAP Queue
+        3).  After ``STALL_RENACK_TICKS`` ticks in that state, the
+        follower's accept replies to its leader carry the NACK again.  No
+        vote is dropped, and a run that heals in time is left alone."""
+        lead = view("leader")[:, me]
+        stuck = (view("vote_from")[:, me] > cbar) & (lead >= 0) & (lead != me)
+        stall = np.where(stuck, stall + 1, 0)
+        n = 0
+        for g in np.nonzero(stall >= STALL_RENACK_TICKS)[0]:
+            f = frames.get(int(lead[g]))
+            if f is None or not int(f["flags"][g]) & ACCEPT_REPLY:
+                continue
+            for k in ("flags", "ar_hint"):
+                if f[k].base is not None:
+                    f[k] = f[k].copy()
+            f["flags"][g] |= AR_NACK
+            f["ar_hint"][g] = cbar[g]
+            n += 1
+        return stall, n
 
     def restore_durable(self, st, g, me, rec, floor):
         """Reinstate our acceptor row from the last logged record.

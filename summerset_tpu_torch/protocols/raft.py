@@ -91,10 +91,20 @@ class RaftKernel(ProtocolKernel):
 
     def restore_durable(self, st, g, me, rec, floor):
         """Reinstate our row from the last logged term/vote metadata and
-        log tail; the bars resume from the applier's floor."""
+        log tail; the bars resume from the applier's floor.
+
+        A row recovered into a term above the warm-start term comes back
+        a follower with no known leader: the boot state's leader flag
+        belongs to the warm-start term, and a replica must not lead a
+        term it did not win (the JAX kernel keeps the flag; ROADMAP,
+        Queue 3)."""
         fl = int(floor)
         log_end = max(int(rec["log_end"]), fl)
         st["term"] = _max_row(st["term"], g, me, int(rec["term"]))
+        warm_term = 1 if self.config.init_leader >= 0 else 0
+        if int(st["term"][g, me]) > warm_term:
+            st["is_leader"] = _set_row(st["is_leader"], g, me, False)
+            st["leader"] = _set_row(st["leader"], g, me, -1)
         st["voted_for"] = _set_row(st["voted_for"], g, me,
                                    int(rec["voted_for"]))
         st["log_end"] = _set_row(st["log_end"], g, me, log_end)

@@ -2,9 +2,11 @@
 ``ServerReplica`` loops over localhost TCP, on ``device="cpu"`` here
 (``chip_smoke.py`` runs the same harness on the card).
 
-``Cluster`` is the counterpart of ``tests/test_cluster.py::Cluster``:
-a manager thread, replica threads under a crash-restart supervisor and
-free ports.  The lockstep harness below (``FakeNet`` and the other
+``Cluster`` (``summerset_tpu_torch/cluster.py``, which the other test
+files and ``chip_smoke.py`` import from the package) is the counterpart
+of ``tests/test_cluster.py::Cluster``: a manager thread, replica threads
+under a crash-restart supervisor and free ports; the tests here pass it
+``device="cpu"``.  The lockstep harness below (``FakeNet`` and the other
 in-memory stand-ins, ``build``, ``lockstep_sides``, ``lockstep_tick``)
 steps replicas built by their own constructors tick by tick with no
 sockets.  This module imports nothing of JAX at import time, so
@@ -13,7 +15,6 @@ sockets.  This module imports nothing of JAX at import time, so
 package's own checker is imported inside the one test that uses it.
 """
 
-import asyncio
 import contextlib
 import hashlib
 import os
@@ -30,206 +31,15 @@ import pytest
 import torch
 
 from summerset_tpu_torch.client.drivers import DriverClosedLoop
+from summerset_tpu_torch.cluster import Cluster, free_ports
 from summerset_tpu_torch.client.endpoint import GenericEndpoint
 from summerset_tpu_torch.host.messages import CtrlRequest
 from summerset_tpu_torch.host.server import STAGES, ServerReplica
-from summerset_tpu_torch.manager import ClusterManager
 from summerset_tpu_torch.utils.linearize import record_get, record_put
 
 # the suite runs under xdist: one intra-op thread per worker keeps the
 # three replica threads from oversubscribing the cores
 torch.set_num_threads(1)
-
-
-def _port_window():
-    """A window of localhost ports outside this host's ephemeral range
-    (``ip_local_port_range``; 32768-60999 by default): client connections
-    take their local ports from that range, so a port picked there can be
-    taken by a connection before a restarted replica binds it again."""
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-            lo, hi = (int(x) for x in f.read().split())
-    except (OSError, ValueError):
-        lo, hi = 32768, 60999
-    if lo - 1024 >= 4096:
-        return max(1024, lo - 12000), lo
-    if 65535 - hi >= 4096:
-        return hi + 1, 65536
-    return 20000, 32000
-
-
-def free_ports(n):
-    """``n`` distinct free localhost ports outside the ephemeral range
-    (``_port_window``)."""
-    rng = random.Random()
-    lo, hi = _port_window()
-    ports = []
-    while len(ports) < n:
-        p = rng.randrange(lo, hi)
-        if p in ports:
-            continue
-        s = socket.socket()
-        try:
-            s.bind(("127.0.0.1", p))
-        except OSError:
-            continue
-        finally:
-            s.close()
-        ports.append(p)
-    return ports
-
-
-class Cluster:
-    """A manager and ``n`` port replicas, each replica in its own thread
-    under a crash-restart supervisor."""
-
-    def __init__(self, protocol, n, tmpdir, config=None, tick=0.005,
-                 num_groups=1, window=32, device="cpu", settle=1.0,
-                 slot_config=None):
-        self.protocol = protocol
-        self.n = n
-        self.tmpdir = str(tmpdir)
-        self.config = config or {}
-        # per replica slot: config keys overriding ``config`` (a mixed
-        # mesh, e.g. one replica with the wire codec off)
-        self.slot_config = slot_config or {}
-        self.tick = tick
-        self.num_groups = num_groups
-        self.window = window
-        self.device = device
-        ports = free_ports(2 + 2 * n)
-        self.srv_port, self.cli_port = ports[0], ports[1]
-        self.api_ports = ports[2:2 + n]
-        self.p2p_ports = ports[2 + n:]
-        self.manager_addr = ("127.0.0.1", self.cli_port)
-        self.replicas = {}
-        self._threads = []
-        self._man_loop = None
-        self._stopping = False
-        # supervisor records: {me, error} per crash out of run(), and
-        # {slot, error} per failed constructor (retried); a durable
-        # reset ends run() with True and is neither
-        self.crash_reports = []
-        self.bringup_failures = []
-
-        man = ClusterManager(
-            protocol, ("127.0.0.1", self.srv_port),
-            ("127.0.0.1", self.cli_port), n,
-        )
-        self.manager = man
-
-        def run_man():
-            from summerset_tpu_torch.utils.loops import drain_and_close
-
-            loop = asyncio.new_event_loop()
-            self._man_loop = loop
-            asyncio.set_event_loop(loop)
-            try:
-                loop.run_until_complete(man.run())
-            except Exception:
-                pass
-            finally:
-                drain_and_close(loop)
-
-        t = threading.Thread(target=run_man, daemon=True)
-        t.start()
-        self._threads.append(t)
-        time.sleep(0.3)
-
-        # replicas come up concurrently (mesh barrier)
-        for r in range(n):
-            t = threading.Thread(
-                target=self._replica_loop, args=(r,), daemon=True
-            )
-            t.start()
-            self._threads.append(t)
-        deadline = time.monotonic() + 120
-        while len(self.replicas) < n:
-            assert time.monotonic() < deadline, "cluster failed to start"
-            time.sleep(0.1)
-        time.sleep(settle)  # let the warm-start leader settle
-
-    def _replica_loop(self, slot: int) -> None:
-        """Crash-restart loop: an exception out of run() is a crash (for
-        example the durability gate refusing to ack past a failed fsync)
-        and the replica restarts, recovery replaying what reached disk."""
-        while not self._stopping:
-            try:
-                rep = ServerReplica(
-                    self.protocol,
-                    ("127.0.0.1", self.api_ports[slot]),
-                    ("127.0.0.1", self.p2p_ports[slot]),
-                    ("127.0.0.1", self.srv_port),
-                    config=dict(self.config,
-                                **self.slot_config.get(slot, {})),
-                    tick_interval=self.tick,
-                    window=self.window,
-                    num_groups=self.num_groups,
-                    backer_dir=self.tmpdir,
-                    device=self.device,
-                )
-            except Exception as e:
-                self.bringup_failures.append({"slot": slot,
-                                              "error": repr(e)})
-                print(f"replica slot {slot} bring-up failed: {e!r}; "
-                      "retrying", flush=True)
-                time.sleep(0.5)
-                continue
-            self.replicas[rep.me] = rep
-            try:
-                restart = rep.run()
-            except Exception as e:
-                self.crash_reports.append({"me": rep.me, "error": repr(e)})
-                print(f"replica {rep.me} crashed: {e!r}; restarting",
-                      flush=True)
-                restart = True
-            rep.shutdown()
-            self.replicas.pop(rep.me, None)
-            if not restart or rep.stopping:
-                return
-            time.sleep(0.2)
-
-    def faults(self):
-        """Every failed bring-up and crash so far.  A run that injects
-        no fault fails on a non-empty list: the supervisor's restart
-        would otherwise hide a replica's error behind the failover."""
-        return self.bringup_failures + self.crash_reports
-
-    def endpoint(self):
-        ep = GenericEndpoint(self.manager_addr)
-        ep.connect()
-        return ep
-
-    def ctrl(self, kind, servers=None, durable=True, timeout=180):
-        """One manager control request through a fresh endpoint."""
-        ep = GenericEndpoint(self.manager_addr)
-        try:
-            return ep.ctrl.request(
-                CtrlRequest(kind, servers=servers, durable=durable),
-                timeout=timeout,
-            )
-        finally:
-            ep.leave()
-
-    def leader_of(self, g=0):
-        """The unpaused replica that currently leads group ``g``, or
-        None (a paused replica's leadership flag is frozen)."""
-        for me, rep in sorted(self.replicas.items()):
-            if not rep.paused and bool(rep._is_leader[g]):
-                return me
-        return None
-
-    def stop(self):
-        self._stopping = True
-        for rep in list(self.replicas.values()):
-            rep.stopping = True
-        deadline = time.monotonic() + 10
-        for t in self._threads[1:]:
-            t.join(timeout=max(0.0, deadline - time.monotonic()))
-        for rep in list(self.replicas.values()):
-            rep.shutdown()
-        if self._man_loop is not None:
-            self._man_loop.call_soon_threadsafe(self._man_loop.stop)
 
 
 def history_worker(cluster, ci, ops, stop, keys=3, timeout=3.0, seed=100,
@@ -747,30 +557,44 @@ def lockstep_sides(base, protocol, sides, cfg, G, R, W, exact_rows=False,
 @contextlib.contextmanager
 def port_restore_rule(mod):
     """While a JAX replica (``mod`` the JAX server module) is built and
-    recovers, its MultiPaxos-family ``restore_durable`` follows the port's
-    rule: a vote run starting above the restored floor comes back empty
-    at the floor (``summerset_tpu_torch/protocols/multipaxos.py``;
-    ROADMAP Queue 3).  Everything else of the reference is unchanged, so
-    the lockstep gates still compare the rest of a restart tick by tick.
-    A no-op for any other module."""
+    recovers, its ``restore_durable`` follows the port's rules (ROADMAP
+    Queue 3): in the MultiPaxos family a vote run starting above the
+    restored floor comes back empty at the floor
+    (``summerset_tpu_torch/protocols/multipaxos.py``); in the Raft family
+    a row recovered into a term above the warm-start term comes back a
+    follower with no known leader (``summerset_tpu_torch/protocols/
+    raft.py``).  Everything else of the reference is unchanged, so the
+    lockstep gates still compare the rest of a restart tick by tick.  A
+    no-op for any other module."""
     if not mod.__name__.startswith("summerset_tpu."):
         yield
         return
     from summerset_tpu.protocols.multipaxos import MultiPaxosKernel
+    from summerset_tpu.protocols.raft import RaftKernel
 
-    orig = MultiPaxosKernel.restore_durable
+    orig_mp = MultiPaxosKernel.restore_durable
+    orig_raft = RaftKernel.restore_durable
 
-    def restore(self, st, g, me, rec, floor):
-        orig(self, st, g, me, rec, floor)
+    def restore_mp(self, st, g, me, rec, floor):
+        orig_mp(self, st, g, me, rec, floor)
         if int(rec["vote_from"]) > int(floor):
             for k in ("vote_from", "vote_bar", "dur_bar"):
                 st[k] = st[k].at[g, me].set(int(floor))
 
-    MultiPaxosKernel.restore_durable = restore
+    def restore_raft(self, st, g, me, rec, floor):
+        orig_raft(self, st, g, me, rec, floor)
+        warm_term = 1 if self.config.init_leader >= 0 else 0
+        if int(st["term"][g, me]) > warm_term:
+            st["is_leader"] = st["is_leader"].at[g, me].set(False)
+            st["leader"] = st["leader"].at[g, me].set(-1)
+
+    MultiPaxosKernel.restore_durable = restore_mp
+    RaftKernel.restore_durable = restore_raft
     try:
         yield
     finally:
-        MultiPaxosKernel.restore_durable = orig
+        MultiPaxosKernel.restore_durable = orig_mp
+        RaftKernel.restore_durable = orig_raft
 
 
 def restart_replica(sides, specs, r, base, protocol, cfg, G, R, W):
@@ -1086,6 +910,7 @@ def cluster(request, tmp_path_factory):
         tmp_path_factory.mktemp(f"torch_{request.param.lower()}"),
         num_groups=4, window=32,
         config={"hear_timeout_lo": 10, "hear_timeout_hi": 20},
+        device="cpu",
     )
     c.manager.settle_delay = 0.2
     yield c
@@ -1101,6 +926,29 @@ def _driver(cluster, timeout=3.0):
 def _dumps(cluster):
     return {me: rep.debug_state()
             for me, rep in sorted(cluster.replicas.items())}
+
+
+def _health_dumps(cluster):
+    """``_dumps`` with each replica's health-plane view: its
+    ``leader_demotions`` count and ``health_score`` gauge."""
+    return {me: dict(rep.debug_state(),
+                     leader_demotions=rep.metrics.counter_value(
+                         "leader_demotions"),
+                     health_score=rep.metrics.gauge_value(
+                         "health_score", 1.0))
+            for me, rep in sorted(cluster.replicas.items())}
+
+
+def _await_leader(cluster, g, avoid=None, timeout=30.0):
+    """The unpaused leader of group ``g`` other than ``avoid``, waited
+    for up to ``timeout`` seconds (None if none appears)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cluster.leader_of(g)
+        if (got is not None and got != avoid) \
+                or time.monotonic() >= deadline:
+            return got
+        time.sleep(0.1)
 
 
 class TestTorchCluster:
@@ -1147,15 +995,21 @@ class TestTorchCluster:
         try:
             drv.checked_put("fo", "before", retries=40)
             leader = cluster.leader_of(0)
-            assert leader is not None, _dumps(cluster)
+            assert leader is not None, _health_dumps(cluster)
             cluster.ctrl("pause_servers", servers=[leader], timeout=30)
             try:
                 # the survivors elect a new leader of every group and
                 # serve the key again
                 drv.checked_get("fo", "before", retries=60)
                 drv.checked_put("fo", "during", retries=60)
-                new = cluster.leader_of(0)
-                assert new is not None and new != leader
+                # "fo" lives in group 3: group 0 elects on its own
+                # timers, later than group 3 under a loaded CPU
+                new = _await_leader(cluster, 0, avoid=leader)
+                assert new is not None and new != leader, (
+                    new, leader, _health_dumps(cluster))
+            except AssertionError as e:
+                raise AssertionError(
+                    f"{e}\n{_health_dumps(cluster)}") from e
             finally:
                 cluster.ctrl("resume_servers", servers=[leader], timeout=30)
             drv.checked_get("fo", "during", retries=60)
@@ -1271,6 +1125,18 @@ def test_default_device_raises_without_card(tmp_path):
                       backer_dir=str(tmp_path))
 
 
+def test_cluster_default_device_raises_without_card(tmp_path):
+    """The in-process ``Cluster`` follows the device rule too: with no
+    ``device`` it asks for the card, and with no card it raises before
+    it starts a manager or a replica."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        Cluster("MultiPaxos", 1, str(tmp_path))
+    assert threading.active_count() == before
+
+
 def test_default_wal_dir_is_the_ports_own():
     """A port replica started with the defaults never opens the JAX
     CLI's WAL directory (its records would unpickle the JAX package)."""
@@ -1343,7 +1209,7 @@ def test_api_plane_that_cannot_bind_fails_bring_up():
 @pytest.fixture(scope="class")
 def nqr_cluster(tmp_path_factory):
     c = Cluster("MultiPaxos", 3, tmp_path_factory.mktemp("torch_nqr"),
-                num_groups=2, config={"near_quorum_reads": True})
+                num_groups=2, config={"near_quorum_reads": True}, device="cpu")
     yield c
     c.stop()
     assert not c.faults(), f"replica faults: {c.faults()}"
@@ -1539,7 +1405,8 @@ def _local_get(cluster, sid, key, secs):
 
 @pytest.fixture(scope="class")
 def ql_cluster(tmp_path_factory):
-    c = Cluster("QuorumLeases", 3, tmp_path_factory.mktemp("torch_ql"))
+    c = Cluster("QuorumLeases", 3, tmp_path_factory.mktemp("torch_ql"),
+                device="cpu")
     yield c
     c.stop()
     assert not c.faults(), f"replica faults: {c.faults()}"
@@ -1637,7 +1504,7 @@ def bodega_cluster(tmp_path_factory):
     # config): replicas' ticks skew under load
     c = Cluster("Bodega", 3, tmp_path_factory.mktemp("torch_bodega"),
                 config={"lease_len": 40, "lease_margin": 8,
-                        "grant_interval": 4, "conf_timeout": 80})
+                        "grant_interval": 4, "conf_timeout": 80}, device="cpu")
     yield c
     c.stop()
     assert not c.faults(), f"replica faults: {c.faults()}"
@@ -1676,7 +1543,7 @@ class TestTorchClusterBodega:
 @pytest.fixture(scope="class")
 def ll_cluster(tmp_path_factory):
     c = Cluster("MultiPaxos", 3, tmp_path_factory.mktemp("torch_ll"),
-                config={"leader_leases": True})
+                config={"leader_leases": True}, device="cpu")
     yield c
     c.stop()
     assert not c.faults(), f"replica faults: {c.faults()}"
@@ -1772,7 +1639,7 @@ def _conf_everywhere(cluster, want, secs=20):
 @pytest.fixture(scope="class", params=[4])
 def qlg_cluster(request, tmp_path_factory):
     c = Cluster("QuorumLeases", 3, tmp_path_factory.mktemp("torch_qlg"),
-                num_groups=request.param)
+                num_groups=request.param, device="cpu")
     yield c
     c.stop()
     assert not c.faults(), f"replica faults: {c.faults()}"
@@ -1810,7 +1677,7 @@ class TestTorchClusterConfRelay:
 @pytest.fixture(scope="class")
 def ql8_cluster(tmp_path_factory):
     c = Cluster("QuorumLeases", 3, tmp_path_factory.mktemp("torch_ql8"),
-                num_groups=8)
+                num_groups=8, device="cpu")
     yield c
     c.stop()
 

@@ -520,7 +520,7 @@ def test_near_quorum_read_served_on_card(cuda_device, tmp_path):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from summerset_tpu_torch.client.drivers import DriverClosedLoop
     from summerset_tpu_torch.client.endpoint import GenericEndpoint
-    from test_torch_cluster import Cluster
+    from summerset_tpu_torch.cluster import Cluster
 
     c = Cluster("MultiPaxos", 3, tmp_path, num_groups=8, device="cuda",
                 config={"near_quorum_reads": True})
@@ -618,3 +618,60 @@ def test_metrics_snapshot_on_card_matches_cpu(cuda_device, tmp_path):
         assert got["card"][0][0]["lanes"]["commits"] > 0
     finally:
         shutdown_sides(sides)
+
+
+@pytest.mark.cuda
+def test_compiled_plan_on_card_matches_cpu(cuda_device):
+    """``chip_smoke.py`` phase 21 (a) at 64 groups: seed 11's nemesis
+    plan compiled on the card drives RSPaxos 64x5 (W=128, P=32) through
+    the plan and a 200-tick heal; every leaf equals the same run on the
+    CPU given the same masks, every replica ends within 4P of its
+    group's leader, and the heal's last-tick values encode and rebuild
+    through ``bitslice_gf256`` on the card."""
+    from summerset_tpu_torch.host.nemesis import FaultPlan
+
+    G, R, W, P = 64, 5, 128, 32
+    plan = FaultPlan.generate(
+        11, R, 160, classes=("crash", "device_reset", "pause", "partition",
+                             "isolate", "one_way", "drop", "clock_skew"))
+    masks = plan.compile_device(G, device=cuda_device)
+    assert all(m.device.type == "cuda" for m in masks.values())
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        cfg = ReplicaConfigRSPaxos(max_proposals_per_tick=P,
+                                   chunk_size=2 * P,
+                                   exec_follows_commit=False,
+                                   fault_tolerance=1)
+        eng = Engine(make_protocol("rspaxos", G, R, W, cfg, device=dev),
+                     device=dev)
+        st, ns = eng.init()
+        for lo in range(0, 360, 40):
+            t = torch.arange(lo, lo + 40, dtype=torch.int32)
+            seq = {"n_proposals": torch.full((40, G), P, dtype=torch.int32),
+                   "value_base": (t * P)[:, None].expand(40, G),
+                   "exec_floor": torch.full((40, G, R), 1 << 30,
+                                            dtype=torch.int32)}
+            if lo < 160:
+                seq.update({k: v[lo:lo + 40].to(dev)
+                            for k, v in masks.items()})
+            st, ns, fx = eng.run_ticks(st, ns, seq, collect=True)
+        out[str(dev)] = (st, _digest({"state": to_numpy(st),
+                                      "net": to_numpy(ns)}), fx)
+    assert out["cpu"][1] == out[str(cuda_device)][1]
+    st, _d, fx = out[str(cuda_device)]
+    cb = st["commit_bar"]
+    assert int((cb.amax(dim=1) - cb.amin(dim=1)).max()) <= 4 * P
+    n_acc = fx.extra["n_accepted"][-1].amax(dim=1).cpu().numpy()
+    B = int(n_acc.sum())
+    assert B > 0
+    code = trs.RSCode(3, 2, device=cuda_device)
+    data = torch.from_numpy(_lanes(21, (B, 3, 344))).to(cuda_device)
+    before = trs.bitslice_gf256.launches
+    parity = code.compute_parity(data)
+    assert trs.bitslice_gf256.launches == before + 1
+    assert torch.equal(parity, trs._bitslice_matmul_plain(
+        code._parity_tbl, data))
+    cw = torch.cat([data, parity], dim=1)
+    for s in SUBSETS[:3]:
+        got = code.reconstruct_data(cw[:, list(s)].contiguous(), s)
+        assert torch.equal(got, data)

@@ -8,9 +8,16 @@ durable device reset in window 1 (the recipe of
 a voluntary demotion where the case says so.  After every window the
 sha256 digest of every state leaf, the collected per-tick effects and the
 netstate must be equal, and leaf names, shapes and byte widths must
-match.
+match, against the unpatched JAX engine.  The one exception is where the
+port's device reset departs from the reference: it empties a
+MultiPaxos-family vote run that starts above the rewound commit bar
+(ROADMAP Queue 3).  In the cases where that rule fires, the windows
+from the reset on are held against the JAX engine run under
+``port_reset_rule`` instead, and the reference stall the rule repairs
+is pinned by a JAX-alone test.
 """
 
+import contextlib
 import hashlib
 
 import jax
@@ -35,6 +42,35 @@ from summerset_tpu_torch.protocols.rspaxos import ReplicaConfigRSPaxos as TRS
 
 G, R, W, P = 8, 5, 32, 4
 TICKS = 16      # per window
+
+
+@contextlib.contextmanager
+def port_reset_rule():
+    """While JAX engines are built and traced, their device reset
+    (``summerset_tpu.core.engine.reset_durable_rows``) follows the port's
+    rule for the MultiPaxos family (``MultiPaxosKernel.reset_rows``): a
+    rebuilt row whose vote run starts above its rewound commit bar gets
+    the run emptied there.  Everything else of the reference is
+    unchanged, so the gates still compare every other leaf."""
+    import summerset_tpu.core.engine as jengine
+    from summerset_tpu.protocols.multipaxos import MultiPaxosKernel
+
+    orig = jengine.reset_durable_rows
+
+    def reset(kernel, state, mask, boot=None):
+        st = orig(kernel, state, mask, boot)
+        if isinstance(kernel, MultiPaxosKernel):
+            floor = st["commit_bar"]
+            above = mask & (st["vote_from"] > floor)
+            st = dict(st, **{k: jnp.where(above, floor, st[k])
+                             for k in ("vote_from", "vote_bar", "dur_bar")})
+        return st
+
+    jengine.reset_durable_rows = reset
+    try:
+        yield
+    finally:
+        jengine.reset_durable_rows = orig
 WINDOWS = 3
 
 JITTER = dict(delay_ticks=1, jitter_ticks=1, drop_rate=0.05,
@@ -147,7 +183,14 @@ def _common_start(jeng, teng):
     return jstart, (to_torch(np_state, "cpu"), to_torch(np_net, "cpu"))
 
 
-def _run_both(name):
+def _run_both(name, rule):
+    """Both engines through the case's windows; the JAX engine under
+    ``port_reset_rule`` if ``rule``, else the unpatched reference."""
+    with port_reset_rule() if rule else contextlib.nullcontext():
+        return _run_both_windows(name)
+
+
+def _run_both_windows(name):
     proto, cfg, net, schedule = CASES[name]
     jk, tk = _kernels(proto, cfg)
     jeng = JEngine(jk, netcfg=JNet(**net), seed=7)
@@ -173,9 +216,24 @@ def _run_both(name):
     return jd, td, to_numpy(ts)
 
 
+#: the cases whose window-1 durable reset leaves replica 1 a vote run
+#: above its rewound commit bar: the port's device-reset rule fires there
+RESET_RULE_CASES = ("rspaxos-ft1-collective-crash-jitter",
+                    "rspaxos-ft1-leader-crash")
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_window_digests_equal_jax(name):
-    jd, td, final = _run_both(name)
+    """Every window's digests equal the unpatched JAX engine's, except
+    from the reset window on in ``RESET_RULE_CASES``: there the port's
+    rule fires, the digests differ from the reference's, and they equal
+    those of the JAX engine run under ``port_reset_rule`` in every
+    window."""
+    jd, td, final = _run_both(name, rule=False)
+    if name in RESET_RULE_CASES:
+        assert td[0] == jd[0]
+        assert td[1] != jd[1]
+        jd, td, final = _run_both(name, rule=True)
     assert td == jd
     assert int(final["commit_bar"].max()) > 0, "nothing committed"
     schedule = CASES[name][3]
@@ -309,3 +367,99 @@ def test_entry_matches_graft_entry_on_cpu():
                                           np.asarray(jfx.extra[k]), err_msg=k)
     assert int(ts["next_slot"][:, 0].min()) == 48
     assert int(ts["commit_bar"].max()) == 16
+
+
+#: the nemesis plan of ``chip_smoke.py`` phase 21 (a) at a small shape:
+#: replica 1 of a saturated RSPaxos group is reset by the device plane
+#: while its vote run starts above its rewound commit bar
+STALL = dict(G=1, W=32, P=4, plan_ticks=160, heal_ticks=200, win=40)
+STALL_CLASSES = ("crash", "device_reset", "pause", "partition", "isolate",
+                 "one_way", "drop", "clock_skew")
+
+
+def _stall_seq(masks, lo, hi, P):
+    t = np.arange(lo, hi, dtype=np.int32)
+    G = STALL["G"]
+    seq = {"n_proposals": np.full((hi - lo, G), P, np.int32),
+           "value_base": np.broadcast_to((t * P)[:, None],
+                                         (hi - lo, G)).astype(np.int32),
+           "exec_floor": np.full((hi - lo, G, R), 1 << 30, np.int32)}
+    if masks is not None:
+        seq.update({k: np.asarray(v)[lo:hi] for k, v in masks.items()})
+    return seq
+
+
+def _stall_run(port):
+    """The plan and its heal through one engine; the final commit bars."""
+    from summerset_tpu.host.nemesis import FaultPlan
+
+    sc = STALL
+    cfg = dict(max_proposals_per_tick=sc["P"], chunk_size=2 * sc["P"],
+               exec_follows_commit=False, fault_tolerance=1)
+    masks = FaultPlan.generate(11, R, sc["plan_ticks"],
+                               classes=STALL_CLASSES).compile_device(sc["G"])
+    if port:
+        eng = TEngine(tmake("rspaxos", sc["G"], R, sc["W"], TRS(**cfg),
+                            device="cpu"), device="cpu")
+    else:
+        eng = JEngine(jmake("rspaxos", sc["G"], R, sc["W"], JRS(**cfg)))
+    st, ns = eng.init()
+    for lo in range(0, sc["plan_ticks"] + sc["heal_ticks"], sc["win"]):
+        m = masks if lo < sc["plan_ticks"] else None
+        seq = _stall_seq(m, lo, lo + sc["win"], sc["P"])
+        if not port:
+            seq = {k: jnp.asarray(v) for k, v in seq.items()}
+        st, ns, _ = eng.run_ticks(st, ns, seq)
+    return np.asarray(to_numpy(st)["commit_bar"] if port
+                      else st["commit_bar"])
+
+
+def test_reference_device_reset_stalls_a_follower():
+    """The JAX engine alone: after the plan and a 200-tick fault-free
+    heal, the reset replica 1 still has commit bar 0 while its peers
+    committed thousands of slots (the reference defect)."""
+    cb = _stall_run(port=False)
+    assert cb[0, 1] == 0, cb
+    assert (np.delete(cb[0], 1) > 1000).all(), cb
+
+
+def test_device_reset_follower_catches_up_in_the_port():
+    """The port under the same plan: the reset replica catches up, every
+    replica within 4P of the leader's commit bar after the heal."""
+    cb = _stall_run(port=True)
+    assert (cb.max(axis=1) - cb.min(axis=1) <= 4 * STALL["P"]).all(), cb
+    assert cb.min() > 1000, cb
+
+
+@pytest.mark.parametrize("proto", ["multipaxos", "rspaxos"])
+def test_device_reset_empties_a_run_above_the_floor(proto):
+    """``reset_durable_rows`` on a state whose reset rows hold a vote run
+    starting above the rewound commit bar (row (1, 2)) or at it (row
+    (3, 2)): the port empties the first run at the commit bar
+    (``vote_from`` = ``vote_bar`` = ``dur_bar``); every other value
+    equals the JAX reset's."""
+    from summerset_tpu.core.engine import reset_durable_rows as jreset
+
+    jk, tk = _kernels(proto, dict(fault_tolerance=1)
+                      if proto == "rspaxos" else {})
+    jeng, teng = JEngine(jk, seed=3), TEngine(tk, seed=3, device="cpu")
+    (js, _jns), (ts, _tns) = _common_start(jeng, teng)
+    base = {k: np.asarray(v).copy() for k, v in js.items()}
+    for g, vfrom in ((1, 9), (3, 0)):
+        base["vote_from"][g, 2] = vfrom
+        base["vote_bar"][g, 2] = 12
+        base["commit_bar"][g, 2] = 7
+    mask = np.zeros((G, R), bool)
+    mask[[1, 3], 2] = True
+    jr = {k: np.asarray(v) for k, v in jreset(
+        jk, {k: jnp.asarray(v) for k, v in base.items()},
+        jnp.asarray(mask), jeng._boot).items()}
+    tr = to_numpy(reset_durable_rows(
+        tk, to_torch(base, "cpu"), torch.from_numpy(mask), teng._boot))
+    floor = int(np.asarray(jeng._boot["commit_bar"])[1, 2])
+    assert jr["vote_from"][1, 2] == 9 and jr["vote_bar"][1, 2] == 12
+    for k in jr:
+        want = jr[k].copy()
+        if k in ("vote_from", "vote_bar", "dur_bar"):
+            want[1, 2] = floor
+        np.testing.assert_array_equal(tr[k], want, err_msg=k)

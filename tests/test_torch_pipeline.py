@@ -152,10 +152,10 @@ class TestFenceGatesEgress:
 
 # --------------------------------------------------------------- live loop --
 def _mk_cluster(tmpdir, config=None):
-    from test_torch_cluster import Cluster
+    from summerset_tpu_torch.cluster import Cluster
 
     return Cluster("MultiPaxos", 1, str(tmpdir), config=config or {},
-                   tick=0.004, num_groups=2, settle=0.5)
+                   tick=0.004, num_groups=2, settle=0.5, device="cpu")
 
 
 def _driver(cluster, timeout=20.0):

@@ -272,26 +272,51 @@ def test_kernel_declarations_match_jax():
         assert type(tk).name == type(jk).name
 
 
-@pytest.mark.parametrize("proto", ["raft", "craft"])
-def test_restore_durable_matches_jax_across_terms(proto):
-    """The warm-start leader (replica 0) restoring a record of the
-    warm-start term and of a later term whose vote went to replica 1:
-    every leaf equals the JAX kernel's.  Both kernels keep the boot
-    leader flag in the later term too, so a restarted replica 0 leads a
-    term replica 1 won (the open fault in ROADMAP Queue 3); this pins
-    the shared behaviour until both packages are repaired together."""
+def _restore_across_terms(proto, term):
+    """Replica 0 of group 1, the warm-start leader, restoring a record of
+    ``term`` (the vote to itself in the warm-start term, to replica 1 in
+    a later one) into a copy of each engine's boot state."""
     jk, tk = _kernels(proto, {})
     jeng, teng = JEngine(jk, seed=3), TEngine(tk, seed=3, device="cpu")
     base = {k: np.asarray(jeng._boot[k][1, 0]).tolist()
             for k in jk.DURABLE_SCALARS + jk.DURABLE_WINDOWS}
+    rec = dict(base, term=term, voted_for=0 if term == 1 else 1)
+    jst, tst = dict(jeng._boot), dict(teng._boot)
+    jk.restore_durable(jst, 1, 0, rec, floor=0)
+    tk.restore_durable(tst, 1, 0, rec, floor=0)
+    return {k: np.asarray(v) for k, v in jst.items()}, to_numpy(tst)
+
+
+@pytest.mark.parametrize("proto", ["raft", "craft"])
+def test_reference_restore_keeps_the_leader_flag_in_a_later_term(proto):
+    """The JAX kernel alone: the warm-start leader restored into term 2,
+    a term replica 1 won, keeps its boot leader flag (the reference
+    defect of ROADMAP Queue 3, repaired in the port only)."""
+    jst, _ = _restore_across_terms(proto, 2)
+    assert int(jst["term"][1, 0]) == 2
+    assert bool(jst["is_leader"][1, 0])
+    assert int(jst["leader"][1, 0]) == 0
+
+
+@pytest.mark.parametrize("proto", ["raft", "craft"])
+def test_restore_durable_matches_jax_across_terms(proto):
+    """The warm-start leader (replica 0) restoring a record of the
+    warm-start term equals the JAX kernel leaf for leaf.  Restoring a
+    later term whose vote went to replica 1, the port's row comes back a
+    follower with no known leader while the JAX row keeps the boot
+    flag: ``is_leader`` and ``leader`` at ``(1, 0)`` are the only values
+    that differ."""
     for term in (1, 2):
-        rec = dict(base, term=term, voted_for=0 if term == 1 else 1)
-        jst, tst = dict(jeng._boot), dict(teng._boot)
-        jk.restore_durable(jst, 1, 0, rec, floor=0)
-        tk.restore_durable(tst, 1, 0, rec, floor=0)
-        tn = to_numpy(tst)
-        assert bool(tn["is_leader"][1, 0])
+        jst, tn = _restore_across_terms(proto, term)
         assert int(tn["term"][1, 0]) == term
+        if term == 1:
+            assert bool(tn["is_leader"][1, 0])
+            for k in jst:
+                np.testing.assert_array_equal(tn[k], jst[k], err_msg=k)
+            continue
+        assert not bool(tn["is_leader"][1, 0])
+        assert int(tn["leader"][1, 0]) == -1
         for k in jst:
-            np.testing.assert_array_equal(tn[k], np.asarray(jst[k]),
-                                          err_msg=k)
+            diff = np.argwhere(np.asarray(tn[k]) != jst[k]).tolist()
+            want = [[1, 0]] if k in ("is_leader", "leader") else []
+            assert diff == want, (k, diff)

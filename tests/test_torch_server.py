@@ -49,6 +49,7 @@ from summerset_tpu_torch.host import statemach as tsm
 from summerset_tpu_torch.host.storage import LogAction as TLogAction
 from summerset_tpu_torch.host.storage import StorageHub as TStorageHub
 from summerset_tpu_torch.ops import rscoding as trs
+from summerset_tpu_torch.protocols.multipaxos import STALL_RENACK_TICKS
 from summerset_tpu_torch.utils.errors import SummersetError
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -58,7 +59,7 @@ from test_torch_cluster import (  # noqa: E402
 from test_torch_cluster import lockstep_sides as _lockstep_sides  # noqa: E402
 from test_torch_cluster import (  # noqa: E402
     LEASE_CASES, lease_requests, lockstep_tick, norm_reply, norm_wal,
-    restart_replica, serving_requests,
+    requests, restart_replica, serving_requests,
 )
 
 torch.set_num_threads(1)
@@ -250,7 +251,7 @@ def single(request, tmp_path_factory):
     from summerset_tpu_torch.client import drivers as tdrv
     from summerset_tpu_torch.client import endpoint as tep
     from test_cluster import Cluster as JCluster
-    from test_torch_cluster import Cluster as TCluster
+    from summerset_tpu_torch.cluster import Cluster as TCluster
 
     pipeline = request.param
     base = tmp_path_factory.mktemp("single_pl" if pipeline else "single_ser")
@@ -260,7 +261,8 @@ def single(request, tmp_path_factory):
                                DriverClosedLoop=tdrv.DriverClosedLoop)
     j = run_single(JCluster, jd, base / "jax", pipeline, np.asarray)
     p = run_single(TCluster, td, base / "torch", pipeline,
-                   lambda v: v.numpy(), window=32, settle=0.5)
+                   lambda v: v.numpy(), window=32, settle=0.5,
+                   device="cpu")
     j["wal"] = read_wal(j["wal_path"], JStorageHub, JLogAction)
     p["wal"] = read_wal(p["wal_path"])
     return {"jax": j, "torch": p, "base": base, "pipeline": pipeline}
@@ -1256,3 +1258,250 @@ def test_subscribe_and_notes_lockstep(tmp_path, pipelined):
     assert len(seqs) > 15 and kv == kv1
     probes = [x for rr in replies["torch"] for x in rr if x[1] == "probe"]
     assert len(probes) >= 20
+
+
+# --------------------------------------- the nemesis planes of fault_ctl
+def ctrl_msg(rep, pkg, kind, payload):
+    """Deliver one manager message through the replica's ctrl handler."""
+    box = [pkg.msg.CtrlMsg(kind, payload)]
+    rep.ctrl.try_recv_ctrl = lambda: box.pop() if box else None
+    return rep._handle_ctrl()
+
+
+class ScriptedClock:
+    """A stand-in for a server module's ``time``: ``monotonic()`` returns
+    the scripted ``now``, ``sleep(s)`` records ``s``; everything else is
+    the real module."""
+
+    def __init__(self):
+        import time as real
+
+        self._real = real
+        self.now = 1000.0
+        self.sleeps = []
+
+    def monotonic(self):
+        return self.now
+
+    def sleep(self, s):
+        self.sleeps.append(round(s, 9))
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
+#: replica 1's skew over the ticks: healthy, 2.5x, healed with None,
+#: 1.6x, healed with 1.0
+SKEW_PLAN = {3: 2.5, 7: None, 10: 1.6, 13: 1.0}
+SKEW_TICKS = 16
+SKEW_WORK = (0.004, 0.031, 0.012)   # each replica's loop time per tick
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["serial", "pipelined"])
+def test_skew_pacing_lockstep(tmp_path, monkeypatch, pipelined):
+    """``fault_ctl {"skew": f}`` and its heals (None, 1.0) on replica 1,
+    stepped on the JAX and port replicas with the clock scripted: every
+    tick's deadline and deadline sleep are equal on both sides (the
+    stretch pads a compute-bound tick by ``(f - 1)`` times its loop
+    time), and so are the flight recorder's ``fault_ctl`` events and
+    their heal flags."""
+    clocks = {"jax": ScriptedClock(), "torch": ScriptedClock()}
+    monkeypatch.setattr(jsrv, "time", clocks["jax"])
+    monkeypatch.setattr(tsrv, "time", clocks["torch"])
+    cfg = dict(lock_cfg("MultiPaxos"), pipeline=pipelined,
+               flight_record=True)
+    sides = _lockstep_sides(tmp_path, "MultiPaxos", SIDES, cfg,
+                            LOCK["G"], LOCK["R"], LOCK["W"])
+    paced = {name: [] for name in sides}
+    try:
+        for name, (reps, *_r) in sides.items():
+            clock = clocks[name]
+            for r, rep in enumerate(reps):
+                rep.tick_interval = 0.01
+                real_end = rep._tick_end
+
+                def tick_end(t0, deadline, rep=rep, r=r, clock=clock,
+                             real_end=real_end, name=name):
+                    clock.now = t0 + SKEW_WORK[r]
+                    n = len(clock.sleeps)
+                    real_end(t0, deadline)
+                    paced[name].append((rep.tick, r, round(deadline - t0, 9),
+                                        clock.sleeps[n:]))
+
+                rep._tick_end = tick_end
+        for t in range(SKEW_TICKS):
+            for name, (reps, net, pkg, _w, _n) in sides.items():
+                if t in SKEW_PLAN:
+                    ctrl_msg(reps[1], pkg, "fault_ctl",
+                             {"skew": SKEW_PLAN[t], "seed": 7})
+                for r, rep in enumerate(reps):
+                    rep.external.batches.append(requests(pkg, t, r))
+                    clocks[name].now = 1000.0 + t
+                    if pipelined:
+                        rep._tick_pipelined(1000.0 + t)
+                    else:
+                        rep._tick_serial(1000.0 + t)
+                net.flush()
+        events = {name: [{k: e[k] for k in ("planes", "heal")}
+                         for e in reps[1].flight.dump()["events"]
+                         if e["type"] == "fault_ctl"]
+                  for name, (reps, *_r) in sides.items()}
+        scales = {name: reps[1]._tick_scale
+                  for name, (reps, *_r) in sides.items()}
+    finally:
+        shutdown_sides(sides)
+    assert paced["torch"] == paced["jax"]
+    assert events["torch"] == events["jax"] == [
+        {"planes": "skew", "heal": False}, {"planes": "skew", "heal": True},
+        {"planes": "skew", "heal": False}, {"planes": "skew", "heal": True},
+    ]
+    assert scales == {"jax": 1.0, "torch": 1.0}
+    skewed = [p for p in paced["torch"] if p[1] == 1 and 4 <= p[0] <= 7]
+    assert skewed and all(p[2] == 0.025 for p in skewed), skewed
+    # the compute-bound replica pads 1.5 x its 31 ms loop, not just to
+    # the stretched 25 ms deadline
+    assert all(p[3] == [round(1.5 * 0.031, 9)] for p in skewed), skewed
+
+
+@pytest.mark.parametrize("protocol", ["MultiPaxos", "RSPaxos"])
+def test_snap_crash_lockstep(tmp_path, protocol):
+    """``fault_ctl {"snap_crash": 1}`` then ``take_snapshot`` on replica
+    1, both through the ctrl handler, on the JAX and port replicas: both
+    raise at the crash point with the snapshot file written and the WAL
+    not compacted.  Replica 1 restarts from the new snapshot plus the
+    old, longer WAL on both sides: equal state, KV and floors, the
+    armed count spent, and the lockstep (frames, WAL records, replies)
+    holds to the end."""
+    G, R, W = SNAP["G"], SNAP["R"], SNAP["W"]
+    cfg = lock_cfg(protocol)
+    sides = _lockstep_sides(tmp_path, protocol, SIDES, cfg, G, R, W)
+    try:
+        for t in range(SNAP["ticks"]):
+            if t == SNAP["snap"]:
+                for name, (reps, _net, pkg, _w, _n) in sides.items():
+                    rep = reps[1]
+                    before = rep.wal.size
+                    ctrl_msg(rep, pkg, "fault_ctl", {"snap_crash": 1})
+                    assert rep._snap_crash == 1
+                    err = (SummersetError if name == "torch"
+                           else jsrv.SummersetError)
+                    with pytest.raises(err, match="injected snapshot crash"):
+                        ctrl_msg(rep, pkg, "take_snapshot", {})
+                    assert rep._snap_crash == 0
+                    assert os.path.exists(rep.snap_path)
+                    assert rep.wal.size == before, name
+                snaps = {name: _snap_file(reps[1])
+                         for name, (reps, *_r) in sides.items()}
+                assert snaps["jax"] == snaps["torch"]
+                assert sum(snaps["torch"][2]["applied"]) > 0
+                restart_replica(sides, SIDES, 1, tmp_path, protocol, cfg,
+                                G, R, W)
+                out = {name: (leaf_digests(reps[1].state),
+                              dict(reps[1].statemach.snapshot_items()),
+                              list(reps[1].applied), reps[1]._snap_crash)
+                       for name, (reps, *_r) in sides.items()}
+                assert out["jax"] == out["torch"], "recovered replica 1"
+                assert out["torch"][2] == snaps["torch"][2]["applied"]
+                assert out["torch"][3] == 0
+            seen = lockstep_tick(sides, t, reqs=serving_requests(protocol, G))
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                assert j[part] == p[part], f"tick {t}: {part} differs"
+        final = [sum(rep.applied) for rep in sides["torch"][0]]
+    finally:
+        shutdown_sides(sides)
+    assert min(final) > sum(snaps["torch"][2]["applied"]), final
+
+
+# ------------------------------ a stalled follower repeats its lost NACK
+def _stall_row(rep, me):
+    """Make follower ``me``'s group-0 vote run start one slot above its
+    commit bar, as a new run does whose NACK was lost: its leader counts
+    the run as matched and never resends below it."""
+    cb = int(np.asarray(rep.state["commit_bar"])[0, me])
+    vbar = int(np.asarray(rep.state["vote_bar"])[0, me])
+    assert vbar > cb + 1, (cb, vbar)
+    if isinstance(rep.state["vote_from"], torch.Tensor):
+        vf = rep.state["vote_from"].clone()
+        vf[0, me] = cb + 1
+        rep.state["vote_from"] = vf
+        rep._np_cache = {}
+    else:
+        rep.state["vote_from"] = rep.state["vote_from"].at[0, me].set(cb + 1)
+    return cb
+
+
+@pytest.mark.parametrize("proto", ["multipaxos", "rspaxos", "raft"])
+def test_renack_hook_only_in_the_multipaxos_family(proto):
+    """The kernel's ``renack`` hook on one follower's frames (replica 2,
+    group 1 with a vote run above its commit bar, group 0 at it): the
+    MultiPaxos family counts the stall and, at ``STALL_RENACK_TICKS``,
+    sets ``AR_NACK`` with the commit bar as hint on its accept reply to
+    the leader only in group 1, copying the lane it writes; other
+    protocols keep the default (no count, no rewrite)."""
+    from summerset_tpu_torch.protocols import make_protocol as tmake
+    from summerset_tpu_torch.protocols.multipaxos import (
+        ACCEPT_REPLY, MultiPaxosKernel,
+    )
+
+    ker = tmake(proto, 2, 3, 32, device="cpu")
+    me, cbar = 2, np.array([5, 5])
+    view = {"leader": np.zeros((2, 3), np.int64),
+            "vote_from": np.array([[0, 0, 5], [0, 0, 7]])}.__getitem__
+    outbox = np.full((2, 3, 3), ACCEPT_REPLY, np.int64)
+    frames = {0: {"flags": outbox[:, me, 0],
+                  "ar_hint": np.zeros((2, 3, 3), np.int64)[:, me, 0]},
+              1: {"flags": outbox[:, me, 1].copy(),
+                  "ar_hint": np.zeros(2, np.int64)}}
+    stall, n = ker.renack(frames, view, me, cbar,
+                          np.full(2, STALL_RENACK_TICKS - 1, np.int64))
+    if not isinstance(ker, MultiPaxosKernel):
+        assert n == 0 and (stall == STALL_RENACK_TICKS - 1).all()
+        assert (outbox == ACCEPT_REPLY).all()
+        return
+    assert n == 1 and stall.tolist() == [0, STALL_RENACK_TICKS]
+    assert frames[0]["flags"].tolist() == [ACCEPT_REPLY,
+                                           ACCEPT_REPLY | AR_NACK]
+    assert frames[0]["ar_hint"].tolist() == [0, 5]
+    assert frames[1]["flags"].tolist() == [ACCEPT_REPLY, ACCEPT_REPLY]
+    assert (outbox == ACCEPT_REPLY).all()   # the outbox view was copied
+
+
+def test_stalled_follower_repeats_its_lost_nack_lockstep(tmp_path):
+    """A MultiPaxos follower (replica 2) whose vote run starts above its
+    commit bar with no NACK pending: its commit bar stays frozen in both
+    packages, equal tick by tick, for ``STALL_RENACK_TICKS`` ticks.  Then
+    the port's follower repeats the NACK on its accept reply (the
+    kernel's ``renack`` hook, ``MultiPaxosKernel.renack``), the leader resends from the commit bar, and
+    the follower commits again within a few ticks; the JAX follower
+    stays frozen to the end (the reference stall, ROADMAP Queue 3)."""
+    G, R, W = 1, 3, 16
+    at, after = 12, 40
+    sides = _lockstep_sides(tmp_path, "MultiPaxos", SIDES, LOCK_CFG,
+                            G, R, W)
+    frozen = {}
+    try:
+        for t in range(at + STALL_RENACK_TICKS + after):
+            if t == at:
+                for name, (reps, *_r) in sides.items():
+                    frozen[name] = _stall_row(reps[2], 2)
+                assert frozen["jax"] == frozen["torch"]
+            seen = lockstep_tick(sides, t)
+            # the stall is counted from tick ``at``, whose frames still
+            # carry the previous step's replies: the NACK rides tick
+            # at + STALL_RENACK_TICKS - 1 onwards
+            if t < at + STALL_RENACK_TICKS - 1:
+                j, p = seen["jax"], seen["torch"]
+                for part in j:
+                    assert j[part] == p[part], f"tick {t}: {part} differs"
+        cbar = {name: [int(np.asarray(rep.state["commit_bar"])[0, r])
+                       for r, rep in enumerate(reps)]
+                for name, (reps, *_r) in sides.items()}
+        renacks = sides["torch"][0][2].metrics.counter_value("stall_renacks")
+    finally:
+        shutdown_sides(sides)
+    assert cbar["jax"][2] == frozen["jax"], cbar
+    assert cbar["jax"][0] > frozen["jax"] + after, cbar
+    assert renacks >= 1
+    assert cbar["torch"][2] >= cbar["torch"][0] - 2, cbar

@@ -29,14 +29,13 @@ import torch
 
 from summerset_tpu_torch.client.drivers import DriverClosedLoop
 from summerset_tpu_torch.client.endpoint import GenericEndpoint
+from summerset_tpu_torch.cluster import Cluster
 from summerset_tpu_torch.utils.linearize import (
     check_history, record_get, record_put,
 )
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_cluster import (  # noqa: E402
-    Cluster, card_cpu_serving_lockstep,
-)
+from test_torch_cluster import card_cpu_serving_lockstep  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -69,7 +68,7 @@ def _assert_recovers(cluster, expect, servers=None, pin=None):
 @pytest.fixture(scope="class")
 def ep_cluster(tmp_path_factory):
     c = Cluster("EPaxos", 3, tmp_path_factory.mktemp("torch_epaxos"),
-                num_groups=2, window=32)
+                num_groups=2, window=32, device="cpu")
     yield c
     c.stop()
     assert not c.faults(), c.faults()
@@ -193,7 +192,8 @@ class TestTorchClusterEPaxos:
 # -------------------------------------------------------------- SimplePush
 @pytest.fixture(scope="class")
 def sp_cluster(tmp_path_factory):
-    c = Cluster("SimplePush", 3, tmp_path_factory.mktemp("torch_sp"))
+    c = Cluster("SimplePush", 3, tmp_path_factory.mktemp("torch_sp"),
+                device="cpu")
     yield c
     c.stop()
     assert not c.faults(), c.faults()
@@ -223,7 +223,7 @@ class TestTorchClusterBasics:
 def snap_cluster(tmp_path_factory):
     c = Cluster("MultiPaxos", 3, tmp_path_factory.mktemp("torch_snap"),
                 num_groups=2, config={"hear_timeout_lo": 10,
-                                      "hear_timeout_hi": 20})
+                                      "hear_timeout_hi": 20}, device="cpu")
     yield c
     c.stop()
     assert not c.faults(), c.faults()
@@ -257,7 +257,7 @@ class TestTorchClusterSnapshot:
 def autosnap_cluster(tmp_path_factory):
     c = Cluster("MultiPaxos", 3, tmp_path_factory.mktemp("torch_autosnap"),
                 config={"snapshot_interval": 60, "hear_timeout_lo": 10,
-                        "hear_timeout_hi": 20})
+                        "hear_timeout_hi": 20}, device="cpu")
     yield c
     c.stop()
     assert not c.faults(), c.faults()

@@ -415,12 +415,12 @@ def test_port_defaults_equal_jax(tmp_path):
 # ---------------------------------------------- a live port cluster, G = 4
 @pytest.fixture(scope="module")
 def planes_cluster(tmp_path_factory):
-    from test_torch_cluster import Cluster
+    from summerset_tpu_torch.cluster import Cluster
 
     c = Cluster("MultiPaxos", 3, tmp_path_factory.mktemp("torch_planes"),
                 num_groups=4, window=32,
                 config={"hear_timeout_lo": 10, "hear_timeout_hi": 20,
-                        "watch_ticks": 20})
+                        "watch_ticks": 20}, device="cpu")
     c.manager.settle_delay = 0.2
     yield c
     c.stop()

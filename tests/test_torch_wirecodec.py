@@ -418,7 +418,7 @@ def test_mixed_format_mesh_and_clients(tmp_path):
     read back the other's acked writes through every replica, and the
     codec replicas meter the bytes the codec saved."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from test_torch_cluster import Cluster
+    from summerset_tpu_torch.cluster import Cluster
 
     from summerset_tpu_torch.client.drivers import DriverClosedLoop
     from summerset_tpu_torch.client.endpoint import GenericEndpoint
@@ -426,7 +426,7 @@ def test_mixed_format_mesh_and_clients(tmp_path):
     c = Cluster("MultiPaxos", 3, tmp_path, num_groups=2,
                 slot_config={0: {"wire_codec": False},
                              1: {"wire_codec": True},
-                             2: {"wire_codec": True}})
+                             2: {"wire_codec": True}}, device="cpu")
     eps = []
     try:
         assert sorted(r.wire_codec for r in c.replicas.values()) == \
