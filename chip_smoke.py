@@ -75,7 +75,7 @@ before printing any result.  Phases, each printed as it runs:
              per bucket as ``host/server.py`` mints them, and one port
              ``EPaxosExecutor`` per (group, replica) feeding
              ``exec_floor_rows``: per-bucket apply orders agree across
-             replicas and ``exec_row`` follows the floors; (d) the first 64
+             replicas and ``exec_row`` follows the floors; (d) the first 32
              groups of (a)+(b), and all of (c), equal a CPU run; (e) the
              profile window and the phase's peak device memory.
 12. serving — the port's serving path, at the JAX serving records' shape
@@ -164,7 +164,8 @@ before printing any result.  Phases, each printed as it runs:
 16. bench — ``python -m summerset_tpu_torch.bench`` at 256-tick windows
              (4096 groups x 5, W=128, P=32): one JSON line with ``ok``
              true, the backend ``cuda`` and this card's stamp.
-17. epaxos serving — phase 12's harness and shape serving EPaxos
+17. epaxos serving — phase 12's harness and shape at 512 groups
+             serving EPaxos
              (leaderless; a host Tarjan executor per group): 16 clients
              pinned to the three replicas in turn, puts on their own keys
              and gets on every key, so commands at different replicas
@@ -177,14 +178,16 @@ before printing any result.  Phases, each printed as it runs:
              every acked key read back, agreement, a linearizable
              history of 3 pinned clients on 2 keys, phase 12's snapshot
              and restart; then three replicas on the card against three
-             on the CPU in per-tick lockstep at 32 groups through a
+             on the CPU in per-tick lockstep at 16 groups through a
              durable reset, serial and pipelined.
-18. basic serving — phase 12's harness and shape serving ChainRep,
+18. basic serving — phase 12's harness and shape at 512 groups serving
+             ChainRep,
              SimplePush and RepNothing: a 4 s window each, a durable
              reset of the serving node under load, every acked key read
              back, agreement (RepNothing replicates nothing: its serving
              replica's KV alone) and a linearizable 3-client history.
-19. read tier and wire — phase 12's harness and shape, the wire codec on
+19. read tier and wire — phase 12's harness and shape at 512 groups, the
+             wire codec on
              (the default) and the native WAL: MultiPaxos with
              ``near_quorum_reads``, 16 clients pinned to the two followers
              (10% puts) for a 4 s window (local-read share, get p50/p99,
@@ -260,11 +263,43 @@ WAL, and a phase with no injected fault fails on any demoted leader
              ``start_workload_clients`` for 6 s against an 8-deep ingress
              queue: sheds on the scrape and a linearizable history (shed
              puts as negative acks); accepted ops/s and p99.
+22. ingress tier — the ingress proxy tier (``host/ingress.py``) in
+             front of RSPaxos at phase 13's shape (RS(2,1), 3000 B puts):
+             (a) two proxy processes (``ServingPlane(mode="process")``,
+             ``python -m summerset_tpu_torch.cli.proxy``), the nofile
+             limit raised for and logged beside the fleet's size, a mux
+             fleet of 10,000 closed-loop clients in 4 subprocess workers
+             (``python -m summerset_tpu_torch.client.muxfleet``, 30 s
+             think time, 50% puts of 64 B over 64 keys) for a 10 s window
+             beside 16 recorded clients in auto proxy mode over 1024 keys:
+             every fleet client connected, every worker acked ops, the
+             proxies routed at least the fleet's acks, no proxy process
+             holds a CUDA context, the 16 clients' history linearizable
+             and their acked keys read back through a direct endpoint, no
+             replica fault (fleet and client ops/s, p50/p99, sheds and
+             timeouts, each proxy's counters, each replica's ``api_shed``,
+             ticks/s); (b) on the same cluster: a ``(client, req_id)``
+             sent twice answered from the proxy's cache
+             (``proxy_dedupe_hits`` +1), a range-owner override on a
+             thread-mode proxy steering its forward to a follower, and
+             ``FaultPlan.proxy_crash`` through ``nemesis_soak.soak`` with
+             the plane as ``proxy_ctl``: the crashed proxy leaves
+             ``query_info``, a put acks through the survivor (seconds),
+             the restarted process registers again, no action error, a
+             linearizable history across the crash; (c) run inside phase
+             14 on its QuorumLeases cluster right after the responders
+             {0, 1, 2} conf: a proxy's learner read tier serves gets off
+             a non-leader (``read_tier_served``), a linearizable put/get
+             history, one scan from learned state equal to a direct
+             barrier scan; (d) three RSPaxos replicas on the card against
+             three on the CPU in per-tick lockstep at 64 groups with
+             proxy ``batch`` forwards in every intake.
 Every served replica of phases 12-14 and 17-20 must have opened the native
 WAL, and a phase with no injected fault fails on any demoted leader
 (phases 12-19 each log ``leader_demotions``).  Phases 4, 6, 7, 13, 19,
-20 and 21 each count their own kernel launches and fail on none; phases
-8-12 and 14-18 run no codeword plane and launch no hand kernel.
+20, 21 and 22 each count their own kernel launches and fail on none;
+phases 8-12 and 14-18 run no codeword plane and launch no hand kernel.
+Every output line is stamped with the seconds since the start.
 
 The last lines are a ``{"phase_seconds": {...}, "total_s": ...}`` line
 (each phase's seconds), a JSON object ``{"kernels": [...]}`` and the
@@ -272,6 +307,7 @@ card's ``nvidia-smi`` name and power limit, then ``{"ok": true,
 "device": ...}``.  Any mismatch or exception exits non-zero.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -293,6 +329,7 @@ EP_PAUSE_TICKS = 150     # replica 0 paused: past alive_timeout to recovery
 EP_HOST_GROUPS = 64      # the host-exec part (a Python executor per replica)
 EP_HOST_TICKS = 40
 EP_HOST_DRAIN = 8        # last host-exec ticks propose nothing
+EP_CPU_GROUPS = 32       # (d): groups of (a)+(b) run again on the CPU
 QL_RESP = 0b00110        # QuorumLeases responders {1, 2}
 QL_RELEASE_TICKS = 60    # responder 2 paused: ticks until the barrier lifts
 BO_RESP = 0b00110        # Bodega roster responders {1, 2} on every bucket
@@ -325,6 +362,14 @@ SERVE_OP_TIMEOUT = 1.0
 # budget: the card machine's host speed swings about 2x between calls,
 # and at 2.5 ticks/s a codeword put needs about 2 s
 OP_BUDGET_TICKS = 8
+# a check's client (read-back reader, barrier writer) doubles its op budget
+# after each timeout, up to this: on a slow host a get or put can take
+# longer than SERVE_OP_TIMEOUT every time, and a fixed budget then never
+# succeeds (seen at 3.7-5.7 serving ticks/s); the retries stay as they were
+CHECK_OP_TIMEOUT_MAX_S = 8.0
+# agreement checks: seconds for floors to agree before the first barrier
+# writes (the later rounds, after writes, still wait up to 5 s each)
+QUIESCE_FIRST_S = 2.0
 SERVE_HISTORY_OPS = 30    # the 3-client history is at least this long
 # phase 13: the codeword family at phase 12's shape, RS(2,1), puts of
 # the value size of the JAX package's shard-economy check
@@ -349,7 +394,11 @@ SERVE_LEASE_OP_TIMEOUT = 5.0
 # the run and compacted to 8.1 MB); the card-against-CPU lockstep's
 # groups
 SERVE_EP_SECS = 10.0
-EP_SERVE_LOCK_GROUPS = 32
+EP_SERVE_LOCK_GROUPS = 16
+# phases 17-19 serve half of phase 12's groups: with phase 22 the script
+# must stay inside its clock, and their restarts (row restore per group)
+# and barrier writes (one per lagging group) scale with the groups
+NARROW_SERVE_G = 512
 # phase 18: the basic kernels' timed windows (once 5 s)
 SERVE_BASIC_SECS = 4.0
 # phase 19: the read tier's timed window, its scan span (about 136 of the
@@ -407,19 +456,71 @@ WL_SEED = 3
 WL_SECS = 6.0              # (c): the hot_burst plan's wall window
 WL_CAP = 60.0              # (c): offered ops/s at rate_x 1.0
 
+# phase 22: the ingress tier in front of phase 13's RSPaxos shape, and a
+# mux fleet of HOSTBENCH.json's shape (10,000 closed-loop clients in 4
+# subprocess workers, 30 s think time, uniform 50% puts of 64 B over 64
+# keys, 8 s op timeout) for a 10 s window (HOSTBENCH ran 25 s)
+INGRESS_PROXIES = 2
+FLEET_CLIENTS = 10_000
+FLEET_WORKERS = 4
+FLEET_THINK_S = 30.0
+FLEET_SECS = 10.0
+FLEET_OP_TIMEOUT = 8.0
+FLEET_KEYS = 64
+FLEET_VALUE_BYTES = 64
+FLEET_PUT_RATIO = 0.5
+FLEET_ID_BASE = 10_000_000   # summerset_tpu_torch.client.muxfleet's base
+NOFILE_SLACK = 4096          # sockets beyond the fleet's, per process
+INGRESS_CRASH_SEED = 5       # FaultPlan.proxy_crash's seed
+INGRESS_PLAN_TICKS = 24      # (b): the plan's horizon in nemesis ticks
+INGRESS_CRASH_AT = 6
+INGRESS_RESTART_AFTER = 10
+INGRESS_LOCK_GROUPS = 64     # (d): the card-against-CPU lockstep's groups
+LEARNER_KEYS = 4             # (c): keys the learner tier reads
+LEARNER_MAX_S = 30.0
+SCAN_QUIET_S = 1.5           # (c): no traffic before a learned scan
+
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
 # int32 ALU rate = 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One line of output, stamped with the seconds since the start (the
+    stamps break a phase's time down)."""
+    print(f"[{time.perf_counter() - T_START:7.1f}] {msg}", flush=True)
 
 
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def tmp_filesystem():
+    """The temporary directory every served cluster's WAL and snapshots
+    live in, and the type of the filesystem it is on (``/proc/mounts``):
+    the health plane's ``fsync_us`` signal measures that disk."""
+    import tempfile
+
+    d = os.path.realpath(tempfile.gettempdir())
+    mnt, fs = "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) < 3:
+                    continue
+                m = parts[1]
+                if (d == m or d.startswith(m.rstrip("/") + "/")) \
+                        and len(m) >= len(mnt):
+                    mnt, fs = m, parts[2]
+    except OSError:
+        pass
+    return f"{d} ({fs} at {mnt or '?'})"
 
 
 def card_label():
@@ -1596,10 +1697,11 @@ def phase_epaxos(torch, np, card):
         f"in all {G} groups")
 
     # (d) the first groups of (a)+(b) against the CPU
-    cpu = drive_plan(torch, make_engine("epaxos", cfg, sh, CPU_GROUPS, "cpu"),
-                     plan, P)
-    n = compare_groups(torch, (st2, ns2), cpu[-1][:2], CPU_GROUPS, "epaxos")
-    log(f"epaxos: first {CPU_GROUPS} groups equal the CPU run over "
+    cpu = drive_plan(torch, make_engine("epaxos", cfg, sh, EP_CPU_GROUPS,
+                                        "cpu"), plan, P)
+    n = compare_groups(torch, (st2, ns2), cpu[-1][:2], EP_CPU_GROUPS,
+                       "epaxos")
+    log(f"epaxos: first {EP_CPU_GROUPS} groups equal the CPU run over "
         f"{sum(w['ticks'] for w in plan)} ticks ({n} state leaves + "
         f"netstate)")
     profile_ticks(torch, eng, st1, ns1, PROFILE_TICKS, P, "epaxos", card)
@@ -1653,11 +1755,41 @@ def _serve_harness():
     return harness
 
 
+@contextlib.contextmanager
+def _serve_groups(G):
+    """Phase 12's serving shape at ``G`` groups while the block runs."""
+    old = SERVE_SHAPE["G"]
+    SERVE_SHAPE["G"] = G
+    try:
+        yield
+    finally:
+        SERVE_SHAPE["G"] = old
+
+
 def _demotions(cluster):
     """``leader_demotions`` per live replica (the health plane's count;
     a replica restarted by a durable reset counts from 0 again)."""
     return {str(me): rep.metrics.counter_value("leader_demotions")
             for me, rep in sorted(cluster.replicas.items())}
+
+
+def _health_report(cluster):
+    """Per live replica: its ``leader_demotions``, the health scorer's
+    signal table as that replica sees it now, and its ``wal_fsync_us``
+    histogram (count, p50, p99, mean), for a failure message."""
+    now = time.monotonic()
+    out = {}
+    for me, rep in sorted(cluster.replicas.items()):
+        h = rep.metrics.hist("wal_fsync_us")
+        out[str(me)] = {
+            "demotions": rep.metrics.counter_value("leader_demotions"),
+            "signals": (rep.health._signal_table(now)
+                        if rep.health is not None else None),
+            "wal_fsync_us": None if h is None else {
+                "n": h.count, "p50": h.quantile(0.5),
+                "p99": h.quantile(0.99), "mean": round(h.mean(), 1)},
+        }
+    return out
 
 
 def _require_clean(cluster, what, demotions_ok=False):
@@ -1667,7 +1799,7 @@ def _require_clean(cluster, what, demotions_ok=False):
     log(f"{what}: leader_demotions {dem}")
     if not demotions_ok and any(dem.values()):
         fail(f"{what}: the health plane demoted a leader with no fault "
-             f"injected: {dem}")
+             f"injected: {dem}; health {_health_report(cluster)}")
     if cluster.faults():
         fail(f"{what}: replica bring-up failures or crashes: "
              f"{cluster.faults()}")
@@ -1697,13 +1829,15 @@ class _LoadClient:
     ``zipf`` = s, key ``k`` is drawn with weight ``1 / (k + 1) ** s``
     from a seeded numpy generator (a hot-key mix).  A shed op (a sealed
     range mid-cutover) was never executed: it is counted in ``sheds`` and
-    retried after its hint."""
+    retried after its hint.  With ``history`` (a list) every put and get
+    is also recorded there for ``check_history`` (a put that may or may
+    not have executed as unacknowledged)."""
 
     PIN_RETURN_S = 5.0
 
     def __init__(self, cluster, ci, stop, value_bytes=None, put_share=0.5,
                  pin=None, op_timeout=SERVE_OP_TIMEOUT, shared_gets=False,
-                 zipf=None):
+                 zipf=None, history=None):
         import random
         import threading
 
@@ -1734,6 +1868,7 @@ class _LoadClient:
         self.ok = []         # (t_done, latency_s, server)
         self.gets = []       # (t_done, latency_s, server, local)
         self.errors = 0
+        self.history = history
         self.cluster = cluster
         self.thread = threading.Thread(target=self.run, daemon=True)
         self.thread.start()
@@ -1811,6 +1946,9 @@ class _LoadClient:
             else:
                 rep = drv.get(key)
             t1 = time.monotonic()
+            if self.history is not None:
+                self._record(is_put, key, val if is_put else None, rep,
+                             t0, t1)
             if rep.kind == "success":
                 self.ok.append((t1, t1 - t0, ep.current))
                 if not is_put:
@@ -1824,6 +1962,21 @@ class _LoadClient:
                 drv._failover(rep)
             seq += 1
         ep.leave()
+
+    def _record(self, is_put, key, val, rep, t0, t1):
+        from summerset_tpu_torch.utils.linearize import (
+            record_get, record_put,
+        )
+
+        if is_put and rep.kind == "success":
+            self.history.append(record_put(self.ci, key, val, t0, t1, True))
+        elif is_put and rep.kind not in ("redirect", "shed"):
+            self.history.append(record_put(self.ci, key, val, t0, None,
+                                           False))
+        elif not is_put and rep.kind == "success":
+            self.history.append(record_get(
+                self.ci, key, rep.result.value if rep.result else None,
+                t0, t1))
 
 
 def _stage_means(reps, prev):
@@ -1878,6 +2031,26 @@ def _lag_state(rep, lag):
     return out
 
 
+def _patient(drv, rep):
+    """After a timed-out op, the driver's next op waits twice as long (up
+    to ``CHECK_OP_TIMEOUT_MAX_S``); then the usual pause or failover."""
+    if rep.kind == "timeout":
+        drv.timeout = min(2 * drv.timeout,
+                          max(drv.timeout, CHECK_OP_TIMEOUT_MAX_S))
+    drv._retry_pause(rep)
+
+
+def _patient_put(drv, key, value, retries):
+    """``checked_put`` with ``_patient``'s budget."""
+    for _ in range(retries):
+        rep = drv.put(key, value)
+        if rep.kind == "success":
+            drv.backoff.reset()
+            return rep
+        _patient(drv, rep)
+    raise AssertionError(f"checked_put({key}) failed after retries")
+
+
 def _barrier_writes(cluster, what, groups, timeout=SERVE_OP_TIMEOUT):
     """One put into each of ``groups``, through up to 16 client threads.
     Followers learn commits lazily: one whose vote run at the leader's
@@ -1906,7 +2079,7 @@ def _barrier_writes(cluster, what, groups, timeout=SERVE_OP_TIMEOUT):
         drv = DriverClosedLoop(ep, timeout=timeout)
         try:
             for k in part:
-                drv.checked_put(k, "b", retries=60)
+                _patient_put(drv, k, "b", retries=60)
         except AssertionError as e:
             errs.append(str(e))
         ep.leave()
@@ -1923,14 +2096,17 @@ def _barrier_writes(cluster, what, groups, timeout=SERVE_OP_TIMEOUT):
     return len(todo)
 
 
-def _quiesce(cluster, what, rounds=4, settle=5.0, timeout=SERVE_OP_TIMEOUT):
+def _quiesce(cluster, what, rounds=4, settle=5.0, timeout=SERVE_OP_TIMEOUT,
+             first_settle=QUIESCE_FIRST_S):
     """With the clients stopped, wait until every replica has applied the
-    same floors; a group still differing after ``settle`` seconds gets
-    one barrier write, up to ``rounds`` times.  Returns the floors and
-    the barrier writes it took."""
+    same floors; a group still differing after ``settle`` seconds
+    (``first_settle`` before the first barrier writes: a follower learns
+    a commit only with its group's next write, so it seldom converges
+    alone) gets one barrier write, up to ``rounds`` times.  Returns the
+    floors and the barrier writes it took."""
     writes = 0
     for r in range(rounds + 1):
-        deadline = time.monotonic() + settle
+        deadline = time.monotonic() + (first_settle if r == 0 else settle)
         while True:
             floors = [list(r.applied) for r in cluster.replicas.values()]
             if len(floors) == cluster.n and all(f == floors[0]
@@ -2317,19 +2493,27 @@ def _raft_faults(cluster, clients):
     return {"pause": _pause_leader(cluster, clients, "serving Raft")}
 
 
-def _read_back(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
+def _read_back(cluster, clients, what, timeout=SERVE_OP_TIMEOUT,
+               direct=None):
     """Every key's last acknowledged value reads back through the
-    cluster (after the durable resets).  Each client's keys are read by
-    readers of at most ``READ_BACK_CHUNK`` keys each, so a read-back
-    takes a few gets' time, not one per key of the busiest client."""
+    cluster (after the durable resets), or through endpoints pinned to
+    replica ``direct`` (past an ingress tier).  Each client's keys are
+    read by readers of at most ``READ_BACK_CHUNK`` keys each, so a
+    read-back takes a few gets' time, not one per key of the busiest
+    client."""
     import threading
 
     from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import GenericEndpoint
 
     bad = []
 
     def reader(c, items):
-        ep = cluster.endpoint()
+        if direct is None:
+            ep = cluster.endpoint()
+        else:
+            ep = GenericEndpoint(cluster.manager_addr, server_id=direct)
+            ep.connect()
         drv = DriverClosedLoop(ep, timeout=timeout)
         for key, val in items:
             for _ in range(40):
@@ -2339,7 +2523,7 @@ def _read_back(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
                     if got != val and got not in c.later.get(key, ()):
                         bad.append((key, val, got))
                     break
-                drv._retry_pause(rep)
+                _patient(drv, rep)
             else:
                 bad.append((key, val, "no reply"))
         ep.leave()
@@ -2410,6 +2594,11 @@ def _snapshot_restart(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
         fail(f"{what}: restart of every replica acknowledged by "
              f"{rep.done}")
     restart_s = time.monotonic() - t1
+    # each restarted replica's bring-up steps (the rest of restart_s is
+    # the manager's ack, rejoin wait and settle per replica)
+    bringup = {str(me): getattr(r, "bringup_s", None)
+               for me, r in sorted(cluster.replicas.items())}
+    log(f"{what}: bring-up seconds per restarted replica {bringup}")
     t2 = time.monotonic()
     keys = _read_back(cluster, clients, f"{what} after the snapshot "
                       "restart", timeout)
@@ -2419,7 +2608,7 @@ def _snapshot_restart(cluster, clients, what, timeout=SERVE_OP_TIMEOUT):
              f"{cluster.faults()}")
     out = {"snapshot_s": round(snap_s, 3), "wal_bytes_before": before,
            "wal_bytes_after": after, "snapshot_bytes": snaps,
-           "restart_all_s": round(restart_s, 3),
+           "restart_all_s": round(restart_s, 3), "bringup_s": bringup,
            "read_back_s": round(read_s, 3), "read_back_keys": keys,
            "bitslice_launches_after_restart":
                rs.bitslice_gf256.launches - n0}
@@ -2710,7 +2899,8 @@ def _get_records(np, clients, t0, t1, leader):
     }
 
 
-def _lease_run(torch, np, card, protocol, config, conf_at, pause):
+def _lease_run(torch, np, card, protocol, config, conf_at, pause,
+               after_conf=None):
     """One live 3-replica lease-plane cluster on the card at phase 12's
     shape: the conf change (``conf_at``: "leader", "follower" or None)
     by a client, timed; 16 read-mostly clients pinned to the replicas in
@@ -2718,7 +2908,8 @@ def _lease_run(torch, np, card, protocol, config, conf_at, pause):
     leader pause (``pause``) or a quiet stretch; then every acked key
     read back, agreement, the history (with local reads in it)
     linearizable, local reads where the protocol serves them, no
-    replica fault."""
+    replica fault.  ``after_conf(cluster)``, if given, runs right after
+    the conf change, before the load and the pause."""
     import shutil
     import tempfile
     import threading
@@ -2764,6 +2955,8 @@ def _lease_run(torch, np, card, protocol, config, conf_at, pause):
                 ep.leave()
             if not conf or sorted(conf["responders"]) != [0, 1, 2]:
                 fail(f"{what}: the manager holds conf {conf}")
+        if after_conf is not None:
+            after_conf(cluster)
         stop = threading.Event()
         clients = [_LoadClient(cluster, ci, stop,
                                put_share=SERVE_LEASE_PUT_SHARE,
@@ -2846,8 +3039,9 @@ def _lease_run(torch, np, card, protocol, config, conf_at, pause):
 
 def phase_lease_serving(torch, np, card):
     """Phase 14: QuorumLeases, MultiPaxos with leader leases and Bodega
-    served on the card, read-mostly, then QuorumLeases' card-against-CPU
-    lockstep through the conf change and the first local gets."""
+    served on the card, read-mostly (phase 22 (c) on the QuorumLeases
+    cluster), then QuorumLeases' card-against-CPU lockstep through the
+    conf change and the first local gets."""
     import tempfile
 
     from summerset_tpu_torch.ops import rscoding as rs
@@ -2860,8 +3054,10 @@ def phase_lease_serving(torch, np, card):
     t_phase = time.perf_counter()
     rs.bitslice_gf256.launches = 0
     lines = {
-        "QuorumLeases": _lease_run(torch, np, card, "QuorumLeases", None,
-                                   "leader", pause=True),
+        "QuorumLeases": _lease_run(
+            torch, np, card, "QuorumLeases", None, "leader", pause=True,
+            after_conf=lambda c: LEARNER_TIER.update(_learner_tier(
+                c, "phase 22 (c) learner tier QuorumLeases"))),
         "MultiPaxos": _lease_run(torch, np, card, "MultiPaxos",
                                  {"leader_leases": True}, None,
                                  pause=False),
@@ -3198,9 +3394,14 @@ def _ep_quiet_reset(cluster, clients):
 
 
 def phase_epaxos_serving(torch, np, card):
-    """Phase 17: EPaxos served by phase 12's harness on the card, then
-    card against CPU in per-tick lockstep at ``EP_SERVE_LOCK_GROUPS``
-    groups in both loop modes."""
+    """Phase 17: EPaxos served by phase 12's harness on the card at
+    ``NARROW_SERVE_G`` groups, then card against CPU in per-tick lockstep
+    at ``EP_SERVE_LOCK_GROUPS`` groups in both loop modes."""
+    with _serve_groups(min(NARROW_SERVE_G, SERVE_SHAPE["G"])):
+        return _epaxos_serving(torch, np, card)
+
+
+def _epaxos_serving(torch, np, card):
     import tempfile
 
     sh = SERVE_SHAPE
@@ -3267,9 +3468,15 @@ def _reset_serving(protocol):
 
 def phase_basic_serving(torch, np, card):
     """Phase 18: ChainRep, SimplePush and RepNothing served by phase 12's
-    harness on the card: a 4 s window each, a durable reset of the
-    serving node, every acked key read back (RepNothing, which
-    replicates nothing, from its serving replica only)."""
+    harness on the card at ``NARROW_SERVE_G`` groups: a 4 s window each,
+    a durable reset of the serving node, every acked key read back
+    (RepNothing, which replicates nothing, from its serving replica
+    only)."""
+    with _serve_groups(min(NARROW_SERVE_G, SERVE_SHAPE["G"])):
+        return _basic_serving(torch, np, card)
+
+
+def _basic_serving(torch, np, card):
     sh = SERVE_SHAPE
     log(f"== phase 18: basic kernels serving, {sh['G']} groups x "
         f"{sh['R']} replicas, W={sh['W']}, {SERVE_CLIENTS} clients "
@@ -3365,19 +3572,32 @@ class _Subscriber:
         self.stub.close()
 
 
-def _scan_checked(drv, clients, what, span=READ_SPAN, tries=40):
+def _scan_checked(drv, clients, what, span=READ_SPAN, tries=40,
+                  cluster=None):
     """A scan over ``span`` through the driver, retried through redirects
     and sheds: sorted, inside the span, and every acked key of the span
-    holds its last acked value (or a later put that timed out)."""
+    holds its last acked value (or a later put that timed out).  A scan
+    that never succeeds fails with the replies' kinds and, given the
+    ``cluster``, its leaders and health report (a demoted leader splits
+    the groups' leadership, and a barrier scan then only redirects)."""
     lo, hi = span
+    kinds = {}
     for _ in range(tries):
         t0 = time.monotonic()
         rep = drv.scan(lo, end=hi)
         if rep.kind == "success":
             break
-        drv._retry_pause(rep)
+        kinds[rep.kind] = kinds.get(rep.kind, 0) + 1
+        _patient(drv, rep)
     else:
-        fail(f"{what}: scan [{lo}, {hi}) never succeeded")
+        extra = ""
+        if cluster is not None:
+            lead = {str(me): int(r._is_leader.sum())
+                    for me, r in sorted(cluster.replicas.items())}
+            extra = (f"; groups led per replica {lead}; health "
+                     f"{_health_report(cluster)}")
+        fail(f"{what}: scan [{lo}, {hi}) never succeeded in {tries} "
+             f"tries (replies {kinds}){extra}")
     secs = time.monotonic() - t0
     items = rep.result.items or ()
     keys = [k for k, _v in items]
@@ -3507,7 +3727,8 @@ def _read_tier_multipaxos(torch, np, card, tmp):
         drv = DriverClosedLoop(ep, timeout=30.0)
         rs_before = cluster.replicas[leader].metrics.counter_value(
             "scan_served")
-        scans = [_scan_checked(drv, clients, what) for _ in range(2)]
+        scans = [_scan_checked(drv, clients, what, cluster=cluster)
+                 for _ in range(2)]
         if any(s["local"] for s in scans):
             fail(f"{what}: a scan was served locally without a lease")
         served = (cluster.replicas[leader].metrics.counter_value(
@@ -3580,7 +3801,8 @@ def _read_tier_rspaxos(torch, np, card, tmp, rs):
         ep = cluster.endpoint()
         drv = DriverClosedLoop(ep, timeout=30.0)
         n0 = rs.bitslice_gf256.launches
-        scans = [_scan_checked(drv, clients, what, span=("key", "kez"))]
+        scans = [_scan_checked(drv, clients, what, span=("key", "kez"),
+                               cluster=cluster)]
         launches = rs.bitslice_gf256.launches - n0
         ep.leave()
         if DEV == "cuda" and launches == 0:
@@ -3765,11 +3987,17 @@ def _read_tier_mixed(tmp, card):
 
 def phase_read_tier(torch, np, card):
     """Phase 19: the read tier and the byte formats at phase 12's shape
-    (the codec on, the native WAL): near-quorum reads, barrier scans and
-    the commit feed on MultiPaxos; RSPaxos barrier scans launching
-    ``bitslice_gf256``; EPaxos refusing a scan; probes on QuorumLeases;
-    a mixed codec/pickle mesh.  Returns the kernel's launches and its
-    max_abs_err against the plain version at the marker's shape."""
+    at ``NARROW_SERVE_G`` groups (the codec on, the native WAL):
+    near-quorum reads, barrier scans and the commit feed on MultiPaxos;
+    RSPaxos barrier scans launching ``bitslice_gf256``; EPaxos refusing a
+    scan; probes on QuorumLeases; a mixed codec/pickle mesh.  Returns the
+    kernel's launches and its max_abs_err against the plain version at
+    the marker's shape."""
+    with _serve_groups(min(NARROW_SERVE_G, SERVE_SHAPE["G"])):
+        return _read_tier(torch, np, card)
+
+
+def _read_tier(torch, np, card):
     import shutil
     import tempfile
 
@@ -4663,6 +4891,507 @@ def phase_nemesis(torch, np, card):
     return {"launches": launches, "max_abs_err": rsp["max_abs_err"]}
 
 
+# ------------------------------------------------- the ingress tier --
+def _proxy_counters(snaps, name):
+    """``name`` per proxy from ``ServingPlane.scrape()``."""
+    return {pid: snap.get("host", {}).get("counters", {}).get(name, 0)
+            for pid, snap in sorted(snaps.items())}
+
+
+def _cuda_free(pids, what):
+    """No proxy process holds a CUDA context: where ``nvidia-smi`` lists
+    this process's own pid among the compute apps (the container shows
+    pids), no proxy pid may be listed; otherwise no proxy maps
+    ``libcuda``.  Returns how it was checked."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout
+    except OSError:
+        out = ""  # no nvidia-smi (a CPU rehearsal): the maps check
+    apps = {int(x) for x in out.split() if x.strip().isdigit()}
+    if os.getpid() in apps:
+        bad = sorted(set(pids) & apps)
+        if bad:
+            fail(f"{what}: proxy pids {bad} hold a CUDA context "
+                 f"(nvidia-smi compute apps {sorted(apps)})")
+        return f"nvidia-smi compute apps {sorted(apps)}"
+    for pid in pids:
+        with open(f"/proc/{pid}/maps") as f:
+            if "libcuda" in f.read():
+                fail(f"{what}: proxy pid {pid} maps libcuda")
+    return "no libcuda in /proc/<pid>/maps"
+
+
+def _fleet_workers(addrs):
+    """Start the mux fleet: ``FLEET_WORKERS`` processes of
+    ``python -m summerset_tpu_torch.client.muxfleet`` with disjoint id
+    bases, ``FLEET_CLIENTS`` clients in all."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    share = [FLEET_CLIENTS // FLEET_WORKERS] * FLEET_WORKERS
+    for i in range(FLEET_CLIENTS % FLEET_WORKERS):
+        share[i] += 1
+    procs = []
+    for w, n in enumerate(share):
+        spec = {"addrs": [list(a) for a in addrs], "clients": n,
+                "secs": FLEET_SECS, "put_ratio": FLEET_PUT_RATIO,
+                "value_size": FLEET_VALUE_BYTES, "num_keys": FLEET_KEYS,
+                "seed": SEED * 131 + w, "op_timeout": FLEET_OP_TIMEOUT,
+                "id_base": FLEET_ID_BASE + w * 1_000_000,
+                "think": FLEET_THINK_S}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "summerset_tpu_torch.client.muxfleet",
+             json.dumps(spec)], cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _fleet_results(procs, what):
+    """Each fleet worker's result (it exits on its own after the
+    window); a worker that prints no result fails the phase with its
+    output."""
+    out = []
+    for w, p in enumerate(procs):
+        try:
+            text, _ = p.communicate(timeout=FLEET_SECS + 120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+            fail(f"{what}: fleet worker {w} did not finish: {text[-2000:]}")
+        res = [json.loads(line[len("FLEET_RESULT "):])
+               for line in text.splitlines()
+               if line.startswith("FLEET_RESULT ")]
+        if p.returncode != 0 or not res:
+            fail(f"{what}: fleet worker {w} exited {p.returncode}: "
+                 f"{text[-2000:]}")
+        out.append(res[0])
+    return out
+
+
+def _ingress_fleet(np, cluster, plane, what):
+    """(a): the mux fleet through the proxies beside 16 recorded clients
+    in auto proxy mode, then the checks."""
+    import threading
+
+    from summerset_tpu_torch.ops import rscoding as rs
+    from summerset_tpu_torch.utils.linearize import check_history
+
+    stop = threading.Event()
+    hist = []
+    clients = [_LoadClient(cluster, ci, stop,
+                           value_bytes=SERVE_CW_VALUE_BYTES, history=hist)
+               for ci in range(SERVE_CLIENTS)]
+    _await_load(clients)
+    procs = _fleet_workers(plane.addrs)
+    try:
+        w = _window(np, cluster, clients, FLEET_SECS, what)
+        fleet = _fleet_results(procs, what)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        stop.set()
+        for c in clients:
+            c.thread.join(timeout=30)
+    snaps = plane.scrape()
+    routed = _proxy_counters(snaps, "proxy_routed")
+    tot = {k: sum(f[k] for f in fleet)
+           for k in ("clients", "connected_peak", "connected_min", "issued",
+                     "acked", "shed", "timeouts", "reconnects")}
+    line = {
+        "fleet": tot, "fleet_workers": [
+            {k: f[k] for k in ("clients", "connected_peak", "acked",
+                               "lat_p50_ms", "lat_p99_ms", "tput",
+                               "nofile")} for f in fleet],
+        "fleet_acked_ops_per_s": round(tot["acked"] / FLEET_SECS, 1),
+        "fleet_p50_ms_per_worker": sorted(f["lat_p50_ms"] for f in fleet),
+        "fleet_p99_ms_max": max(f["lat_p99_ms"] for f in fleet),
+        "proxy_routed": routed,
+        "proxy_shed": _proxy_counters(snaps, "proxy_shed"),
+        "proxy_dedupe_hits": _proxy_counters(snaps, "proxy_dedupe_hits"),
+        "proxy_upstream_shed": _proxy_counters(snaps, "proxy_upstream_shed"),
+        "api_shed": {str(me): r.metrics.counter_value("api_shed")
+                     for me, r in sorted(cluster.replicas.items())},
+        "clients16": w, "bitslice_launches": rs.bitslice_gf256.launches,
+    }
+    log(json.dumps({"ingress_fleet": line}))
+    if tot["connected_peak"] != FLEET_CLIENTS:
+        fail(f"{what}: connected_peak {tot['connected_peak']} != "
+             f"{FLEET_CLIENTS} ({line['fleet_workers']})")
+    if not all(f["acked"] > 0 for f in fleet):
+        fail(f"{what}: a fleet worker acked nothing: "
+             f"{line['fleet_workers']}")
+    if sum(routed.values()) < tot["acked"]:
+        fail(f"{what}: proxies routed {routed}, fewer than the fleet's "
+             f"{tot['acked']} acked ops")
+    ok, diag = check_history(hist)
+    if not ok:
+        fail(f"{what}: the 16 clients' history is not linearizable: {diag}")
+    leader = cluster.leader_of(0)
+    n = _read_back(cluster, clients, f"{what} (direct)",
+                   direct=0 if leader is None else leader)
+    if not n:
+        fail(f"{what}: the 16 clients acked no put")
+    line["history_ops"] = len(hist)
+    line["read_back_direct_keys"] = n
+    return line
+
+
+def _ingress_dedupe(plane, cluster, what):
+    """(b): one ``(client, req_id)`` sent twice through a proxy: both
+    replies equal, the second from the cache (``proxy_dedupe_hits`` +1)."""
+    from summerset_tpu_torch.host.messages import ApiRequest
+    from summerset_tpu_torch.host.statemach import Command
+
+    before = sum(_proxy_counters(plane.scrape(), "proxy_dedupe_hits")
+                 .values())
+    ep = cluster.endpoint()
+    try:
+        if not ep.proxy_mode:
+            fail(f"{what}: the endpoint did not discover the proxies")
+        reps = []
+        for _ in range(2):
+            ep.api.send_req(ApiRequest("req", req_id=1,
+                                       cmd=Command("put", "ded22", "v1")))
+            rep = ep.recv_reply(timeout=30)
+            while rep.req_id != 1:
+                rep = ep.recv_reply(timeout=30)
+            reps.append(rep)
+    finally:
+        ep.leave()
+    after = sum(_proxy_counters(plane.scrape(), "proxy_dedupe_hits")
+                .values())
+    if [r.kind for r in reps] != ["reply", "reply"] or after != before + 1:
+        fail(f"{what}: dedupe replies {reps}, proxy_dedupe_hits "
+             f"{before} -> {after}")
+    return {"dedupe_hits": after - before}
+
+
+def _ingress_steering(cluster, what):
+    """(b): a per-range owner override on a thread-mode proxy steers the
+    forwarded batch to the overridden follower, whose redirect bounces it
+    to the leader; the op completes."""
+    from summerset_tpu_torch.client.endpoint import ClientApiStub
+    from summerset_tpu_torch.cluster import free_ports
+    from summerset_tpu_torch.host.ingress import ServingPlane
+    from summerset_tpu_torch.host.messages import ApiRequest
+    from summerset_tpu_torch.host.statemach import Command
+
+    leader = cluster.leader_of(0)
+    follower = next(me for me in sorted(cluster.replicas) if me != leader)
+    tplane = ServingPlane(cluster.manager_addr, proxies=1,
+                          ports=free_ports(1), read_tier=False).start()
+    try:
+        proxy = tplane.proxies[0]
+        proxy.routing.set_owner("ovq", "ovr", follower)
+        time.sleep(1.0)  # across a routing refresh
+        if proxy.routing.owner_for("ovq1") != follower:
+            fail(f"{what}: the override did not survive a refresh")
+        stub = ClientApiStub(FLEET_ID_BASE - 1, tplane.addrs[0])
+        got = []
+        try:
+            for rid, cmd in ((1, Command("put", "ovq1", "steered")),
+                             (2, Command("get", "ovq1"))):
+                stub.send_req(ApiRequest("req", req_id=rid, cmd=cmd))
+                rep = stub.recv_reply(timeout=30)
+                got.append((rep.kind, rep.result.value if rep.result
+                            else None))
+        finally:
+            stub.close()
+        fwd = [e["sid"] for e in proxy.flight.dump()["events"]
+               if e["type"] == "proxy_fwd"]
+    finally:
+        tplane.stop()
+    if got != [("reply", None), ("reply", "steered")] or \
+            follower not in fwd:
+        fail(f"{what}: steered ops {got}, forwards to {fwd} (follower "
+             f"{follower})")
+    return {"follower": follower, "forwards_to": fwd}
+
+
+def _ingress_crash(cluster, plane, what):
+    """(b): ``FaultPlan.proxy_crash`` through ``nemesis_soak.soak`` with
+    the plane wired to ``proxy_ctl``: the crashed proxy leaves
+    ``query_info``, a put acks through the survivor, the proxy restarts
+    and registers again, no action error, and the recorded clients'
+    history across the crash is linearizable."""
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import ClientCtrlStub
+    from summerset_tpu_torch.host.messages import CtrlRequest
+    from summerset_tpu_torch.host.nemesis import FaultPlan, NemesisRunner
+    from summerset_tpu_torch.nemesis_soak import soak
+
+    plan = FaultPlan.proxy_crash(INGRESS_CRASH_SEED, SERVE_SHAPE["R"],
+                                 INGRESS_PLAN_TICKS,
+                                 proxies=INGRESS_PROXIES,
+                                 at=INGRESS_CRASH_AT,
+                                 restart_after=INGRESS_RESTART_AFTER)
+    log(f"{what}: plan digest {plan.digest()}")
+    for line in plan.timeline().splitlines():
+        log(f"  {line}")
+    stub = ClientCtrlStub(cluster.manager_addr)
+    ep = cluster.endpoint()
+    drv = DriverClosedLoop(ep, timeout=SERVE_OP_TIMEOUT * 5)
+    seen = {}
+
+    def n_proxies():
+        return len(stub.request(CtrlRequest("query_info"), timeout=10)
+                   .proxies or {})
+
+    def on_action(_tick, desc):
+        if "proxy_crash" in desc and "!error" not in desc:
+            deadline = time.monotonic() + 10
+            while n_proxies() != INGRESS_PROXIES - 1:
+                if time.monotonic() > deadline:
+                    fail(f"{what}: the crashed proxy is still in "
+                         "query_info")
+                time.sleep(0.1)
+            seen["gone"] = True
+            t = time.monotonic()
+            rep = drv.checked_put("ingress_crash", "survivor", retries=40)
+            seen["put_via_survivor_s"] = round(time.monotonic() - t, 3)
+            seen["put_kind"] = rep.kind
+        elif "proxy restart" in desc and "!error" not in desc:
+            t = time.monotonic()
+            plane._wait_registered(INGRESS_PROXIES, timeout=30.0)
+            seen["reregistered_s"] = round(time.monotonic() - t, 3)
+
+    ops = []
+    res = {"seed": INGRESS_CRASH_SEED, "digest": plan.digest(), "ok": False}
+    runner = NemesisRunner(cluster.manager_addr, plan,
+                           tick_len=NEM_TICK_LEN, on_action=on_action)
+    try:
+        soak(cluster, runner, res, ops, seed=INGRESS_CRASH_SEED,
+             clients=NEM_CLIENTS, keys=NEM_KEYS,
+             recovery_budget_s=NEM_RECOVERY_MAX_S, min_ops=NEM_MIN_OPS,
+             plane=plane)
+    finally:
+        runner.close()
+        ep.leave()
+        stub.close()
+    res.pop("server_metrics", None)
+    if not res["ok"]:
+        fail(f"{what}: {res.get('error')} ({json.dumps(res, default=str)})")
+    if res["action_errors"]:
+        fail(f"{what}: fault actions failed: {res['action_errors']}")
+    if not seen.get("gone") or "reregistered_s" not in seen:
+        fail(f"{what}: the crash or the restart was not played: "
+             f"{res['executed']}")
+    return {"executed": res["executed"], "ops": len(ops),
+            "recovery_s": res["recovery_s"], **seen}
+
+
+def _learner_tier(cluster, what):
+    """(c) of phase 22, on phase 14's QuorumLeases cluster (responders
+    {0, 1, 2} installed): a thread-mode proxy whose learner tier serves
+    gets off a non-leader (``read_tier_served`` > 0), a put/get history
+    through it linearizable, and one scan served from learned state
+    (``read_tier_scans`` > 0) equal to a direct barrier scan."""
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import GenericEndpoint
+    from summerset_tpu_torch.cluster import free_ports
+    from summerset_tpu_torch.host.ingress import ServingPlane
+    from summerset_tpu_torch.utils.linearize import (
+        check_history, record_get, record_put,
+    )
+
+    t_c = time.monotonic()
+    plane = ServingPlane(cluster.manager_addr, proxies=1,
+                         ports=free_ports(1)).start()
+    ops = []
+    try:
+        ep = GenericEndpoint(cluster.manager_addr)
+        ep.connect()
+        if not ep.proxy_mode:
+            fail(f"{what}: the endpoint did not discover the proxy")
+        drv = DriverClosedLoop(ep, timeout=SERVE_LEASE_OP_TIMEOUT)
+        keys = [f"lt{i}" for i in range(LEARNER_KEYS)]
+
+        def put(k, v):
+            t0 = time.monotonic()
+            rep = drv.checked_put(k, v, retries=40)
+            ops.append(record_put(0, k, v, t0, time.monotonic(),
+                                  rep.kind == "success"))
+
+        def get(k):
+            for _ in range(40):
+                t0 = time.monotonic()
+                rep = drv.get(k)
+                if rep.kind == "success":
+                    v = rep.result.value if rep.result else None
+                    ops.append(record_get(0, k, v, t0, time.monotonic()))
+                    return v
+                _patient(drv, rep)
+            fail(f"{what}: get {k} never answered")
+
+        for i, k in enumerate(keys):
+            put(k, f"l{i}")
+        proxy = plane.proxies[0]
+        deadline = time.monotonic() + LEARNER_MAX_S
+        rounds = 0
+        while proxy.metrics.counter_value("read_tier_served") == 0:
+            if time.monotonic() > deadline:
+                fail(f"{what}: no get served by the learner tier in "
+                     f"{LEARNER_MAX_S} s ({proxy.metrics_snapshot()})")
+            for k in keys:
+                get(k)
+            rounds += 1
+            time.sleep(0.2)
+        # freshness: a write then a read of the same key
+        for i in range(4):
+            put(keys[0], f"h{i}")
+            if get(keys[0]) != f"h{i}":
+                fail(f"{what}: a learner read after a put missed it")
+        upstream = proxy.metrics_snapshot()["read_tier_upstream"]
+        if upstream is None or upstream == cluster.leader_of(0):
+            fail(f"{what}: read_tier_upstream {upstream} (leader "
+                 f"{cluster.leader_of(0)})")
+        # a scan's probe needs every group quiet (leases held, no write in
+        # flight); a refused probe falls back to a barrier scan, whose
+        # markers enter every group's log, so each retry waits for quiet
+        learned = None
+        deadline = time.monotonic() + LEARNER_MAX_S
+        while learned is None:
+            if time.monotonic() > deadline:
+                fail(f"{what}: no scan served from learned state")
+            time.sleep(SCAN_QUIET_S)
+            n0 = proxy.metrics.counter_value("read_tier_scans")
+            rep = drv.scan("lt", "lu")
+            if rep.kind == "success" and rep.local and \
+                    proxy.metrics.counter_value("read_tier_scans") > n0:
+                learned = tuple(rep.result.items or ())
+        served = proxy.metrics.counter_value("read_tier_served")
+        scans = proxy.metrics.counter_value("read_tier_scans")
+        ep.leave()
+    finally:
+        plane.stop()
+    pin = GenericEndpoint(cluster.manager_addr,
+                          server_id=cluster.leader_of(0))
+    pin.connect()
+    try:
+        pdrv = DriverClosedLoop(pin, timeout=30.0)
+        for _ in range(40):
+            rep = pdrv.scan("lt", "lu")
+            if rep.kind == "success":
+                break
+            _patient(pdrv, rep)
+        else:
+            fail(f"{what}: the direct scan never succeeded")
+        direct = tuple(rep.result.items or ())
+    finally:
+        pin.leave()
+    if direct != learned:
+        fail(f"{what}: learned scan {learned} != direct scan {direct}")
+    ok, diag = check_history(ops)
+    if not ok:
+        fail(f"{what}: put/get history not linearizable: {diag}")
+    out = {"read_tier_served": served, "read_tier_scans": scans,
+           "read_tier_upstream": upstream, "leader": cluster.leader_of(0),
+           "get_rounds_until_served": rounds, "history_ops": len(ops),
+           "scan_items": len(learned),
+           "seconds": round(time.monotonic() - t_c, 1)}
+    log(json.dumps({"learner_tier": out}))
+    return out
+
+
+#: (c)'s record, filled by phase 14's QuorumLeases run
+LEARNER_TIER = {}
+
+
+def phase_ingress(torch, np, card):
+    """Phase 22: the ingress tier in front of an RSPaxos cluster at phase
+    13's shape: (a) two proxy processes, a 10,000-client mux fleet and
+    16 recorded clients; (b) dedupe, range-override steering and a
+    proxy crash played by the nemesis runner; (c) (run in phase 14) the
+    learner read tier on QuorumLeases; (d) card == CPU with proxy
+    batches in the intake.  Returns the kernel's launches (the cluster's
+    encodes and rebuilds) and max_abs_err."""
+    import shutil
+    import tempfile
+
+    from summerset_tpu_torch.client.muxfleet import raise_nofile
+    from summerset_tpu_torch.cluster import free_ports
+    from summerset_tpu_torch.host.ingress import ServingPlane
+    from summerset_tpu_torch.ops import rscoding as rs
+
+    sh = SERVE_SHAPE
+    what = "ingress RSPaxos"
+    log(f"== phase 22: ingress tier, {INGRESS_PROXIES} proxy processes in "
+        f"front of RSPaxos {sh['G']}x{sh['R']} (RS(2,1), "
+        f"{SERVE_CW_VALUE_BYTES} B), {FLEET_CLIENTS} fleet clients in "
+        f"{FLEET_WORKERS} workers + {SERVE_CLIENTS} recorded clients, "
+        f"{FLEET_SECS} s")
+    t_phase = time.perf_counter()
+    need = FLEET_CLIENTS + NOFILE_SLACK
+    got = raise_nofile(need)
+    import resource
+
+    hard = resource.getrlimit(resource.RLIMIT_NOFILE)[1]
+    log(f"{what}: RLIMIT_NOFILE soft {got} (hard {hard}) for "
+        f"{FLEET_CLIENTS} fleet clients (need {need}: the proxies and "
+        f"workers inherit it)")
+    if got < need:
+        fail(f"{what}: the nofile limit {got} (hard {hard}) cannot hold "
+             f"{FLEET_CLIENTS} fleet sockets plus {NOFILE_SLACK}")
+    rs.bitslice_gf256.launches = 0
+    tmp = tempfile.mkdtemp(prefix="ingress_")
+    out = {"nofile": got, "card": card}
+    try:
+        cluster = _read_cluster("RSPaxos", tmp, config=SERVE_CW_CFG)
+        plane = None
+        try:
+            t = time.perf_counter()
+            plane = ServingPlane(cluster.manager_addr,
+                                 proxies=INGRESS_PROXIES, mode="process",
+                                 ports=free_ports(INGRESS_PROXIES)).start()
+            out["plane_up_s"] = round(time.perf_counter() - t, 2)
+            out["cluster_up_s"] = cluster.up_s
+            out["a"] = _ingress_fleet(np, cluster, plane, what)
+            out["a"]["cuda_free"] = _cuda_free(plane.pids(), what)
+            log(f"phase 22 (a): {time.perf_counter() - t_phase:.1f} s")
+            t = time.perf_counter()
+            out["b"] = {**_ingress_dedupe(plane, cluster, what),
+                        **_ingress_steering(cluster, what),
+                        **_ingress_crash(cluster, plane, what)}
+            _require_clean(cluster, what)
+            log(json.dumps({"ingress_b": out["b"]}))
+            log(f"phase 22 (b): {time.perf_counter() - t:.1f} s")
+        finally:
+            if plane is not None:
+                plane.stop()
+            cluster.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = rs.bitslice_gf256.launches
+    if launches == 0:
+        fail(f"{what}: bitslice_gf256 never launched")
+    if not LEARNER_TIER:
+        fail(f"{what}: (c) did not run in phase 14")
+    out["c"] = LEARNER_TIER
+    t = time.perf_counter()
+    harness = _serve_harness()
+    with tempfile.TemporaryDirectory(prefix="ingresslock_") as d:
+        try:
+            lock = harness.card_cpu_serving_lockstep(
+                d, DEV, "RSPaxos", batch=True, G=INGRESS_LOCK_GROUPS)
+        except AssertionError as e:
+            fail(f"{what} {DEV} vs cpu: {e}")
+    if not lock["batch_acked"]:
+        fail(f"{what} {DEV} vs cpu: no proxy batch entry acked: {lock}")
+    out["d"] = {**lock, "seconds": round(time.perf_counter() - t, 1)}
+    log(f"{what}: 3 RSPaxos replicas on {DEV} == 3 on cpu at "
+        f"{INGRESS_LOCK_GROUPS} groups for {lock['ticks']} lockstep ticks "
+        f"with proxy batches in every intake ({lock['batch_acked']} batch "
+        f"entries acked), {out['d']['seconds']} s | {card}")
+    log(json.dumps({"phase": 22, "seconds": round(
+        time.perf_counter() - t_phase, 1), "bitslice_launches": launches,
+        **{k: out[k] for k in ("nofile", "plane_up_s", "cluster_up_s")},
+        "card": card}))
+    return {"launches": launches, "max_abs_err": 0}
+
+
 def planes_ab(torch, np, card, order=("on", "off", "off", "on")):
     """Phase 12's MultiPaxos run (its window, pause, resets, snapshot and
     profile) with the servers' default planes on and with ``PLANES_OFF``,
@@ -4707,6 +5436,7 @@ def main():
     t_start = time.perf_counter()
     card = card_label()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"temporary directory: {tmp_filesystem()}")
     secs = {}
 
     def timed(n, fn, *args):
@@ -4754,6 +5484,8 @@ def main():
     paths["planes"] = timed(20, phase_planes, torch, np, card)
     rs.bitslice_gf256.launches = 0
     paths["nemesis"] = timed(21, phase_nemesis, torch, np, card)
+    rs.bitslice_gf256.launches = 0
+    paths["ingress"] = timed(22, phase_ingress, torch, np, card)
     log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
     total = round(time.perf_counter() - t_start, 1)

@@ -10,8 +10,9 @@ both and handles server (re)selection with leader failover
 requests (``req``/``probe``) unless pinned off (``wire_codec=False``); the
 control stub stays pickle.  ``scrape_metrics``, ``scrape_flight`` and
 ``scrape_fleet`` are one-shot scrapes through the manager
-(``metrics_dump``, ``flight_dump``, ``watch_series``).  The
-ingress-proxy tier is not ported.
+(``metrics_dump``, ``flight_dump``, ``watch_series``).  When the manager
+lists registered ingress proxies (``host/ingress.py``), an endpoint that
+pinned no server connects to a proxy instead (``proxy_mode``).
 """
 
 from __future__ import annotations
@@ -175,18 +176,32 @@ class ClientApiStub:
 
 
 class GenericEndpoint:
-    """Manager-guided endpoint with redirect-aware server selection."""
+    """Manager-guided endpoint with redirect-aware server selection.
+
+    Proxy discovery: when ``query_info`` lists registered ingress
+    proxies, the endpoint connects to a proxy instead of a replica (same
+    wire, same redirect and backoff machinery).  ``via_proxy="auto"``
+    (the default) does so exactly when proxies are registered and no
+    ``server_id`` is pinned, so a cluster with no proxy tier sees no
+    change.  ``rotate``/``reconnect`` walk the proxy set in proxy mode
+    (a crashed proxy deregisters with its ctrl connection, so the query
+    inside ``rotate`` is the rediscovery) and fall back to the replicas
+    when the whole tier is gone.
+    """
 
     def __init__(self, manager_addr: Tuple[str, int],
                  server_id: Optional[int] = None,
-                 wire_codec: Optional[bool] = None):
+                 via_proxy="auto", wire_codec: Optional[bool] = None):
         self.ctrl = ClientCtrlStub(manager_addr)
         self.id = self.ctrl.id
         self.prefer = server_id
+        self.via_proxy = via_proxy
         # wire codec pin for the data-plane stub (None = process default)
         self.wire_codec = wire_codec
         self.api: Optional[ClientApiStub] = None
         self.servers = {}
+        self.proxies = {}
+        self.proxy_mode = False
         self.current: Optional[int] = None
         # the freshest leader hint observed (redirect replies or the
         # manager's query_info); the data-plane hint is fresher
@@ -200,13 +215,24 @@ class GenericEndpoint:
     def _refresh_info(self, info) -> None:
         if info.servers:
             self.servers = info.servers
+        self.proxies = dict(getattr(info, "proxies", None) or {})
         if info.leader is not None:
             self.leader_cache = info.leader
+        self.proxy_mode = bool(self.proxies) and (
+            self.via_proxy is True
+            or (self.via_proxy == "auto" and self.prefer is None)
+        )
 
     def connect(self, timeout: Optional[float] = None) -> None:
         """``timeout`` bounds the server connect only."""
         info = self.ctrl.request(CtrlRequest("query_info"))
         self._refresh_info(info)
+        if self.proxy_mode:
+            # spread clients over the proxies by client id (stable per
+            # client, balanced across a fleet)
+            cands = sorted(self.proxies)
+            self._connect_to(cands[self.id % len(cands)], timeout=timeout)
+            return
         if not info.servers:
             raise SummersetError("no servers joined yet")
         target = self.prefer
@@ -223,7 +249,10 @@ class GenericEndpoint:
         if self.api is not None:
             self.api.close()
             self.api = None
-        api_addr, _ = self.servers[sid]
+        if self.proxy_mode:
+            api_addr = self.proxies[sid]
+        else:
+            api_addr, _ = self.servers[sid]
         self.api = ClientApiStub(
             self.id, api_addr,
             connect_timeout=15.0 if timeout is None else timeout,
@@ -233,7 +262,8 @@ class GenericEndpoint:
 
     def reconnect(self, sid: Optional[int] = None,
                   timeout: Optional[float] = None) -> None:
-        if sid is not None and sid in self.servers:
+        pool = self.proxies if self.proxy_mode else self.servers
+        if sid is not None and sid in pool:
             self._connect_to(sid, timeout=timeout)
         else:
             self.connect(timeout=timeout)
@@ -266,11 +296,17 @@ class GenericEndpoint:
                 pass
         if avoid is None:
             avoid = self.current
-        if not self.servers:
-            return
-        order = self._walk_order(
-            sorted(self.servers), avoid, (self.leader_cache, leader),
-        )
+        if self.proxy_mode:
+            # round-robin the registered proxies (the query above already
+            # dropped a crashed one); server-space leader hints do not
+            # apply here
+            order = self._walk_order(sorted(self.proxies), avoid, ())
+        else:
+            if not self.servers:
+                return
+            order = self._walk_order(
+                sorted(self.servers), avoid, (self.leader_cache, leader),
+            )
         for cand in order:
             b = budget()
             if b is not None and b <= 0:

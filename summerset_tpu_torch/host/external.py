@@ -19,6 +19,14 @@ proposed; the rare control kinds (``conf``, ``sub``) bypass the bound.
 The hint is the queue's estimated drain time.  Every shed is counted
 (``api_shed``).
 
+One ``ExternalApi`` class is the front door of both tiers: a server runs
+it under the default ``metric_ns="api"``, an ingress proxy
+(``host/ingress.py``) embeds its own under ``metric_ns="proxy"``, so the
+same seams surface as the ``proxy_*`` series.  A proxy's ``batch`` is one
+pending slot however many commands it carries, and takes no arrival
+stamp: the shard answers it per proxy request id, so its own id would
+never be popped.
+
 Wire codec: with the ``codec`` knob on (server config ``wire_codec``,
 default the process default), hot replies (``reply``/``shed``/``note``/
 ``probe``) leave in the codec's binary form through one egress seam
@@ -57,6 +65,7 @@ class ExternalApi:
         registry=None,
         codec: Optional[bool] = None,
         flight=None,
+        metric_ns: str = "api",
     ):
         self.api_addr = api_addr
         self.max_batch_size = max_batch_size
@@ -64,6 +73,15 @@ class ExternalApi:
         self.codec = wirecodec.default_on() if codec is None else bool(codec)
         self._enc = wirecodec.FrameEncoder()  # event-loop-thread owned
         self.max_pending = max(1, int(max_pending))
+        # metric namespace: "api" on servers, "proxy" on the ingress tier
+        self.metric_ns = str(metric_ns)
+        ns = self.metric_ns
+        self._m_requests = f"{ns}_requests_total"
+        self._m_replies = f"{ns}_replies_total"
+        self._m_latency = f"{ns}_request_latency_us"
+        self._m_shed = f"{ns}_shed"
+        self._m_depth = f"{ns}_queue_depth"
+        self._m_evicted = f"{ns}_stamps_evicted"
         # EWMA of the replica's batch-take rate (reqs/s), written by
         # get_req_batch on the replica thread, read by servants for the
         # retry-after hints
@@ -76,8 +94,9 @@ class ExternalApi:
         # api_reply and api_shed events
         self.flight = flight
         if registry is not None:
-            registry.counter_add("api_shed", 0)
-            registry.gauge_set("api_queue_depth", 0)
+            registry.counter_add(self._m_evicted, 0)
+            registry.counter_add(self._m_shed, 0)
+            registry.gauge_set(self._m_depth, 0)
         self._arrivals: Dict[Tuple[int, int], float] = {}
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server = None
@@ -122,7 +141,7 @@ class ExternalApi:
                 )
             self._drain_t = now
             if self.registry is not None:
-                self.registry.gauge_set("api_queue_depth", depth)
+                self.registry.gauge_set(self._m_depth, depth)
         return batch
 
     def has_client(self, client: int) -> bool:
@@ -198,7 +217,8 @@ class ExternalApi:
         buf = safetcp.encode_frame_bytes(reply, self._enc, codec=self.codec)
         if self.registry is not None:
             self.registry.observe_s("wire_encode_us",
-                                    time.monotonic() - t0, plane="api")
+                                    time.monotonic() - t0,
+                                    plane=self.metric_ns)
         writer.write(buf)
         await writer.drain()
 
@@ -207,9 +227,8 @@ class ExternalApi:
         if reg is not None:
             t0 = self._arrivals.pop((client, reply.req_id), None)
             if t0 is not None and reply.kind == "reply":
-                reg.observe_s("api_request_latency_us",
-                              time.monotonic() - t0)
-            reg.counter_add("api_replies_total", kind=reply.kind)
+                reg.observe_s(self._m_latency, time.monotonic() - t0)
+            reg.counter_add(self._m_replies, kind=reply.kind)
         if self.flight is not None:
             self.flight.record("api_reply", client=client,
                                req_id=reply.req_id, kind=reply.kind)
@@ -236,7 +255,8 @@ class ExternalApi:
             while True:
                 req, t_dec = await safetcp.recv_msg_timed(reader)
                 if reg is not None:
-                    reg.observe_s("wire_decode_us", t_dec, plane="api")
+                    reg.observe_s("wire_decode_us", t_dec,
+                                  plane=self.metric_ns)
                 if not isinstance(req, ApiRequest):
                     continue
                 if req.kind == "leave":
@@ -253,9 +273,9 @@ class ExternalApi:
                         and depth >= self.max_pending):
                     hint = self._retry_after_ms(depth)
                     if reg is not None:
-                        reg.counter_add("api_requests_total")
-                        reg.counter_add("api_shed")
-                        reg.counter_add("api_replies_total", kind="shed")
+                        reg.counter_add(self._m_requests)
+                        reg.counter_add(self._m_shed)
+                        reg.counter_add(self._m_replies, kind="shed")
                     if self.flight is not None:
                         self.flight.record("api_shed", client=int(client),
                                            req_id=req.req_id, retry_ms=hint,
@@ -271,13 +291,17 @@ class ExternalApi:
                     self.flight.record("api_ingress", client=int(client),
                                        req_id=req.req_id, kind=req.kind)
                 if reg is not None:
-                    reg.counter_add("api_requests_total")
+                    reg.counter_add(self._m_requests)
+                if reg is not None and req.kind != "batch":
+                    # a proxy batch is answered per prid: its own id's
+                    # stamp would never be popped and would evict live
+                    # ones
                     arr = self._arrivals
                     arr[(int(client), req.req_id)] = time.monotonic()
                     if len(arr) > 8192:  # age out reply-less stamps
                         for k in list(arr)[:4096]:
                             del arr[k]
-                        reg.counter_add("api_stamps_evicted", 4096)
+                        reg.counter_add(self._m_evicted, 4096)
                 with self._lock:
                     self._pending.append((int(client), req))
                     self._batch_ready.set()

@@ -33,14 +33,20 @@ class ApiRequest:
     - ``"probe"`` — a freshness probe for ``cmd``'s key (or scan span):
       may a lease-local read be served right now, and at which feed seq.
 
-    Every other kind is answered with an ``"error"`` reply (``"leave"``
-    is answered by the api plane itself).  ``batch`` (a proxy's
-    ``[(proxy req id, Command)]`` forward) is a data field only: the
-    port has no proxy tier yet.  Fields in the JAX declaration order (the
-    wire codec's struct id 1)."""
+    - ``"batch"`` — an ingress proxy's aggregated forward
+      (``host/ingress.py``): ``batch`` is a list of ``(proxy req id,
+      Command)`` pairs that the shard unpacks into individual ops, each
+      answered under its proxy req id.  A batch takes ONE slot of the
+      bounded ingress queue, and a shed refusal covers the whole batch.
+
+    ``"stats"`` is answered by ingress proxies only (their per-tier
+    scrape over the data plane).  Every other kind is answered with an
+    ``"error"`` reply (``"leave"`` is answered by the api plane itself).
+    Fields in the JAX declaration order (the wire codec's struct id
+    1)."""
 
     kind: str                      # "req" | "conf" | "leave" | "scan"
-    #                              # | "sub" | "probe" | else: error
+    #                              # | "batch" | "sub" | "probe" | "stats"
     req_id: int = 0
     cmd: Optional[Command] = None  # kind == "req" | "scan" | "probe"
     conf_delta: Optional[dict] = None  # kind == "conf"
@@ -63,7 +69,7 @@ class ApiReply:
     codec's struct id 2)."""
 
     kind: str   # "reply" | "conf" | "redirect" | "error" | "shed"
-    #             | "leave" | "sub" | "note" | "probe"
+    #             | "leave" | "sub" | "note" | "probe" | "stats"
     req_id: int = 0
     result: Optional[CommandResult] = None
     redirect: Optional[int] = None  # hinted leader id
@@ -135,7 +141,10 @@ class CtrlRequest:
     inject_faults (payload ``{"net": spec, "wal": spec, "seed": n}``,
     relayed to each target server as a ``fault_ctl``) | range_change
     (payload op/start/end/dst_group, replied with ``conf={"rc_id": n}``)
-    | autopilot_ctl (payload act + actuator fields, relayed verbatim)."""
+    | autopilot_ctl (payload act + actuator fields, relayed verbatim);
+    the ingress tier: proxy_join (payload ``{"api_addr": [host, port]}``,
+    an ingress proxy registering over its ctrl connection; it is
+    deregistered when that connection drops)."""
 
     kind: str
     servers: Optional[List[int]] = None  # None = all
@@ -163,7 +172,7 @@ class CtrlReply:
     # per-server reply payloads of a gather (metrics_dump: sid ->
     # snapshot; watch_series: {"fleet": export})
     payloads: Optional[Dict[int, Any]] = None
-    # registered ingress proxies (no proxy tier in the port yet)
+    # registered ingress proxies (query_info): ctrl cid -> api_addr
     proxies: Optional[Dict[int, Any]] = None
     # installed range overrides, in adoption order (query_info)
     ranges: Optional[list] = None

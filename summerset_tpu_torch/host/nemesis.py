@@ -104,9 +104,11 @@ ALL_CLASSES = (
                    # ctrl-connection drop deregisters it at the manager,
                    # so clients must rediscover the tier via the
                    # re-announce in their next query_info/rotate.  Played
-                   # through NemesisRunner.proxy_ctl (the soak wires it
-                   # to a live ServingPlane); plans without an attached
-                   # proxy tier record the action as an error, not fatal
+                   # through NemesisRunner.proxy_ctl (wired to a live
+                   # host/ingress.ServingPlane.proxy_ctl, as
+                   # nemesis_soak.soak(plane=) does); plans without an
+                   # attached proxy tier record the action as an error,
+                   # not fatal
 )
 
 # slow_peer host-lowering constants: the bandwidth cap is sized so a
@@ -319,8 +321,9 @@ class FaultPlan:
         proxy ``seed % proxies`` at schedule tick ``at`` (or a seeded
         point ~1/3 in) and restart it ``restart_after`` ticks later.
         Targets are PROXY indices; a runner plays it against a live
-        proxy tier through ``NemesisRunner.proxy_ctl`` (the port has no
-        proxy tier yet, so a runner records the action as an error).  Deterministic given its arguments,
+        proxy tier through ``NemesisRunner.proxy_ctl`` (wired to
+        ``ServingPlane.proxy_ctl``; with nothing wired, a runner records
+        the action as an error).  Deterministic given its arguments,
         so committed rows regenerate the digest without a cluster —
         the same contract as :meth:`failslow`."""
         import random

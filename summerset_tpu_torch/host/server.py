@@ -146,8 +146,11 @@ stretches this replica's tick period by a factor (clock skew), and
 ``snap_crash`` arms a crash point in the next snapshots, after the
 snapshot is durably written and before the WAL is compacted.
 
-Not in this slice (ROADMAP.md, Queue 1): the ingress proxy's ``batch``
-forwards (answered ``error``).
+An ingress proxy (``host/ingress.py``) forwards ``batch`` requests: each
+``(prid, Command)`` is served like a direct request of the proxy's
+connection (a scan through ``_intake_scan``, a key under a cutover seal
+shed), and its reply goes back under the prid behind the same
+durability gate.
 """
 
 from __future__ import annotations
@@ -284,8 +287,14 @@ class ServerReplica:
                         device)
         self.api_addr = api_addr
         self.p2p_addr = p2p_addr
+        # seconds of each bring-up step (a restart's breakdown): control,
+        # state_init, snapshot_load, wal_replay, row_restore, mesh_join,
+        # api_plane
+        self.bringup_s: Dict[str, float] = {}
+        t = time.monotonic()
         # control plane first: the manager assigns our id (control.rs:43)
         self.ctrl = ControlHub(manager_addr)
+        t = self._bringup_step("control", t)
         self.me = self.ctrl.me
         self.population = self.ctrl.population
         self.transport = None
@@ -293,20 +302,31 @@ class ServerReplica:
         self.wal = None
         try:
             self._setup_core(backer_dir)
+            t = time.monotonic()
             self._join_mesh(protocol)
+            t = self._bringup_step("mesh_join", t)
             self.external = ExternalApi(
                 api_addr, max_batch_size=self.api_max_batch,
                 max_pending=self.api_max_pending, registry=self.metrics,
                 codec=self.wire_codec, flight=self.flight,
             )
+            self._bringup_step("api_plane", t)
         except BaseException:
             # a failed bring-up releases every port and handle it took:
             # the supervisor retries the constructor
             self.shutdown()
             raise
-        pf_info(logger, f"replica {self.me} ready on {self.device}")
+        pf_info(logger, f"replica {self.me} ready on {self.device} "
+                        f"(bring-up s {self.bringup_s})")
 
     # ------------------------------------------------------------ bring-up
+    def _bringup_step(self, name: str, t0: float) -> float:
+        """Record the seconds since ``t0`` as bring-up step ``name``;
+        returns now."""
+        now = time.monotonic()
+        self.bringup_s[name] = round(now - t0, 4)
+        return now
+
     def _configure(self, protocol, config, num_groups, window,
                    tick_interval, device) -> None:
         """Validate the protocol and knobs before any resource is taken."""
@@ -413,6 +433,7 @@ class ServerReplica:
 
     def _setup_core(self, backer_dir: str) -> None:
         """Kernel, state on the device, WAL (recovered) and bookkeeping."""
+        self._t_setup = time.monotonic()
         dev = self.device
         proto = self.protocol
         self.flight.me = self.me
@@ -582,7 +603,9 @@ class ServerReplica:
         self._fence_token: Optional[int] = None
         self._np_cache: Dict[str, np.ndarray] = {}
 
+        t = self._bringup_step("state_init", self._t_setup)
         self._recover_from_snapshot()
+        self._bringup_step("snapshot_load", t)
         self._recover_from_wal()
         self.flight.record(
             "restart", cold=self._cold_boot, wal_size=self.wal.size,
@@ -862,6 +885,7 @@ class ServerReplica:
         ``snap_floor`` marker: the apply history below its floors lives
         only in the snapshot, so a snapshot that is unreadable, missing
         or stale (floors below the marker's) is fatal."""
+        t_replay = time.monotonic()
         off = 0
         n = 0
         votes: Dict[int, dict] = {}
@@ -969,6 +993,7 @@ class ServerReplica:
             self.wal.do_sync_action(
                 LogAction("truncate", offset=off, sync=True)
             )
+        t_rows = self._bringup_step("wal_replay", t_replay)
         if votes:
             # rebuild the rows on a host copy, each group on its own
             # 1-group slice (a kernel's row write copies the tensor it
@@ -982,6 +1007,7 @@ class ServerReplica:
                 for k, t in row.items():
                     st[k][g] = t[0]
             self.state = {k: v.to(self.device) for k, v in st.items()}
+        self._bringup_step("row_restore", t_rows)
         self._rebuild_logged_keys()
         if n:
             pf_info(
@@ -1355,6 +1381,33 @@ class ServerReplica:
                 self.traces.mark_replied(g, vid, now)
             self._trace_replied.clear()
 
+    def _intake_batch(self, client: int, req: ApiRequest,
+                      by_group: Dict[int, list]) -> None:
+        """An ingress proxy's forward: each ``(prid, Command)`` behaves
+        like a direct request of ``client`` from here on, answered under
+        its prid (the batch paid its ONE bounded-queue slot)."""
+        for prid, cmd in (req.batch or ()):
+            if cmd is None:
+                continue
+            sub = ApiRequest("req", req_id=int(prid), cmd=cmd)
+            if cmd.kind == "scan":
+                # a read-tier probe refused it: the same serve, shed or
+                # barrier decision as a direct scan
+                self._intake_scan(client, sub, by_group)
+            elif self._range_sealed_for(cmd.key) is not None:
+                # mid-cutover seal: refused before any proposal, so the
+                # proxy relays a shed that was never acked
+                self._reply(client, ApiReply(
+                    "shed", req_id=int(prid), success=False,
+                    retry_after_ms=50,
+                ))
+                self.metrics.counter_add("api_shed", 1)
+            else:
+                self._range_heat.note(cmd.key)
+                by_group.setdefault(
+                    self.route_group(cmd.key), []
+                ).append((client, sub))
+
     def _intake(self) -> Tuple[np.ndarray, np.ndarray, Dict]:
         """Drain the client plane: queue conf changes, answer probes and
         subscriptions, serve or barrier scans, route puts and gets to
@@ -1382,6 +1435,8 @@ class ServerReplica:
         for client, req in batch:
             if req.kind == "conf":
                 self._handle_conf_req(client, req)
+            elif req.kind == "batch":
+                self._intake_batch(client, req, by_group)
             elif req.kind == "sub":
                 self._handle_subscribe(client, req)
             elif req.kind == "probe":

@@ -28,8 +28,10 @@ adopting leader's ``adopt_intent`` is granted here (the one event loop
 that also decides ``range_expire``, so adopt and seal-TTL expiry never
 both win), and ``range_installed`` moves the change to the installed set
 that ``install_ranges`` re-announces (newest seq wins, late joiners too)
-and ``query_info`` returns.  The ingress proxy registry (``proxy_join``)
-is not ported: the port has no proxy tier yet.
+and ``query_info`` returns.  Ingress proxies (``host/ingress.py``)
+register with ``proxy_join`` over their ctrl connection and are
+deregistered the moment it drops; ``query_info`` lists them, so a client
+rediscovers the tier after a proxy crash in one manager round.
 """
 
 from __future__ import annotations
@@ -85,6 +87,9 @@ class ClusterManager:
         self.servers: Dict[int, _ServerConn] = {}
         self.leader: Optional[int] = None
         self.conf: Optional[dict] = None
+        # registered ingress proxies: ctrl-conn cid -> api_addr (a proxy
+        # lives exactly as long as its ctrl connection)
+        self.proxies: Dict[int, Tuple[str, int]] = {}
         self._next_cid = 1000
         self._conf_seq = 0  # total order over relayed ConfChanges
         # the newest relayed install_conf payload; re-announced to every
@@ -379,12 +384,15 @@ class ClusterManager:
                 if req.kind == "leave":
                     await safetcp.send_msg(writer, CtrlReply("leave"))
                     break
-                reply = await self._handle_request(req)
+                reply = await self._handle_request(req, cid=cid)
                 await safetcp.send_msg(writer, reply)
         except (asyncio.IncompleteReadError, ConnectionError):
             pass
         finally:
             writer.close()
+            # the pop IS the deregistration clients rediscover through
+            if self.proxies.pop(cid, None) is not None:
+                pf_warn(logger, f"proxy {cid} deregistered")
 
     def _ranges_payload(self) -> dict:
         """install_ranges payload: full installed + pending sets under a
@@ -601,7 +609,8 @@ class ClusterManager:
                 done.append(sid)
         return CtrlReply("reset_state", done=done)
 
-    async def _handle_request(self, req: CtrlRequest) -> CtrlReply:
+    async def _handle_request(self, req: CtrlRequest,
+                              cid: Optional[int] = None) -> CtrlReply:
         if req.kind == "query_info":
             return CtrlReply(
                 "info",
@@ -612,11 +621,21 @@ class ClusterManager:
                     if s.joined
                 },
                 leader=self.leader,
+                proxies=dict(self.proxies),
                 ranges=[
                     self._ranges_installed[k]
                     for k in sorted(self._ranges_installed)
                 ],
             )
+        if req.kind == "proxy_join":
+            # the proxy's identity is its ctrl-connection cid:
+            # registration and liveness share one socket
+            addr = tuple((req.payload or {}).get("api_addr") or ())
+            if cid is None or len(addr) != 2:
+                return CtrlReply("proxy_join", done=[])
+            self.proxies[cid] = (str(addr[0]), int(addr[1]))
+            pf_info(logger, f"proxy {cid} joined @ {addr}")
+            return CtrlReply("proxy_join", done=[cid])
         if req.kind == "query_conf":
             return CtrlReply("conf", conf=self.conf, leader=self.leader)
         if req.kind == "pause_servers":

@@ -155,14 +155,19 @@ def recover(manager_addr, key: str, value: str, budget_s: float) -> float:
 
 def soak(cluster, runner, result: dict, ops: list, *, seed: int,
          clients: int = 3, keys: Sequence[str] = ("nem0", "nem1", "nem2"),
-         recovery_budget_s: float, min_ops: int = 20) -> dict:
+         recovery_budget_s: float, min_ops: int = 20, plane=None) -> dict:
     """The soak on a live ``cluster``: a warm put, ``clients`` closed-loop
     recorders over ``keys`` (their ops land in ``ops``), ``runner``'s plan
     played through the manager and a final heal, then the checks: a
     checked put within ``recovery_budget_s`` of the heal, more than
     ``min_ops`` ops, only injected crashes, the WAL and window bounds and
-    a linearizable history.  Fills ``result`` (``ok``, ``error``, the
-    readings) and returns it; the recorders are stopped on return."""
+    a linearizable history.  ``plane`` (a ``host/ingress.ServingPlane``
+    in front of the cluster) receives the plan's ``proxy_crash`` and
+    ``proxy_restart`` actions; without one they are action errors.
+    Fills ``result`` (``ok``, ``error``, the readings) and returns it;
+    the recorders are stopped on return."""
+    if plane is not None:
+        runner.proxy_ctl = plane.proxy_ctl
     stop = threading.Event()
     threads: list = []
     try:

@@ -1,15 +1,24 @@
-"""Key-range maps, counterpart of ``KeyRangeMap`` in
-``summerset_tpu/utils/keyrange.py``: the map the resharding plane's
-``RangeTable`` keeps its installed ranges in.  ``RespondersConf`` is not
-ported here: its one user is the ingress proxy tier.
+"""Key-range maps and responders configuration, counterpart of
+``summerset_tpu/utils/keyrange.py``.
+
+Parity: reference ``src/utils/keyrange.rs`` — ``KeyRangeMap`` (rangemap-
+backed map from key ranges to values, ``keyrange.rs:316``; the map the
+resharding plane's ``RangeTable`` and the ingress proxy's
+``RoutingTable`` keep their ranges in) and ``RespondersConf``
+(``keyrange.rs:29``: a leader plus per-key-range responder bitmaps with
+a config ballot number).  ``Bitmap`` is named in annotations only, so
+this module loads without ``torch`` (the ingress proxy runs torch-free).
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Generic, List, Optional, Tuple, TypeVar
+from typing import TYPE_CHECKING, Generic, List, Optional, Tuple, TypeVar
 
 from .errors import SummersetError
+
+if TYPE_CHECKING:
+    from .bitmap import Bitmap
 
 V = TypeVar("V")
 
@@ -79,3 +88,53 @@ class KeyRangeMap(Generic[V]):
 
     def __len__(self) -> int:
         return len(self._ranges)
+
+
+class RespondersConf:
+    """Leader + per-key-range responders, with a config number (ballot).
+
+    Parity: ``RespondersConf`` (``keyrange.rs:29``).  The device analog
+    packs the responder set of each group's active range into an int32
+    lane (the QuorumLeases and Bodega kernels); this host class keeps the
+    general per-key-range form for the control plane.
+    """
+
+    def __init__(self, population: int):
+        self.population = population
+        self.leader: Optional[int] = None
+        self._map: KeyRangeMap["Bitmap"] = KeyRangeMap()
+        self.conf_num: int = 0
+
+    def is_leader(self, replica: int) -> bool:
+        return self.leader == replica
+
+    def set_leader(self, replica: Optional[int]) -> None:
+        if replica is not None and not 0 <= replica < self.population:
+            raise SummersetError(f"invalid leader id {replica}")
+        self.leader = replica
+
+    def set_responders(
+        self, rng: Optional[KeyRange], responders: "Bitmap",
+        leader: Optional[int] = None,
+    ) -> None:
+        if responders.size != self.population:
+            raise SummersetError("responders bitmap size mismatch")
+        if rng is None:
+            self._map.full_range(responders)
+        else:
+            self._map.insert(rng[0], rng[1], responders)
+        if leader is not None:
+            self.set_leader(leader)
+
+    def is_responder_by_key(self, key: str, replica: int) -> bool:
+        bm = self._map.get(key)
+        return bm.get(replica) if bm is not None else False
+
+    def responders_for_key(self, key: str) -> Optional["Bitmap"]:
+        return self._map.get(key)
+
+    def __repr__(self) -> str:
+        return (
+            f"RespondersConf(leader={self.leader}, conf_num={self.conf_num}, "
+            f"ranges={len(self._map)})"
+        )

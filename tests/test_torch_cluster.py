@@ -140,6 +140,9 @@ def norm_wal(entry, shard_norm=None):
                 for vid, (dlen, sh) in rec["cw"].items()
             }
         return ("vote", g, rec)
+    if isinstance(entry, tuple) and len(entry) == 2 and isinstance(
+            entry[0], str):
+        return entry  # a tagged plane record (the cutover's "rseal")
     g, slot, vid, batch = entry
     return (g, slot, vid, norm_batch(batch))
 
@@ -437,6 +440,35 @@ def ep_requests(G, K=8):
                 cmd=pkg.sm.Command("put", k, f"b{t}.{r}")))
                 for i, k in enumerate(burst)]
         return out
+
+    return reqs
+
+
+#: the wire identity of the ingress proxy in the batch schedules
+PROXY_CLIENT = 700
+
+
+def batch_requests(base=requests, scan_at=(8, 0)):
+    """``base``'s schedule plus, at every replica in every tick, one
+    ingress-proxy ``batch`` forward (client ``PROXY_CLIENT + r``): a put
+    and a get over four ``b`` keys, a put to ``sk`` (the key the gates
+    seal), an entry with no command (skipped), and at ``scan_at`` (tick,
+    replica) a scan over the ``b`` keys.  Each entry is answered under its
+    prid."""
+
+    def reqs(pkg, t, r):
+        Cmd = pkg.sm.Command
+        prid = 100000 + 1000 * t + 10 * r
+        entries = [
+            (prid, Cmd("put", f"b{(t + r) % 4}", f"w{t}.{r}")),
+            (prid + 1, Cmd("get", f"b{(t + 1) % 4}")),
+            (prid + 2, Cmd("put", "sk", f"s{t}.{r}")),
+            (prid + 3, None),
+        ]
+        if (t, r) == scan_at:
+            entries.append((prid + 4, Cmd("scan", "b0", end="b9")))
+        return base(pkg, t, r) + [(PROXY_CLIENT + r, pkg.msg.ApiRequest(
+            "batch", req_id=prid, batch=entries))]
 
     return reqs
 
@@ -778,10 +810,11 @@ CARD_CPU_SERVE = dict(G=16, R=3, W=32, ticks=36, reset=(20, 1))
 
 
 def card_cpu_serving_lockstep(base, device, protocol="EPaxos",
-                              pipelined=False, **shape):
+                              pipelined=False, batch=False, **shape):
     """Three port replicas of ``protocol`` on ``device`` and three on the
-    CPU step the schedule of ``serving_requests(protocol, G)`` in per-tick
-    lockstep, through a durable reset of one replica on both trios; per
+    CPU step the schedule of ``serving_requests(protocol, G)`` (with an
+    ingress proxy's ``batch`` forwards in every intake if ``batch``,
+    ``batch_requests``) in per-tick lockstep, through a durable reset of one replica on both trios; per
     tick the state digests, frames, WAL records (``eapply`` included),
     ``applied``, KV and manager notices must be equal, and the replies
     too (summed over the run in the pipelined loop, which releases a
@@ -803,6 +836,8 @@ def card_cpu_serving_lockstep(base, device, protocol="EPaxos",
     sides = lockstep_sides(base, protocol, specs, cfg, sh["G"], sh["R"],
                            sh["W"], exact_rows=True)
     reqs = serving_requests(protocol, sh["G"])
+    if batch:
+        reqs = batch_requests(reqs)
     replies = {name: [[] for _ in range(sh["R"])] for name in sides}
     multi = 0
     try:
@@ -846,6 +881,8 @@ def card_cpu_serving_lockstep(base, device, protocol="EPaxos",
     return {"ticks": sh["ticks"],
             "acked": sum(x[1] == "reply" for rr in replies["card"]
                          for x in rr),
+            "batch_acked": sum(x[1] == "reply" and x[0] >= PROXY_CLIENT
+                               for rr in replies["card"] for x in rr),
             "multi": multi,
             "ep_exec_us": (sum(h.mean() for h in hists) / len(hists)
                            if hists else None)}

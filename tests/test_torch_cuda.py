@@ -458,6 +458,26 @@ def test_every_protocol_serving_on_card_matches_cpu(cuda_device, tmp_path,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["serial", "pipelined"])
+def test_proxy_batch_intake_on_card_matches_cpu(cuda_device, tmp_path,
+                                                pipelined):
+    """RSPaxos replicas on the card against replicas on the CPU with an
+    ingress proxy's ``batch`` forwards in every intake: equal state,
+    frames, WAL, floors, KV and per-prid replies, and batch entries
+    acked (``chip_smoke.py`` phase 22 (d) at 64 groups)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_cluster import card_cpu_serving_lockstep
+
+    out = card_cpu_serving_lockstep(tmp_path, "cuda", "RSPaxos",
+                                    pipelined=pipelined, batch=True)
+    assert out["batch_acked"] > 0, out
+
+
+@pytest.mark.cuda
 def test_codec_roundtrip_of_pinned_outbox_frame(cuda_device, tmp_path):
     """A tick frame sliced from a card replica's outbox (host views of its
     pinned prefetch buffers, strided per peer) goes through the wire

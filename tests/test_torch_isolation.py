@@ -79,6 +79,8 @@ SERVING_MODULES = tuple("summerset_tpu_torch." + m for m in (
     "host.server", "manager",
     "manager.clusman", "client", "client.endpoint", "client.drivers",
     "cli", "cli.server", "cli.manager",
+    "utils.bitmap", "host.ingress", "cli.proxy", "client.muxfleet",
+    "client.external_systems",
 ))
 
 _ALONE = r"""
@@ -96,6 +98,49 @@ def test_serving_module_alone_imports_no_jax(module):
     proc = _run(["-c", _ALONE, module])
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+#: the ingress tier's modules: a proxy process and a fleet worker run
+#: without torch, so neither can make a CUDA context
+TORCH_FREE = tuple("summerset_tpu_torch." + m for m in (
+    "host.ingress", "cli.proxy", "client.muxfleet", "utils.keyrange",
+    "client.external_systems",
+))
+
+_ALONE_TORCH = r"""
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "torch" or m.startswith("torch.")
+                        or m == "jax" or m.startswith(("jax.", "jaxlib")))))
+"""
+
+
+@pytest.mark.parametrize("module", TORCH_FREE)
+def test_ingress_tier_imports_no_torch(module):
+    proc = _run(["-c", _ALONE_TORCH, module])
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_proxy_process_runs_without_torch():
+    """``cli.proxy``'s ``main`` path (the proxy class and everything it
+    loads) imports no torch: run up to the manager connection, which
+    fails at once on a closed port."""
+    code = r"""
+import json, sys
+from summerset_tpu_torch.cli import proxy
+try:
+    proxy.main(["-m", "127.0.0.1:1", "-a", "0"])
+except Exception as e:
+    err = type(e).__name__
+print(json.dumps([err, sorted(m for m in sys.modules if m == "torch"
+                              or m.startswith("torch."))]))
+"""
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    err, mods = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert err in ("ConnectionRefusedError", "OSError") and mods == []
 
 
 _RUN_CODEC_AND_WAL = r"""

@@ -58,8 +58,8 @@ from test_torch_cluster import (  # noqa: E402
 )
 from test_torch_cluster import lockstep_sides as _lockstep_sides  # noqa: E402
 from test_torch_cluster import (  # noqa: E402
-    LEASE_CASES, lease_requests, lockstep_tick, norm_reply, norm_wal,
-    requests, restart_replica, serving_requests,
+    LEASE_CASES, PROXY_CLIENT, batch_requests, lease_requests, lockstep_tick,
+    norm_reply, norm_wal, requests, restart_replica, serving_requests,
 )
 
 torch.set_num_threads(1)
@@ -216,8 +216,41 @@ def test_superseded_nack_lockstep(tmp_path):
 
 
 # -------------------------------------------- (b) single replica, (c) WAL
+#: two ingress-proxy batches sent after the 24 puts: (prid, kind, key,
+#: value) per entry
+SINGLE_BATCHES = (
+    ((11, "put", "b0", "x0"), (12, "put", "b1", "y0"), (13, "get", "b0", None)),
+    ((21, "get", "b1", None), (22, "put", "b0", "x1"), (23, "get", "k3", None)),
+)
+
+
+def proxy_batches(drivers, api_addr):
+    """Send ``SINGLE_BATCHES`` as a proxy would (one ``batch`` each, on a
+    raw api stub), waiting for each entry's reply; returns the replies
+    as (prid, kind, result) in arrival order within each batch's prid
+    order."""
+    stub = drivers.ClientApiStub(600_001, api_addr)
+    out = []
+    try:
+        for bid, entries in enumerate(SINGLE_BATCHES, 1):
+            stub.send_req(drivers.ApiRequest("batch", req_id=bid, batch=[
+                (prid, drivers.Command(kind, key, value))
+                for prid, kind, key, value in entries]))
+            got = {}
+            while len(got) < len(entries):
+                rep = stub.recv_reply(timeout=20)
+                res = rep.result
+                got[rep.req_id] = (rep.req_id, rep.kind, None if res is None
+                                   else (res.kind, res.value, res.old_value))
+            out.extend(got[p] for p, *_r in entries)
+    finally:
+        stub.close()
+    return out
+
+
 def run_single(cluster_cls, drivers, tmpdir, pipeline, leaves, **kw):
-    """24 strictly sequential puts on a 1-replica cluster, 2 groups."""
+    """24 strictly sequential puts on a 1-replica cluster, 2 groups, then
+    two ingress-proxy batches (``proxy_batches``)."""
     c = cluster_cls("MultiPaxos", 1, str(tmpdir), config={"pipeline": pipeline},
                     tick=0.004, num_groups=2, **kw)
     ep = None
@@ -227,9 +260,11 @@ def run_single(cluster_cls, drivers, tmpdir, pipeline, leaves, **kw):
         drv = drivers.DriverClosedLoop(ep, timeout=20.0)
         for i in range(24):
             drv.checked_put(f"k{i % 7}", f"v{i}")
+        batch = proxy_batches(drivers, c.replicas[0].external.api_addr)
         rep = c.replicas[0]
         assert rep.pipeline is pipeline
         out = {
+            "batch": batch,
             "digest": durable_digest(rep.kernel,
                                      lambda k: leaves(rep.state[k])),
             "kv": dict(rep.statemach.snapshot_items()),
@@ -256,9 +291,13 @@ def single(request, tmp_path_factory):
     pipeline = request.param
     base = tmp_path_factory.mktemp("single_pl" if pipeline else "single_ser")
     jd = types.SimpleNamespace(GenericEndpoint=jep.GenericEndpoint,
-                               DriverClosedLoop=jdrv.DriverClosedLoop)
+                               DriverClosedLoop=jdrv.DriverClosedLoop,
+                               ClientApiStub=jep.ClientApiStub,
+                               ApiRequest=jmsg.ApiRequest, Command=jsm.Command)
     td = types.SimpleNamespace(GenericEndpoint=tep.GenericEndpoint,
-                               DriverClosedLoop=tdrv.DriverClosedLoop)
+                               DriverClosedLoop=tdrv.DriverClosedLoop,
+                               ClientApiStub=tep.ClientApiStub,
+                               ApiRequest=tmsg.ApiRequest, Command=tsm.Command)
     j = run_single(JCluster, jd, base / "jax", pipeline, np.asarray)
     p = run_single(TCluster, td, base / "torch", pipeline,
                    lambda v: v.numpy(), window=32, settle=0.5,
@@ -274,12 +313,27 @@ class TestSingleReplica:
 
     def test_kv_and_applied_equal(self, single):
         j, p = single["jax"], single["torch"]
-        assert sum(p["applied"]) == 24
-        assert p["kv"] == {
+        # the 24 puts and the 3 puts of the two proxy batches
+        assert sum(p["applied"]) == 24 + 3
+        assert p["kv"] == dict({
             f"k{k}": f"v{max(i for i in range(24) if i % 7 == k)}"
             for k in range(7)
-        }
+        }, b0="x1", b1="y0")
         assert (j["kv"], j["applied"]) == (p["kv"], p["applied"])
+
+    def test_proxy_batch_replies_equal(self, single):
+        """Each entry of a proxy's batch is answered under its prid, in
+        both loops, behind the same durability gate as a direct reply."""
+        j, p = single["jax"]["batch"], single["torch"]["batch"]
+        assert p == [
+            (11, "reply", ("put", None, None)),
+            (12, "reply", ("put", None, None)),
+            (13, "reply", ("get", "x0", None)),
+            (21, "reply", ("get", "y0", None)),
+            (22, "reply", ("put", None, "x0")),
+            (23, "reply", ("get", "v17", None)),
+        ]
+        assert j == p
 
     def test_wal_entries_equal(self, single):
         j, p = single["jax"]["wal"], single["torch"]["wal"]
@@ -1178,6 +1232,62 @@ def test_scan_lockstep(tmp_path, case):
         assert local == 0, scans
     if case == "rspaxos_barrier":
         assert sum(b[0] for b in rebuilt) > 0
+
+
+#: the cutover seal the batch gate installs on every replica of both
+#: sides at ``SEAL_TICK``: keys in ``["sk", "sl")`` are shed from then on
+SEAL_TICK = 3
+SEAL = {"rc_id": 7, "op": "split", "start": "sk", "end": "sl",
+        "dst_group": 1}
+
+
+@pytest.mark.parametrize("protocol", ["MultiPaxos", "RSPaxos"])
+def test_proxy_batch_intake_lockstep(tmp_path, protocol):
+    """An ingress proxy's ``batch`` forwards (``batch_requests``: puts,
+    gets, one scan, a key under a cutover seal, an empty entry) in every
+    intake of three JAX and three port replicas, stepped in per-tick
+    serial lockstep through the ``LOCK`` schedule's mute: every state
+    leaf, frame, WAL record, floor, KV and per-prid reply equal on every
+    tick.  The leader answers the batch's puts and gets under their
+    prids, the scan with the ``b`` keys in order, and the sealed key
+    ``shed`` (counted on ``api_shed``); followers redirect per prid."""
+    sides = lockstep_sides(tmp_path, protocol)
+    reps = sides["torch"][0]
+    reqs = batch_requests()
+    kinds = {"reply": 0, "redirect": 0, "shed": 0}
+    scans = []
+    try:
+        for t in range(LOCK["ticks"]):
+            if t == SEAL_TICK:
+                for name, (sreps, _net, pkg, *_r) in sides.items():
+                    for rep in sreps:
+                        ctrl_msg(rep, pkg, "range_change",
+                                 {"change": dict(SEAL)})
+            lo, hi = LOCK["mute"]
+            seen = lockstep_tick(sides, t, reqs=reqs,
+                                 mute=0 if lo <= t < hi else None)
+            j, p = seen["jax"], seen["torch"]
+            for part in j:
+                assert j[part] == p[part], f"tick {t}: {part} differs"
+            for rr in p["replies"]:
+                for x in rr:
+                    if x[0] < PROXY_CLIENT:
+                        continue
+                    if x[1] in kinds:
+                        kinds[x[1]] += 1
+                    if x[9] is not None and x[9][0] == "scan":
+                        scans.append(x[9][3])
+                    if x[1] == "shed":
+                        assert t >= SEAL_TICK and x[2] % 10 == 2, x
+        sheds = sum(rep.metrics.counter_value("api_shed") for rep in reps)
+    finally:
+        shutdown_sides(sides)
+    assert kinds["reply"] > 20 and kinds["redirect"] > 20, kinds
+    assert kinds["shed"] >= LOCK["ticks"] - SEAL_TICK and sheds >= kinds[
+        "shed"], (kinds, sheds)
+    assert scans and all(
+        [k for k, _v in items] == sorted(k for k, _v in items)
+        and all(k.startswith("b") for k, _v in items) for items in scans)
 
 
 def feed_requests(sub_tick=5):
