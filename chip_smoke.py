@@ -75,7 +75,7 @@ before printing any result.  Phases, each printed as it runs:
              per bucket as ``host/server.py`` mints them, and one port
              ``EPaxosExecutor`` per (group, replica) feeding
              ``exec_floor_rows``: per-bucket apply orders agree across
-             replicas and ``exec_row`` follows the floors; (d) the first 32
+             replicas and ``exec_row`` follows the floors; (d) the first 16
              groups of (a)+(b), and all of (c), equal a CPU run; (e) the
              profile window and the phase's peak device memory.
 12. serving — the port's serving path, at the JAX serving records' shape
@@ -109,8 +109,8 @@ before printing any result.  Phases, each printed as it runs:
              checks.  Last, 24 sequential puts on a 1-replica cluster on
              the card and on the CPU, serial and pipelined: equal durable
              digests, KV, floors and WAL records.
-13. codeword serving — phase 12's harness and shape serving the codeword
-             family, RS(2,1) (``fault_tolerance=0``), puts of 3000 B
+13. codeword serving — phase 12's harness and shape at 512 groups
+             (``NARROW_SERVE_G``) serving the codeword family, RS(2,1) (``fault_tolerance=0``), puts of 3000 B
              values: the leader encodes each proposed batch with
              ``bitslice_gf256`` and ships each peer its shard, followers
              rebuild from shards.  First MultiPaxos at the same load, 4 s,
@@ -178,7 +178,7 @@ before printing any result.  Phases, each printed as it runs:
              every acked key read back, agreement, a linearizable
              history of 3 pinned clients on 2 keys, phase 12's snapshot
              and restart; then three replicas on the card against three
-             on the CPU in per-tick lockstep at 16 groups through a
+             on the CPU in per-tick lockstep at 8 groups through a
              durable reset, serial and pipelined.
 18. basic serving — phase 12's harness and shape at 512 groups serving
              ChainRep,
@@ -294,10 +294,31 @@ WAL, and a phase with no injected fault fails on any demoted leader
              barrier scan; (d) three RSPaxos replicas on the card against
              three on the CPU in per-tick lockstep at 64 groups with
              proxy ``batch`` forwards in every intake.
+23. the mesh and the profiler — shards on repeated handles of the one
+             card, run in order (``core/sharding.py``): (a) MultiPaxos
+             4096x5 at 4x1 and 4096x4 at 2x2, RSPaxos 1024x4 at 2x2, three
+             8-tick windows with a pause, a durable reset, jitter and 5%
+             drops: the gathered state and effects digests equal the
+             mesh-less card run's in every window (ms/tick mesh and
+             mesh-less over windows 1-2, bytes between shards per tick);
+             RSPaxos's codeword plane per shard: the values each shard's
+             rows proposed in the last tick encoded on its device through
+             ``bitslice_gf256``, bit-exact against the plain version at
+             each distinct per-shard shape (launches join the ``kernels``
+             line); (b) the serving step (``sharding.mesh_step``) at
+             1024x3 on a (2, 1) mesh equal to the unsharded step on every
+             leaf over 6 loopback ticks, and a live 3-replica MultiPaxos
+             cluster at 1024 groups whose replicas each shard over a 2x1
+             mesh: 16 puts from 4 clients, every key read back, each
+             replica's state on 2 shards; (c) ``build_profile`` on the
+             card (the 3x2 canonical cells at 8-tick windows, the g-sweep,
+             the mesh and tally sweeps): its analytic counts equal the
+             committed ``cuda`` block of ``summerset_tpu_torch/PROFILE.json``,
+             the phase table printed.  One ``mesh`` JSON line.
 Every served replica of phases 12-14 and 17-20 must have opened the native
 WAL, and a phase with no injected fault fails on any demoted leader
 (phases 12-19 each log ``leader_demotions``).  Phases 4, 6, 7, 13, 19,
-20, 21 and 22 each count their own kernel launches and fail on none;
+20, 21, 22 and 23 each count their own kernel launches and fail on none;
 phases 8-12 and 14-18 run no codeword plane and launch no hand kernel.
 Every output line is stamped with the seconds since the start.
 
@@ -329,7 +350,7 @@ EP_PAUSE_TICKS = 150     # replica 0 paused: past alive_timeout to recovery
 EP_HOST_GROUPS = 64      # the host-exec part (a Python executor per replica)
 EP_HOST_TICKS = 40
 EP_HOST_DRAIN = 8        # last host-exec ticks propose nothing
-EP_CPU_GROUPS = 32       # (d): groups of (a)+(b) run again on the CPU
+EP_CPU_GROUPS = 16       # (d): groups of (a)+(b) run again on the CPU
 QL_RESP = 0b00110        # QuorumLeases responders {1, 2}
 QL_RELEASE_TICKS = 60    # responder 2 paused: ticks until the barrier lifts
 BO_RESP = 0b00110        # Bodega roster responders {1, 2} on every bucket
@@ -394,7 +415,7 @@ SERVE_LEASE_OP_TIMEOUT = 5.0
 # the run and compacted to 8.1 MB); the card-against-CPU lockstep's
 # groups
 SERVE_EP_SECS = 10.0
-EP_SERVE_LOCK_GROUPS = 16
+EP_SERVE_LOCK_GROUPS = 8
 # phases 17-19 serve half of phase 12's groups: with phase 22 the script
 # must stay inside its clock, and their restarts (row restore per group)
 # and barrier writes (one per lagging group) scale with the groups
@@ -479,6 +500,17 @@ INGRESS_LOCK_GROUPS = 64     # (d): the card-against-CPU lockstep's groups
 LEARNER_KEYS = 4             # (c): keys the learner tier reads
 LEARNER_MAX_S = 30.0
 SCAN_QUIET_S = 1.5           # (c): no traffic before a learned scan
+MESH_MP_SHAPE = dict(G=4096, R=5, W=128, P=32)   # (a) at 4x1
+MESH_MP4_SHAPE = dict(G=4096, R=4, W=128, P=32)  # (a) at 2x2
+MESH_RS_SHAPE = dict(G=1024, R=4, W=128, P=32)   # (a) at 2x2, RS(3,1)
+MESH_TICKS = 8             # per window; three windows with faults
+MESH_SERVE_SHAPE = dict(G=1024, R=3, W=64)       # (b)
+MESH_STEP_TICKS = 6
+MESH_SERVE_PUTS = 16
+MESH_PROFILE_TICKS = 8     # (c): the measured windows (counts need none)
+MESH_PROFILE_SWEEP_TICKS = 8  # (c): the sweeps' progress windows
+MESH_PROFILE_REPS = 2
+MESH_CLIENTS = 4           # (b): the cluster's clients, keys split evenly
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 3.35 TB/s;
 # int32 ALU rate = 132 SMs x 64 INT32 lanes x 1.98 GHz boost
@@ -636,21 +668,6 @@ def committed(state):
     return int(state["commit_bar"].amax(dim=1).sum())
 
 
-def _union_us(intervals):
-    """Total length of the union of ``(start, end)`` intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
 def profile_ticks(torch, eng, state, ns, ticks, P, what, card):
     """Where a synthetic tick's time goes (``profile_run`` over
     ``ticks`` ticks of ``run_synthetic``)."""
@@ -663,65 +680,13 @@ def profile_ticks(torch, eng, state, ns, ticks, P, what, card):
 
 
 def profile_run(torch, run, ticks, what, card):
-    """Where a tick's time goes: ``run()`` (``ticks`` ticks) timed on the
-    host clock without the profiler, then once more under
-    ``torch.profiler`` for the device busy time (the union of kernel
-    intervals), kernel launches per tick, device time per phase and the
-    host's CUDA runtime calls.  The idle share is one less busy time
-    over the unprofiled wall time.  Returns the per-tick numbers (None
-    where the profiler saw no device activity)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a tick's time goes: the package's ``profile_run``
+    (``summerset_tpu_torch/host/profiling.py``: wall time, device busy
+    time and idle share, launches, device time per phase, the host's CUDA
+    runtime calls per tick) with this script's stamped log."""
+    from summerset_tpu_torch.host.profiling import profile_run as prof
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    # device events minus the phase ranges mirrored onto the device
-    # timeline (those span idle gaps too)
-    kernels = [e for e in prof.events() if e.device_type == cuda
-               and not getattr(e, "is_user_annotation", False)]
-    out = {"wall_ms_per_tick": round(wall_us / ticks / 1e3, 4)}
-    if not kernels:
-        log(f"profile {what}: wall {wall_us / ticks / 1e3:.3f} ms/tick; the "
-            f"profiler saw no device activity, so device busy time and idle "
-            f"share are not measured | {card}")
-        return dict(out, device_busy_ms_per_tick=None,
-                    kernels_per_tick=None, runtime_ms_per_tick=None)
-    busy_us = _union_us([(e.time_range.start, e.time_range.end)
-                         for e in kernels])
-    log(f"profile {what}: {ticks} ticks, wall {wall_us / ticks / 1e3:.3f} "
-        f"ms/tick, device busy {busy_us / ticks / 1e3:.3f} ms/tick, idle "
-        f"share {1 - busy_us / wall_us:.3f}, {len(kernels) / ticks:.1f} "
-        f"kernel launches/tick | {card}")
-    # the host-side phase ranges: device time of the kernels each launched
-    phases = sorted(
-        ((e.key[len("graftphase__"):], e.device_time_total, e.cpu_time_total)
-         for e in prof.key_averages()
-         if e.key.startswith("graftphase__") and e.device_type == cpu),
-        key=lambda r: -r[1])
-    for name, dev_us, cpu_us in phases:
-        log(f"  phase {name:<22} device {dev_us / ticks / 1e3:.4f} ms/tick, "
-            f"host {cpu_us / ticks / 1e3:.4f} ms/tick (profiled)")
-    # the host's CUDA runtime calls: launches, copies, syncs, allocations
-    api = sorted(((e.key, e.count, e.cpu_time_total)
-                  for e in prof.key_averages()
-                  if e.device_type == cpu and e.key.startswith("cu")),
-                 key=lambda r: -r[2])
-    log("  runtime calls per tick: " + ", ".join(
-        f"{k} {n / ticks:.1f}x {us / ticks / 1e3:.4f} ms"
-        for k, n, us in api[:6]))
-    return dict(out,
-                device_busy_ms_per_tick=round(busy_us / ticks / 1e3, 4),
-                idle_share=round(1 - busy_us / wall_us, 4),
-                kernels_per_tick=round(len(kernels) / ticks, 1),
-                runtime_ms_per_tick=round(
-                    sum(us for _k, _n, us in api) / ticks / 1e3, 4))
+    return prof(run, ticks, what, card, log=log)
 
 
 def run_window(torch, eng, st, ns, t0, ticks, P, alive=None, spr=None,
@@ -5419,6 +5384,321 @@ def planes_ab(torch, np, card, order=("on", "off", "off", "on")):
     return out
 
 
+
+# ---------------------------------- phase 23: the mesh and the profiler --
+def _mesh_seq(torch, G, R, P, w, dev):
+    """Window ``w`` of the mesh gate's inputs (the CPU gate's recipe):
+    proposals every tick, replica 1 paused at tick 3, a durable reset of
+    replica 1 at tick 5 of window 1."""
+    T = MESH_TICKS
+    t = torch.arange(T, dtype=torch.int32, device=dev)
+    alive = torch.ones((T, G, R), dtype=torch.bool, device=dev)
+    alive[3, :, 1] = False
+    reset = torch.zeros((T, G, R), dtype=torch.bool, device=dev)
+    if w == 1:
+        reset[5, :, 1] = True
+    return {
+        "n_proposals": torch.full((T, G), P, dtype=torch.int32, device=dev),
+        "value_base": ((w * T + t) * P)[:, None].expand(T, G).contiguous(),
+        "exec_floor": torch.full((T, G, R), 1 << 30, dtype=torch.int32,
+                                 device=dev),
+        "alive": alive, "reset": reset,
+    }
+
+
+def _mesh_windows(torch, eng, sh):
+    """Three windows through ``run_ticks`` with the faults of
+    ``_mesh_seq``: per window the sha256 over every gathered state leaf
+    and the collected effects; the ms per tick over windows 1-2 (window
+    0 pays the first run's allocations); the last tick's extras
+    (whole)."""
+    import hashlib
+
+    from summerset_tpu_torch.core import sharding as sl
+
+    G, R, P = sh["G"], sh["R"], sh["P"]
+    st, ns = eng.init()
+    digs, secs, fx = [], 0.0, None
+    for w in range(3):
+        seq = _mesh_seq(torch, G, R, P, w, DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, ns, fx = eng.run_ticks(st, ns, seq, collect=True)
+        torch.cuda.synchronize()
+        if w:
+            secs += time.perf_counter() - t0
+        full = sl.gather_pytree(st)
+        h = hashlib.sha256()
+        for k in sorted(full):
+            h.update(full[k].cpu().numpy().tobytes())
+        h.update(fx.commit_bar.cpu().numpy().tobytes())
+        h.update(fx.exec_bar.cpu().numpy().tobytes())
+        for k in sorted(fx.extra):
+            h.update(fx.extra[k].cpu().numpy().tobytes())
+        digs.append(h.hexdigest())
+    return digs, secs / (2 * MESH_TICKS) * 1e3, full, \
+        {k: v[-1] for k, v in fx.extra.items()}
+
+
+def _mesh_engine_check(torch, proto, cfg, sh, spec, card):
+    """``proto`` at ``sh`` on the ``spec`` mesh (shards on repeated
+    handles of the card) against the mesh-less card run: equal digests
+    in every window.  Returns the mesh run's last extras, state and
+    numbers."""
+    from summerset_tpu_torch.core import Engine, NetConfig
+    from summerset_tpu_torch.core import sharding as sl
+    from summerset_tpu_torch.protocols import make_protocol
+
+    net = NetConfig(delay_ticks=1, jitter_ticks=1, drop_rate=0.05,
+                    max_delay_ticks=3)
+    k = make_protocol(proto, sh["G"], sh["R"], sh["W"], cfg, device=DEV)
+    gs, rs = sl.parse_mesh(spec)
+    mesh = sl.mesh_for(gs, rs, [DEV] * (gs * rs), repeat=True)
+    base, base_ms, _, _ = _mesh_windows(
+        torch, Engine(k, netcfg=net, seed=7, device=DEV), sh)
+    eng = Engine(k, netcfg=net, seed=7, device=DEV, mesh=mesh)
+    got, mesh_ms, full, fx = _mesh_windows(torch, eng, sh)
+    if got != base:
+        fail(f"mesh {proto} {spec}: digests differ from the mesh-less card "
+             f"run ({got} vs {base})")
+    if int(full["commit_bar"].max()) <= 0:
+        fail(f"mesh {proto} {spec}: nothing committed")
+    xfer = eng.xfer["bytes"] / (3 * MESH_TICKS)
+    log(f"mesh {proto} {sh['G']}x{sh['R']} W={sh['W']} P={sh['P']} @ {spec} "
+        f"(shards on one card): 3 windows x {MESH_TICKS} ticks with a pause, "
+        f"a durable reset, jitter and 5% drops, digests equal the mesh-less "
+        f"run; {mesh_ms:.3f} ms/tick on the mesh, {base_ms:.3f} ms/tick "
+        f"mesh-less, {xfer:.0f} bytes/tick between shards | {card}")
+    return {"mesh": spec, "ms_per_tick": round(mesh_ms, 4),
+            "meshless_ms_per_tick": round(base_ms, 4),
+            "xfer_bytes_per_tick": xfer}, full, fx, mesh
+
+
+def _mesh_rs_encode(torch, np, rs, sh, fx, mesh, what):
+    """Each mesh shard's codeword plane: the values the shard's rows
+    proposed in the last tick (``n_accepted`` over its groups and rows,
+    ``B = G/gs * P`` at its leaders) encoded on its device, each call
+    held bit for bit against the plain version.  Returns the launches,
+    the max_abs_err and each distinct per-shard encode shape."""
+    code = rs.RSCode(sh["R"] // 2 + 1, sh["R"] - sh["R"] // 2 - 1,
+                     device=DEV)
+    n_acc = fx["n_accepted"].cpu()
+    gs, rsh = mesh.shape["group"], mesh.shape["replica"]
+    Gs, Rs = sh["G"] // gs, sh["R"] // rsh
+    rs.bitslice_gf256.launches = 0
+    err, shapes, per = 0, set(), []
+    for i, j, _dev in mesh.cells():
+        B = int(n_acc[i * Gs:(i + 1) * Gs, j * Rs:(j + 1) * Rs].sum())
+        per.append(B)
+        if B == 0:
+            continue
+        _p, data, _cw, e = encode_values(torch, np, rs, code, B,
+                                         SEED + 23 + i * rsh + j,
+                                         f"{what} shard ({i},{j})")
+        shapes.add(tuple(data.shape))
+        err = max(err, e)
+    torch.cuda.synchronize()
+    launches = rs.bitslice_gf256.launches
+    if launches == 0:
+        fail(f"{what}: no shard launched bitslice_gf256")
+    log(f"{what}: per-shard proposals {per}; encode shapes "
+        f"{sorted(shapes)}, {launches} bitslice_gf256 launches, each "
+        f"bit-exact against the plain version")
+    return launches, err, sorted(shapes)
+
+
+def _mesh_serving_step(torch, card):
+    """(b) the serving step on a (2, 1) mesh against the unsharded step,
+    6 ticks of loopback: every state leaf and outbox lane equal."""
+    from summerset_tpu_torch.core import sharding as sl
+    from summerset_tpu_torch.core import telemetry
+    from summerset_tpu_torch.protocols import make_protocol
+    from summerset_tpu_torch.protocols.multipaxos import (
+        ReplicaConfigMultiPaxos,
+    )
+
+    sh = MESH_SERVE_SHAPE
+    G, R = sh["G"], sh["R"]
+    cfg = ReplicaConfigMultiPaxos(max_proposals_per_tick=1,
+                                  exec_follows_commit=False)
+    k = make_protocol("multipaxos", G, R, sh["W"], cfg, device=DEV)
+    mesh = sl.mesh_for(2, 1, [DEV] * 2, repeat=True)
+    step = sl.mesh_step(k, mesh)
+
+    def boot():
+        st = k.init_state(seed=0)
+        telemetry.attach(st, G, R, DEV)
+        return st
+
+    def loop(out):
+        return {n: (v if n in k.broadcast_lanes else v.transpose(1, 2))
+                for n, v in out.items()}
+
+    su, ss = boot(), sl.shard_pytree(mesh, boot())
+    out_u, out_s = k.zero_outbox(), k.zero_outbox()
+    with torch.inference_mode():
+        for t in range(MESH_STEP_TICKS):
+            inputs = {
+                "n_proposals": torch.full((G,), 1, dtype=torch.int32,
+                                          device=DEV),
+                "value_base": torch.full((G,), 1 + t, dtype=torch.int32,
+                                         device=DEV),
+                "exec_floor": torch.full((G, R), 1 << 30, dtype=torch.int32,
+                                         device=DEV),
+            }
+            su, out_u, _ = k.step(su, loop(out_u), inputs)
+            ss, out_s, _ = step(ss, loop(out_s), inputs)
+            full = ss.gather()
+            for n in su:
+                if not torch.equal(su[n], full[n]):
+                    fail(f"serving mesh: tick {t} state {n!r} differs")
+            for n in out_u:
+                if not torch.equal(out_u[n], out_s[n]):
+                    fail(f"serving mesh: tick {t} outbox {n!r} differs")
+    if int(su["commit_bar"].max()) <= 0:
+        fail("serving mesh: nothing committed")
+    log(f"serving step on a 2x1 mesh at {G}x{R}: {MESH_STEP_TICKS} loopback "
+        f"ticks, every state leaf and outbox lane equal the unsharded step "
+        f"(commit_bar max {int(su['commit_bar'].max())})")
+
+
+def _mesh_cluster(torch, card):
+    """(b) a live 3-replica MultiPaxos cluster whose replicas each shard
+    their state over a 2x1 mesh on the card: puts from ``MESH_CLIENTS``
+    clients at once, every key read back, each replica's state on 2
+    shards, no replica fault."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from summerset_tpu_torch.client.drivers import DriverClosedLoop
+    from summerset_tpu_torch.client.endpoint import GenericEndpoint
+    from summerset_tpu_torch.cluster import Cluster
+    from summerset_tpu_torch.core import sharding as sl
+
+    sh = MESH_SERVE_SHAPE
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cluster = Cluster(
+            "MultiPaxos", 3, d, num_groups=sh["G"], window=sh["W"],
+            device=DEV, config={"device_mesh": "2x1",
+                                "mesh_devices": f"{DEV},{DEV}"})
+        try:
+            up = time.perf_counter() - t0
+
+            def client(c):
+                ep = GenericEndpoint(cluster.manager_addr)
+                ep.connect()
+                drv = DriverClosedLoop(ep, timeout=10.0)
+                keys = range(c, MESH_SERVE_PUTS, MESH_CLIENTS)
+                bad = [f"put {i}: {r.kind}" for i in keys
+                       for r in [drv.put(f"mesh-k{i}", f"v{i}")]
+                       if r.kind != "success"]
+                bad += [f"key {i} read back {r}" for i in keys
+                        for r in [drv.get(f"mesh-k{i}")]
+                        if r.kind != "success" or r.result.value != f"v{i}"]
+                ep.leave()
+                return bad
+
+            with ThreadPoolExecutor(MESH_CLIENTS) as pool:
+                bad = sum(pool.map(client, range(MESH_CLIENTS)), [])
+            if bad:
+                fail(f"mesh cluster: {bad}")
+            for rid, rep in cluster.replicas.items():
+                st = rep.state
+                if not isinstance(st, sl.Sharded) or len(st.shards) != 2:
+                    fail(f"mesh cluster: replica {rid} state is not on 2 "
+                         "shards")
+            if cluster.faults():
+                fail(f"mesh cluster: replica faults {cluster.faults()}")
+        finally:
+            cluster.stop()
+    log(f"mesh cluster: 3 MultiPaxos replicas at {sh['G']} groups, each on "
+        f"a 2x1 mesh on the card (bring-up {up:.1f} s): {MESH_SERVE_PUTS} "
+        f"puts from {MESH_CLIENTS} clients acked and read back, every "
+        f"replica's state on 2 shards "
+        f"({time.perf_counter() - t0:.1f} s) | {card}")
+
+
+def _mesh_profile(torch, card):
+    """(c) the profiling plane on the card: ``build_profile`` (the 3x2
+    canonical cells, the g-sweep, the mesh and tally sweeps on repeated
+    handles of the card); its analytic counts must equal the committed
+    ``cuda`` block of ``summerset_tpu_torch/PROFILE.json``."""
+    import summerset_tpu_torch
+    from summerset_tpu_torch.host import profiling as prof
+
+    path = os.path.join(os.path.dirname(summerset_tpu_torch.__file__),
+                        "PROFILE.json")
+    backend = torch.device(DEV).type
+    with open(path) as f:
+        committed_doc = (json.load(f).get("backends") or {}).get(backend)
+    if committed_doc is None:
+        fail(f"the committed PROFILE.json has no {backend} block")
+    doc = prof.build_profile(ticks=MESH_PROFILE_TICKS,
+                             reps=MESH_PROFILE_REPS, with_overhead=False,
+                             tally_trace=False,
+                             sweep_ticks=MESH_PROFILE_SWEEP_TICKS,
+                             device=DEV, log=log)
+    got, want = prof.analytic_view(doc), prof.analytic_view(committed_doc)
+    if got != want:
+        for part in sorted(set(got) | set(want)):
+            if got.get(part) != want.get(part):
+                fail(f"profile: the card's analytic {part!r} differs from "
+                     f"the committed {backend} block:\n  card: "
+                     f"{json.dumps(got.get(part), sort_keys=True)[:2000]}\n"
+                     f"  committed: "
+                     f"{json.dumps(want.get(part), sort_keys=True)[:2000]}")
+    bad = [p["mesh"] for p in doc["mesh_sweep"]["points"] if not p["ok"]]
+    bad += [f"{p['protocol']}@{p['mesh']}[{p['tally']}]"
+            for p in doc["tally_sweep"]["points"] if not p["ok"]]
+    if bad:
+        fail(f"profile: points without progress or off their shards: {bad}")
+    for line in prof.phase_table_markdown(doc).splitlines():
+        log("  " + line)
+    log(f"profile: the analytic counts equal the committed {backend} block "
+        f"(torch {torch.__version__}) | {card}")
+
+
+def phase_mesh(torch, np, card):
+    from summerset_tpu_torch.ops import rscoding as rs
+    from summerset_tpu_torch.protocols.multipaxos import (
+        ReplicaConfigMultiPaxos,
+    )
+    from summerset_tpu_torch.protocols.rspaxos import ReplicaConfigRSPaxos
+
+    log("== phase 23: the mesh and the profiler")
+    t0 = time.perf_counter()
+    lines = []
+    for sh, spec in ((MESH_MP_SHAPE, "4x1"), (MESH_MP4_SHAPE, "2x2")):
+        cfg = ReplicaConfigMultiPaxos(
+            max_proposals_per_tick=sh["P"], chunk_size=2 * sh["P"],
+            exec_follows_commit=False)
+        lines.append(_mesh_engine_check(torch, "multipaxos", cfg, sh, spec,
+                                        card)[0])
+    sh = MESH_RS_SHAPE
+    cfg = ReplicaConfigRSPaxos(
+        max_proposals_per_tick=sh["P"], chunk_size=2 * sh["P"],
+        exec_follows_commit=False, fault_tolerance=0)
+    rs_line, _full, fx, mesh = _mesh_engine_check(torch, "rspaxos", cfg, sh,
+                                                  "2x2", card)
+    lines.append(rs_line)
+    launches, err, shapes = _mesh_rs_encode(torch, np, rs, sh, fx, mesh,
+                                            "mesh rspaxos 2x2")
+    t_a = time.perf_counter()
+    _mesh_serving_step(torch, card)
+    _mesh_cluster(torch, card)
+    t_b = time.perf_counter()
+    _mesh_profile(torch, card)
+    t_c = time.perf_counter()
+    print(json.dumps({"mesh": {
+        "engine": lines, "encode_shapes": [list(s) for s in shapes],
+        "launches": launches, "card": card,
+        "seconds": {"engine": round(t_a - t0, 1),
+                    "serving": round(t_b - t_a, 1),
+                    "profile": round(t_c - t_b, 1)}}}), flush=True)
+    return {"launches": launches, "max_abs_err": err}
+
+
 def main():
     import torch
 
@@ -5468,7 +5748,8 @@ def main():
     log(f"bitslice_gf256 launches in phase 11 (no codeword plane): "
         f"{rs.bitslice_gf256.launches}")
     mp, _raft = timed(12, phase_serving, torch, np, card)
-    serving = timed(13, phase_codeword_serving, torch, np, card, mp)
+    with _serve_groups(min(NARROW_SERVE_G, SERVE_SHAPE["G"])):
+        serving = timed(13, phase_codeword_serving, torch, np, card, mp)
     paths["serving"] = serving
     rs.bitslice_gf256.launches = 0
     timed(14, phase_lease_serving, torch, np, card)
@@ -5486,6 +5767,8 @@ def main():
     paths["nemesis"] = timed(21, phase_nemesis, torch, np, card)
     rs.bitslice_gf256.launches = 0
     paths["ingress"] = timed(22, phase_ingress, torch, np, card)
+    rs.bitslice_gf256.launches = 0
+    paths["mesh"] = timed(23, phase_mesh, torch, np, card)
     log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
     total = round(time.perf_counter() - t_start, 1)

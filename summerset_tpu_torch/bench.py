@@ -22,7 +22,14 @@ all groups.  Shapes come from the environment as in ``bench.py``:
 (10M committed slots/s), kept for format parity; it is not a comparison
 with any TPU reading.  Without a card the run raises unless ``--device
 cpu`` is given (no fallback); the CPU line says ``"backend": "cpu"``.
-The sharded mesh is not ported: ``--mesh`` (or ``BENCH_MESH``) is refused.
+
+``--mesh GxR`` (or ``BENCH_MESH``) shards the groups (and the replica
+rows) over a ``(group, replica)`` mesh (``core/sharding.py``) of the
+visible cards, or of the devices ``--mesh-devices`` lists (which may
+repeat one card); with ``--device cpu`` the mesh is made of repeated CPU
+handles.  A mesh the visible cards cannot hold fails; there is no CPU
+fallback.  The line then carries ``mesh_stamp``'s block under ``mesh``
+and the bytes that crossed between shards per tick.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .core import Engine
+from .core import sharding as shardlib
 from .device import resolve_device
 from .protocols import make_protocol
 from .protocols.multipaxos import ReplicaConfigMultiPaxos
@@ -57,7 +65,8 @@ def shape_from_env() -> Dict[str, int]:
     }
 
 
-def make_engine(shape: Dict[str, int], tally: str, device) -> Engine:
+def make_engine(shape: Dict[str, int], tally: str, device,
+                mesh=None) -> Engine:
     """The bench's engine: ``bench.py:193-198``'s kernel config."""
     P = shape["proposals_per_tick"]
     cfg = ReplicaConfigMultiPaxos(
@@ -67,7 +76,7 @@ def make_engine(shape: Dict[str, int], tally: str, device) -> Engine:
     kernel = make_protocol("multipaxos", shape["groups"],
                            shape["population"], shape["window"], cfg,
                            device=device)
-    return Engine(kernel, device=device)
+    return Engine(kernel, device=device, mesh=mesh)
 
 
 def committed(state) -> int:
@@ -76,17 +85,32 @@ def committed(state) -> int:
     return int(state["commit_bar"].amax(dim=1).sum())
 
 
+def bench_mesh(spec: str, device, devices=None):
+    """The bench's mesh for ``spec`` (``"GxR"``): over ``devices`` if
+    given (repeats allowed), repeated CPU handles on the CPU, else the
+    visible cards (too few fail)."""
+    gs, rs = shardlib.parse_mesh(spec)
+    if devices is None and torch.device(device).type == "cpu":
+        devices = ["cpu"] * (gs * rs)
+    return shardlib.mesh_for(gs, rs, devices, repeat=devices is not None)
+
+
 def measure(shape: Dict[str, int], tally: str = "pairwise",
-            device=None) -> List[Dict[str, float]]:
+            device=None, mesh=None) -> List[Dict[str, float]]:
     """One warm-up window, then ``runs`` timed windows of ``ticks`` ticks;
-    returns each timed window's committed slots and seconds."""
+    returns each timed window's committed slots, seconds and the bytes
+    moved between mesh shards."""
     dev = resolve_device(device)
-    eng = make_engine(shape, tally, dev)
+    eng = make_engine(shape, tally, dev, mesh)
     T, P = shape["ticks"], shape["proposals_per_tick"]
+
+    devs = ({str(d) for d in mesh.devices.flat} if mesh is not None
+            else {str(dev)})
 
     def sync():
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            for d in devs:
+                torch.cuda.synchronize(d)
 
     with torch.inference_mode():
         state, ns = eng.init()
@@ -95,11 +119,13 @@ def measure(shape: Dict[str, int], tally: str = "pairwise",
         out = []
         for _ in range(shape["runs"]):
             start = committed(state)
+            moved = eng.xfer["bytes"]
             t0 = time.perf_counter()
             state, ns = eng.run_synthetic(state, ns, T, P)
             sync()
             dt = time.perf_counter() - t0
-            out.append({"slots": committed(state) - start, "secs": dt})
+            out.append({"slots": committed(state) - start, "secs": dt,
+                        "xfer_bytes": eng.xfer["bytes"] - moved})
     return out
 
 
@@ -124,22 +150,27 @@ def main(argv=None) -> int:
                     help="torch device (default: the card; 'cpu' runs on "
                          "the CPU)")
     ap.add_argument("--mesh", default=os.environ.get("BENCH_MESH", ""),
-                    help="refused: the sharded mesh is not ported")
+                    help="GxR (group_shards x replica_shards) device mesh; "
+                         "empty = one device")
+    ap.add_argument("--mesh-devices", default=None,
+                    help="comma-separated mesh devices (may repeat one, "
+                         "e.g. cuda:0,cuda:0); default the visible cards")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the sharded mesh is not ported to summerset_tpu_torch "
-            "yet (ROADMAP.md, Queue 1 item 12: the multi-GPU mesh)"
-        )
     dev = resolve_device(args.device)
     shape = shape_from_env()
-    wins = measure(shape, args.tally, dev)
+    mesh = None
+    if args.mesh:
+        mesh = bench_mesh(args.mesh, dev,
+                          shardlib.mesh_devices(args.mesh_devices))
+    wins = measure(shape, args.tally, dev, mesh)
     rate = max(w["slots"] / w["secs"] for w in wins)
     backend = dev.type
     doc = {
         "metric": (
             f"committed slots/sec, MultiPaxos {shape['population']}-replica"
-            f" x {shape['groups']} groups, 1 card ({backend})"
+            f" x {shape['groups']} groups, "
+            + (f"mesh {mesh.spec} ({backend})" if mesh is not None
+               else f"1 card ({backend})")
         ),
         "value": round(rate, 1),
         "unit": "slots/sec",
@@ -152,6 +183,11 @@ def main(argv=None) -> int:
         "windows": [{"slots": w["slots"], "secs": round(w["secs"], 6)}
                     for w in wins],
     }
+    if mesh is not None:
+        gs, rs = mesh.shape["group"], mesh.shape["replica"]
+        doc["mesh"] = dict(shardlib.mesh_stamp(gs, rs, shape["groups"]),
+                           device_list=[str(d) for d in mesh.devices.flat])
+        doc["xfer_bytes_per_tick"] = wins[-1]["xfer_bytes"] / shape["ticks"]
     print(json.dumps(doc), flush=True)
     return 0 if doc["ok"] else 1
 

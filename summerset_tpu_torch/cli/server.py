@@ -1,7 +1,9 @@
 """summerset_server analog of the port (reference
 summerset_server/src/main.rs); the flags of ``summerset_tpu/cli/server.py``
 plus ``--device`` (default ``cuda``: with no card the replica refuses to
-start unless ``--device cpu`` is given).
+start unless ``--device cpu`` is given).  A ``device_mesh="GxR"`` config
+shards the replica's state over the visible cards, or over repeated CPU
+handles with ``--device cpu`` (``mesh_devices`` lists them explicitly).
 
 Config strings use ``a=1+b='x'`` with ``+`` -> newline (TOML).  The
 replica runs in a crash-restart loop: ``run()`` returning True (a reset)
@@ -54,6 +56,16 @@ def main(argv=None) -> None:
         if args.config
         else {}
     )
+
+    mesh_spec = str(cfg.get("device_mesh", "") or "")
+    if mesh_spec and device.type == "cpu" and not cfg.get("mesh_devices"):
+        # a CPU replica's mesh is made of repeated CPU handles, the
+        # counterpart of the JAX CLI's virtual CPU devices; a card's
+        # mesh takes the visible cards unless mesh_devices lists them
+        from ..core.sharding import parse_mesh
+
+        gs, rs = parse_mesh(mesh_spec)
+        cfg["mesh_devices"] = ",".join(["cpu"] * (gs * rs))
 
     from ..host.server import DEFAULT_BACKER_DIR, ServerReplica
 

@@ -1,6 +1,6 @@
 """The batched lockstep engine: protocol SPI, telemetry lanes, quorum
-tally, network model and tick engine (counterpart of
-``summerset_tpu/core``; the mesh sharding module is not ported yet)."""
+tally, network model, tick engine and the device mesh (``sharding``),
+counterpart of ``summerset_tpu/core``."""
 
 from .protocol import ProtocolKernel, StepEffects
 from .netmodel import NetConfig, NetModel, ControlInputs

@@ -9,17 +9,25 @@ tick and their per-replica effects read zero.  Durable crash semantics:
 a ``reset`` mask rebuilds the masked rows from only the kernel's declared
 durable leaves at the start of the tick (``reset_durable_rows``).
 
-The sharded mesh of the JAX engine is not ported yet (ROADMAP, Queue 1):
-``mesh=`` is refused.
+Mesh mode (``mesh=``, ``core/sharding.py``): ``init()`` builds the full
+boot state once and places a fresh copy of each shard's slice on its
+device; every tick steps each shard's kernel (``ProtocolKernel.shard``:
+its groups and replica rows) on its own slice, with the netmodel's
+delivery between the shards (``sharding.exchange``).  State and netstate
+travel as ``sharding.Sharded``; effects come back whole, equal to a
+mesh-less run.  There is no buffer donation to mirror: a step never
+updates a tensor in place.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..device import resolve_device
+from . import sharding as shardlib
 from . import telemetry
 from .netmodel import ControlInputs, NetConfig, NetModel
 from .protocol import ProtocolKernel, StepEffects
@@ -44,11 +52,6 @@ class Engine:
         mesh: Optional[Any] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded mesh engine is not ported to summerset_tpu_torch "
-                "yet (ROADMAP.md, Queue 1: the multi-GPU mesh)"
-            )
         self.device = resolve_device(device)
         if kernel.device != self.device:
             raise ValueError(
@@ -79,23 +82,93 @@ class Engine:
         # to; also the initial state init() hands out (nothing updates a
         # state tensor in place, so sharing it is safe)
         self._boot = self.kernel.init_state(seed)
+        # mesh mode: geometry the mesh cannot split is refused here with
+        # the axis named; each shard gets its kernel, netmodel and boot
+        self.mesh = mesh
+        self.xfer = {"bytes": 0}
+        if mesh is not None:
+            if not isinstance(mesh, shardlib.Mesh):
+                raise TypeError("mesh must be a core.sharding.Mesh, got "
+                                f"{type(mesh).__name__}")
+            shardlib.check_mesh(mesh, kernel.G, kernel.R)
+            self._mesh_setup()
 
-    def init(self) -> Tuple[State, State]:
+    def _mesh_setup(self) -> None:
+        mesh, ker = self.mesh, self.kernel
+        gs, rs = mesh.shape["group"], mesh.shape["replica"]
+        Gs, Rs = ker.G // gs, ker.R // rs
+        # a net init plans the lane packing the shard models copy
+        self.net.init_netstate(ker.zero_outbox(), self.seed)
+        boot = shardlib.shard_pytree(mesh, self._boot)
+        self._cells = []
+        for c, (i, j, dev) in enumerate(mesh.cells()):
+            self._cells.append({
+                "i": i, "j": j, "device": dev,
+                "kernel": ker.shard(Gs, j * Rs, Rs, dev),
+                "net": self.net.shard(Gs, Rs, dev),
+                "boot": boot.shards[c],
+            })
+        self._codes = dict(shardlib.INPUT_CODES,
+                           **dict(ker.EXTRA_INPUTS or ()))
+
+    def init(self):
         state = dict(self._boot)
         telemetry.attach(state, self.kernel.G, self.kernel.R, self.device)
         netstate = self.net.init_netstate(self.kernel.zero_outbox(),
                                           self.seed)
+        if self.mesh is not None:
+            # fresh copies on the shards: the boot template stays intact
+            return (shardlib.shard_pytree(self.mesh, state),
+                    shardlib.shard_netstate(self.mesh, netstate))
         return state, netstate
 
     def _to_device(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in inputs.items()}
 
-    def tick(self, state: State, netstate: State, inputs: Dict[str, Any]
-             ) -> Tuple[State, State, StepEffects]:
+    def tick(self, state, netstate, inputs: Dict[str, Any]):
         """One lockstep tick."""
+        if self.mesh is not None:
+            return self._mesh_tick(state, netstate, self._to_device(inputs))
         return _tick(self.kernel, self.net, self._boot, state, netstate,
                      self._to_device(inputs))
+
+    def _mesh_tick(self, state, netstate, inputs):
+        """One tick over the mesh: per shard the device reset and the
+        dequeue, the exchange between shards, then per shard the receive,
+        the step on its rows, the freeze and the enqueue."""
+        mesh = self.mesh
+        cells = self._cells
+        ins, pre = [], []
+        for c, cell in enumerate(cells):
+            inp = shardlib.slice_inputs(mesh, inputs, cell["i"], cell["j"],
+                                        self._codes)
+            ctrl = _ctrl(inp)
+            st = state.shards[c]
+            if ctrl.reset is not None:
+                st = reset_durable_rows(cell["kernel"], st, ctrl.reset,
+                                        cell["boot"])
+            ns, raw = cell["net"].dequeue(netstate.shards[c])
+            ins.append((inp, ctrl))
+            pre.append((st, ns, raw))
+        raws = shardlib.exchange(mesh, [p[2] for p in pre],
+                                 self.net.broadcast_lanes,
+                                 scope=self.net._lane_scope,
+                                 counter=self.xfer)
+        inboxes = [cell["net"].deliver(raws[c], ins[c][1])
+                   for c, cell in enumerate(cells)]
+        sts, nss, fxs = [], [], []
+        for c, cell in enumerate(cells):
+            inp, ctrl = ins[c]
+            st, ns = pre[c][0], pre[c][1]
+            stepped = cell["kernel"].step(st, inboxes[c], inp)
+            st, ns, fx = _tick_post(cell["net"], st, ns, ctrl, stepped)
+            sts.append(st)
+            nss.append(ns)
+            fxs.append(fx)
+        return (shardlib.Sharded(mesh, sts, state.specs),
+                shardlib.Sharded(mesh, nss, netstate.specs),
+                _gather_effects(mesh, fxs))
 
     def run_ticks(self, state: State, netstate: State,
                   inputs_seq: Dict[str, Any], collect: bool = False):
@@ -105,11 +178,11 @@ class Engine:
         seq = self._to_device(inputs_seq)
         T = next(iter(seq.values())).shape[0]
         fxs = []
+        step = (self._mesh_tick if self.mesh is not None else
+                partial(_tick, self.kernel, self.net, self._boot))
         for t in range(T):
-            state, netstate, fx = _tick(
-                self.kernel, self.net, self._boot, state, netstate,
-                {k: v[t] for k, v in seq.items()},
-            )
+            state, netstate, fx = step(state, netstate,
+                                       {k: v[t] for k, v in seq.items()})
             if collect:
                 fxs.append(fx)
         return state, netstate, (_stack_effects(fxs) if collect else None)
@@ -124,6 +197,8 @@ class Engine:
         n_prop = torch.full((G,), proposals_per_tick, dtype=torch.int32,
                             device=dev)
         floor = torch.full((G, R), 1 << 30, dtype=torch.int32, device=dev)
+        step = (self._mesh_tick if self.mesh is not None else
+                partial(_tick, self.kernel, self.net, self._boot))
         for t in range(num_ticks):
             inputs = {
                 "n_proposals": n_prop,
@@ -131,8 +206,7 @@ class Engine:
                                          dtype=torch.int32, device=dev),
                 "exec_floor": floor,
             }
-            state, netstate, _ = _tick(self.kernel, self.net, self._boot,
-                                       state, netstate, inputs)
+            state, netstate, _ = step(state, netstate, inputs)
         return state, netstate
 
 
@@ -175,17 +249,29 @@ def reset_durable_rows(kernel: ProtocolKernel, state: State,
                              reset)
 
 
+def _ctrl(inputs: Dict[str, Any]) -> ControlInputs:
+    return ControlInputs(alive=inputs.get("alive"),
+                         link_up=inputs.get("link_up"),
+                         reset=inputs.get("reset"))
+
+
 def _tick(kernel: ProtocolKernel, net: NetModel, boot: State, state: State,
           netstate: State, inputs: Dict[str, Any]
           ) -> Tuple[State, State, StepEffects]:
-    ctrl = ControlInputs(
-        alive=inputs.get("alive"), link_up=inputs.get("link_up"),
-        reset=inputs.get("reset"),
-    )
+    ctrl = _ctrl(inputs)
     if ctrl.reset is not None:
         state = reset_durable_rows(kernel, state, ctrl.reset, boot)
     netstate, inbox = net.pop(netstate, ctrl)
-    new_state, outbox, fx = kernel.step(state, inbox, inputs)
+    return _tick_post(net, state, netstate, ctrl,
+                      kernel.step(state, inbox, inputs))
+
+
+def _tick_post(net: NetModel, state: State, netstate: State,
+               ctrl: ControlInputs, stepped
+               ) -> Tuple[State, State, StepEffects]:
+    """The rest of a tick after the step: the pause freeze and the
+    enqueue of the outbox."""
+    new_state, outbox, fx = stepped
     if ctrl.alive is not None:
         # freeze paused replicas: every state leaf leads with [G, R]
         alive = ctrl.alive
@@ -215,3 +301,17 @@ def _tick(kernel: ProtocolKernel, net: NetModel, boot: State, state: State,
     else:
         netstate = net.push(netstate, outbox, ctrl)
     return new_state, netstate, fx
+
+
+def _gather_effects(mesh, fxs) -> StepEffects:
+    """A tick's effects whole from its shards' (every leaf leads with
+    ``[G, R]``)."""
+
+    def whole(parts):
+        return shardlib.gather_leaf(mesh, parts, shardlib._leaf_spec(parts[0]))
+
+    return StepEffects(
+        commit_bar=whole([f.commit_bar for f in fxs]),
+        exec_bar=whole([f.exec_bar for f in fxs]),
+        extra={k: whole([f.extra[k] for f in fxs]) for k in fxs[0].extra},
+    )

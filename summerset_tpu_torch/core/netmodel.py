@@ -15,6 +15,7 @@ and every slot of the delay line is selected with a one-hot mask or
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from typing import Any, Optional, Tuple
 
@@ -144,6 +145,19 @@ class NetModel:
         self.device = resolve_device(device)
         self._pack_pair: tuple = ()
         self._pack_bcast: tuple = ()
+        # the sender rows this model's buffers hold (a mesh shard's row
+        # window; all R otherwise)
+        self.rows = population
+
+    def shard(self, num_groups: int, rows: int, device) -> "NetModel":
+        """The model of one mesh shard: ``num_groups`` groups, sender rows
+        ``rows`` wide, on ``device``, with this model's lane packing (a
+        shard never plans its own: its lanes are narrower)."""
+        m = copy.copy(self)
+        m.G = int(num_groups)
+        m.rows = int(rows)
+        m.device = resolve_device(device)
+        return m
 
     def _lane_scope(self, key: str):
         if key in self.tally_lanes:
@@ -226,6 +240,14 @@ class NetModel:
     def pop(self, netstate, ctrl: Optional[ControlInputs] = None
             ) -> Tuple[Any, Any]:
         """Dequeue the messages due this tick, oriented for receivers."""
+        netstate, raw = self.dequeue(netstate)
+        return netstate, self.deliver(raw, ctrl)
+
+    def dequeue(self, netstate) -> Tuple[Any, Any]:
+        """The lanes due this tick as sent (``[G, R_src, ...]``, packed
+        lanes ``[L, G, R_src, ...]``) and the netstate with their slot
+        freed.  On a mesh the sender shard dequeues and
+        ``sharding.exchange`` moves the lanes to their receivers."""
         D = self.cfg.max_delay_ticks
         cursor = netstate["cursor"]
         bufs = netstate["bufs"]
@@ -249,7 +271,11 @@ class NetModel:
                     # scalar 0 would widen a bool lane to int64)
                     nbufs[k] = b.masked_fill(oh, 0)
             bufs = nbufs
+        return dict(netstate, bufs=bufs), raw
 
+    def deliver(self, raw, ctrl: Optional[ControlInputs] = None):
+        """Receiver-side half of ``pop``: mask the flags of paused
+        receivers and orient pair lanes ``[G, R_dst, R_src]``."""
         # receiver-side mask: a replica paused now receives nothing
         flags = raw["flags"]
         if ctrl is not None and ctrl.alive is not None:
@@ -272,7 +298,7 @@ class NetModel:
                     inbox[k] = (
                         v if k in self.broadcast_lanes else v.transpose(1, 2)
                     )
-        return dict(netstate, bufs=bufs), inbox
+        return inbox
 
     def push(self, netstate, outbox, ctrl: Optional[ControlInputs] = None,
              telem: Optional[torch.Tensor] = None):
@@ -325,7 +351,7 @@ class NetModel:
         else:
             # jitter per (group, source), not per link, so a source's
             # broadcast lanes land in the same slot as its pair records
-            delay = torch.full((self.G, self.R), cfg.delay_ticks,
+            delay = torch.full((self.G, self.rows), cfg.delay_ticks,
                                dtype=torch.int32, device=rng.device)
             if cfg.jitter_ticks > 0:
                 rng_nxt, extra = prng.uniform_int(

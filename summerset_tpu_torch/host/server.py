@@ -168,6 +168,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ..core import sharding as shardlib
 from ..core import telemetry as dev_telemetry
 from ..device import resolve_device
 from ..ops.rscoding import RSCode
@@ -347,12 +348,24 @@ class ServerReplica:
         # ticks between automatic snapshots (taken only once something
         # applied since the last one); 0 = only on a take_snapshot ctrl
         self.snapshot_interval = int(cfg.pop("snapshot_interval", 0))
-        if str(cfg.pop("device_mesh", "") or ""):
-            raise NotImplementedError(
-                "device_mesh: the sharded mesh is not ported to "
-                "summerset_tpu_torch yet (ROADMAP.md, Queue 1: the "
-                "multi-GPU mesh)"
-            )
+        # "GxR" shards the [G, R, ...] device state over a (group,
+        # replica) mesh (core/sharding.py); "" = one device.  The mesh's
+        # devices are the visible cards unless ``mesh_devices`` lists
+        # them, which may repeat one (several shards on one card, or
+        # CPU handles)
+        self.device_mesh = str(cfg.pop("device_mesh", "") or "")
+        self.mesh_devices = shardlib.mesh_devices(
+            cfg.pop("mesh_devices", None))
+        self._mesh = None
+        if self.device_mesh:
+            # refused here, before the replica joins anything: too few
+            # devices, or groups the mesh cannot split (the replica axis
+            # is checked once the population is known)
+            gs, rs = shardlib.parse_mesh(self.device_mesh)
+            self._mesh = shardlib.mesh_for(
+                gs, rs, self.mesh_devices,
+                repeat=self.mesh_devices is not None)
+            shardlib.check_mesh(self._mesh, self.G, None)
         # pipelined tick loop: the device step is dispatched and drained
         # at its first consumer, and the WAL group-commit fsync runs on
         # the logger thread behind the durability fence; False is the
@@ -507,6 +520,11 @@ class ServerReplica:
         self._demote_supported = (
             "demote" in {n for n, _ in self.kernel.EXTRA_INPUTS}
         )
+        # the serving step: on the mesh, whose replica axis must split
+        # the population (axis-named errors)
+        self._step = self.kernel.step
+        if self._mesh is not None:
+            self._step = shardlib.mesh_step(self.kernel, self._mesh)
         self.state = self.kernel.init_state(seed=0)
         # device metric lanes ride the state, on its device
         dev_telemetry.attach(self.state, self.G, self.population)
@@ -607,6 +625,10 @@ class ServerReplica:
         self._recover_from_snapshot()
         self._bringup_step("snapshot_load", t)
         self._recover_from_wal()
+        if self._mesh is not None:
+            # the recovered state goes onto the serving mesh, a fresh
+            # copy per shard
+            self.state = shardlib.shard_pytree(self._mesh, self.state)
         self.flight.record(
             "restart", cold=self._cold_boot, wal_size=self.wal.size,
             applied=int(sum(self.applied)),
@@ -2498,7 +2520,7 @@ class ServerReplica:
         in-flight register (it holds every tensor the step reads until
         its event completes)."""
         with self._on_stream(), torch.inference_mode():
-            new_state, new_out, fx = self.kernel.step(
+            new_state, new_out, fx = self._step(
                 self.state, inbox, inputs
             )
             host = self._prefetch_async(new_state, new_out, fx)
@@ -2513,7 +2535,8 @@ class ServerReplica:
         pinned buffers (allocated once per leaf and shape; two sets used
         in turn so a copy never lands under a view still in use), with
         one event recorded behind them.  On the CPU the views are the
-        tensors' own memory and there is nothing to prefetch."""
+        tensors' own memory and there is nothing to prefetch.  On a mesh
+        each leaf is gathered from its shards first."""
         if self._stream is None:
             return {
                 "state": {k: new_state[k].numpy()
@@ -2539,8 +2562,15 @@ class ServerReplica:
         # only that row crosses; the drain views it at the full shape
         rows = ({k: tuple(new_state[k].shape) for k in self._prefetch_keys
                  if k in _EP_ROW_KEYS} if self._epaxos else {})
+        if isinstance(new_state, shardlib.Sharded):
+            # on a mesh the row leaves come from the shards holding row
+            # ``me``; the rest are gathered whole
+            row = new_state.row
+        else:
+            def row(k, r):
+                return new_state[k][:, r]
         host = {
-            "state": {k: copy("s:" + k, new_state[k][:, me] if k in rows
+            "state": {k: copy("s:" + k, row(k, me) if k in rows
                               else new_state[k])
                       for k in self._prefetch_keys},
             "rows": rows,

@@ -27,6 +27,11 @@ def protocol_names():
     return sorted(_REGISTRY)
 
 
+def protocol_display_name(name: str) -> str:
+    """The registered (cased) protocol name for a lowered registry key."""
+    return _REGISTRY[name.lower()].name
+
+
 def make_protocol(name: str, *args, **kwargs) -> ProtocolKernel:
     """Factory dispatch; ``device=`` (default ``"cuda"``) is passed through
     to the kernel."""

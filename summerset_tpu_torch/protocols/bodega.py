@@ -132,20 +132,20 @@ class BodegaKernel(MultiPaxosKernel):
         )
 
     def _extra_outbox(self, out):
-        G, R, K = self.G, self.R, self.config.num_key_buckets
-        pair = lambda: self.zeros(G, R, R)  # noqa: E731
+        G, Rr, R, K = self.G, self.rows, self.R, self.config.num_key_buckets
+        pair = lambda: self.zeros(G, Rr, R)  # noqa: E731
         out.update(
             cf_bal=pair(), cf_leader=pair(),
-            cf_resp=self.zeros(G, R, K),
+            cf_resp=self.zeros(G, Rr, K),
             gr_len=pair(), gr_bal=pair(), gr_abar=pair(),
             rv_bal=pair(), rvr_bal=pair(),
-            bw_noop=self.zeros(G, R, self.W, dtype=torch.bool),
+            bw_noop=self.zeros(G, Rr, self.W, dtype=torch.bool),
         )
 
     # ------------------------------------------------- conf + lease ingest
     def _ingest_heartbeat(self, s, c):
         cfg = self.config
-        G, R = self.G, self.R
+        G, Rr, R = self.G, self.rows, self.R
         inbox = c.inbox
         flags = c.flags
         eye = self._eye
@@ -237,13 +237,13 @@ class BodegaKernel(MultiPaxosKernel):
         # replica + targets
         if c.inputs.get("conf_init") is not None:
             def per_row(name):
-                return c.inputs[name].to(torch.int32)[:, None].expand(G, R)
+                return c.inputs[name].to(torch.int32)[:, None].expand(G, Rr)
 
             init = per_row("conf_init")
             lead_t = per_row("conf_leader_target")
             resp_t = per_row("conf_resp_target")
             if c.inputs.get("conf_bucket") is None:
-                bucket_t = self.full((G, R), -1)
+                bucket_t = self.full((G, Rr), -1)
             else:
                 bucket_t = per_row("conf_bucket")
             want = (init == c.rid) & (s["pend_bal"] <= s["conf_bal"])
@@ -295,8 +295,8 @@ class BodegaKernel(MultiPaxosKernel):
         s["win_noop"] = torch.where(m_acc, lane, s["win_noop"])
 
     def _on_adopt(self, s, c, adopt, best_src):
-        G, R, W = self.G, self.R, self.W
-        lane = c.inbox["bw_noop"][:, None, :, :].expand(G, R, R, W)
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        lane = c.inbox["bw_noop"][:, None, :, :].expand(G, Rr, R, W)
         best = torch.gather(lane, 2, best_src.to(torch.int64))[:, :, 0, :]
         s["win_noop"] = torch.where(adopt, best, s["win_noop"])
 

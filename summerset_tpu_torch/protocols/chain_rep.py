@@ -64,13 +64,16 @@ class ChainRepKernel(ProtocolKernel):
         if self.config.max_proposals_per_tick > window // 2:
             raise ValueError("max_proposals_per_tick must be <= window/2")
         self._chunk = min(self.config.chunk_size, window)
-        G, R, dev = self.G, self.R, self.device
-        self._rid = arange32(R, dev)[None, :].expand(G, R)
+        self._build_consts()
+
+    def _build_consts(self) -> None:
+        G, Rr, R, dev = self.G, self.rows, self.R, self.device
+        self._rid = self.row_ids()[None, :].expand(G, Rr)
         dst = arange32(R, dev)[None, None, :]
         rid = self._rid[..., None]
-        # [G, R, R_dst] one-hot of each node's successor / predecessor
-        self._succ = (dst == rid + 1).expand(G, R, R)
-        self._pred = (dst == rid - 1).expand(G, R, R)
+        # [G, rows, R_dst] one-hot of each node's successor / predecessor
+        self._succ = (dst == rid + 1).expand(G, Rr, R)
+        self._pred = (dst == rid - 1).expand(G, Rr, R)
 
     def init_state(self, seed: int = 0):
         G, R, W = self.G, self.R, self.W
@@ -88,14 +91,14 @@ class ChainRepKernel(ProtocolKernel):
         }
 
     def zero_outbox(self):
-        G, R, W = self.G, self.R, self.W
-        pair = lambda: self.zeros(G, R, R)  # noqa: E731
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        pair = lambda: self.zeros(G, Rr, R)  # noqa: E731
         return {
             "flags": pair(),
             "pp_lo": pair(), "pp_hi": pair(),
             "ak_f": pair(), "ak_cbar": pair(),
-            "bw_abs": self.zeros(G, R, W),
-            "bw_val": self.zeros(G, R, W),
+            "bw_abs": self.zeros(G, Rr, W),
+            "bw_val": self.zeros(G, Rr, W),
         }
 
     PHASES: Tuple[Tuple[str, str], ...] = (

@@ -151,7 +151,9 @@ def dst_onehot(src, R: int):
     return arange32(R, src.device)[None, None, :] == src[..., None]
 
 
-def not_self(G: int, R: int, device):
-    """[G, R_src, R_dst] mask: True off-diagonal (no self-sends)."""
-    eye = torch.eye(R, dtype=torch.bool, device=device)
-    return (~eye)[None, :, :].expand(G, R, R)
+def not_self(G: int, R: int, device, row0: int = 0, rows: int = None):
+    """[G, R_src, R_dst] mask: True off-diagonal (no self-sends); with a
+    row window, the sources ``row0 : row0 + rows`` only."""
+    rows = R if rows is None else rows
+    eye = torch.eye(R, dtype=torch.bool, device=device)[row0:row0 + rows]
+    return (~eye)[None, :, :].expand(G, rows, R)

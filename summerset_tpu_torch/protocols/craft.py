@@ -75,13 +75,13 @@ class CRaftKernel(RaftKernel):
         )
 
     def _extra_outbox(self, out):
-        G, R, W = self.G, self.R, self.W
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
         out.update(
-            rq_lo=self.zeros(G, R, R),
-            rq_hi=self.zeros(G, R, R),
-            rr_hi=self.zeros(G, R, R),
-            rr_fhi=self.zeros(G, R, R),
-            bw_full=self.zeros(G, R, W, dtype=torch.bool),
+            rq_lo=self.zeros(G, Rr, R),
+            rq_hi=self.zeros(G, Rr, R),
+            rr_hi=self.zeros(G, Rr, R),
+            rr_fhi=self.zeros(G, Rr, R),
+            bw_full=self.zeros(G, Rr, W, dtype=torch.bool),
         )
 
     # ---------------------------------------------------- mode-bit plumbing

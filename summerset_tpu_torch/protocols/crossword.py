@@ -104,7 +104,7 @@ class CrosswordKernel(RSPaxosKernel):
 
     def _extra_outbox(self, out):
         super()._extra_outbox(out)
-        out["bw_spr"] = self.zeros(self.G, self.R, self.W)
+        out["bw_spr"] = self.zeros(self.G, self.rows, self.W)
 
     # --------------------------------------------------- accept-side additions
     def _on_accept_write(self, s, c, m_acc, a_src):
@@ -154,7 +154,7 @@ class CrosswordKernel(RSPaxosKernel):
             ).sum(dim=2, dtype=torch.int32)
             choice = torch.clamp(d - (resp - 1 - f) * dj, self.init_spr, d)
         else:
-            choice = self.full((self.G, self.R), self.init_spr)
+            choice = self.full((self.G, self.rows), self.init_spr)
         # the host's perf models may override the choice per group
         if "spr_override" in c.inputs:
             ov = c.inputs["spr_override"].to(torch.int32)[:, None]  # [G, 1]

@@ -136,11 +136,17 @@ class EPaxosKernel(ProtocolKernel):
             half + -(-half // 2) if self.config.optimized_quorum else 2 * half
         )
         self.super_q = max(self.simple_q, min(self.super_q, population))
-        G, R, dev = self.G, self.R, self.device
-        # per-kernel constants, built once on the device
-        self._rid = arange32(R, dev)[None, :].expand(G, R)
-        self._eye = torch.eye(R, dtype=torch.bool, device=dev)[None]
+        self._build_consts()
+
+    def _build_consts(self) -> None:
+        # per-kernel constants, built once on the device.  Rr: the stepped
+        # (own) rows; R: replica ids of peers and of instance-space rows
+        G, Rr, R, dev = self.G, self.rows, self.R, self.device
+        self._rid = self.row_ids()[None, :].expand(G, Rr)
+        self._eye = self.row_eye()               # own row vs peer
+        self._eye_full = torch.eye(R, dtype=torch.bool, device=dev)[None]
         self._ar = arange32(R, dev)
+        self._lar = arange32(Rr, dev)            # own-row positions
         self._gar = torch.arange(G, device=dev)
 
     # ------------------------------------------------------------------ init
@@ -187,32 +193,33 @@ class EPaxosKernel(ProtocolKernel):
     def zero_outbox(self):
         # the key order is the JAX kernel's: the netmodel takes its packed
         # broadcast-stack shape from the first 3-D int32 broadcast lane
-        G, R, W, K = self.G, self.R, self.W, self.config.num_key_buckets
+        G, Rr, R, W, K = (self.G, self.rows, self.R, self.W,
+                          self.config.num_key_buckets)
         z = self.zeros
-        wl = lambda: z(G, R, W)  # noqa: E731
-        wb = lambda: z(G, R, W, dtype=torch.bool)  # noqa: E731
-        pair = lambda: z(G, R, R)  # noqa: E731
+        wl = lambda: z(G, Rr, W)  # noqa: E731
+        wb = lambda: z(G, Rr, W, dtype=torch.bool)  # noqa: E731
+        pair = lambda: z(G, Rr, R)  # noqa: E731
         return {
-            "flags": z(G, R, R),
-            "rp_abar": z(G, R, R),
-            "rp_abase": z(G, R, R),
-            "rp_pbar": z(G, R, R),
+            "flags": z(G, Rr, R),
+            "rp_abar": z(G, Rr, R),
+            "rp_abase": z(G, Rr, R),
+            "rp_pbar": z(G, Rr, R),
             "erp_row": pair(), "erp_bal": pair(), "erp_ext": pair(),
-            "ow_abs": self.full((G, R, W), -1),
+            "ow_abs": self.full((G, Rr, W), -1),
             "ow_phase": wl(), "ow_bal": wl(), "ow_seq": wl(), "ow_val": wl(),
-            "ow_noop": wb(), "ow_deps": z(G, R, W, R),
-            "tb_col": z(G, R, K, R),
-            "tb_seq": z(G, R, K, R),
-            "sb": z(G, R, R),
-            "ro_row": self.full((G, R), -1), "ro_bal": z(G, R),
-            "ro_abs": self.full((G, R, W), -1),
+            "ow_noop": wb(), "ow_deps": z(G, Rr, W, R),
+            "tb_col": z(G, Rr, K, R),
+            "tb_seq": z(G, Rr, K, R),
+            "sb": z(G, Rr, R),
+            "ro_row": self.full((G, Rr), -1), "ro_bal": z(G, Rr),
+            "ro_abs": self.full((G, Rr, W), -1),
             "ro_phase": wl(), "ro_seq": wl(), "ro_val": wl(),
-            "ro_noop": wb(), "ro_deps": z(G, R, W, R),
-            "rv_row": self.full((G, R), -1), "rv_bal": z(G, R),
-            "rv_abs": self.full((G, R, W), -1),
+            "ro_noop": wb(), "ro_deps": z(G, Rr, W, R),
+            "rv_row": self.full((G, Rr), -1), "rv_bal": z(G, Rr),
+            "rv_abs": self.full((G, Rr, W), -1),
             "rv_st": wl(), "rv_vbal": wl(), "rv_seq": wl(), "rv_val": wl(),
-            "rv_noop": wb(), "rv_deps": z(G, R, W, R),
-            "rv_bump": wb(), "rv_cmt": z(G, R),
+            "rv_noop": wb(), "rv_deps": z(G, Rr, W, R),
+            "rv_bump": wb(), "rv_cmt": z(G, Rr),
         }
 
     # ------------------------------------------------------------- helpers
@@ -222,7 +229,7 @@ class EPaxosKernel(ProtocolKernel):
 
     def _row_slice(self, s, key, row):
         """Gather s[key][g, r, row[g, r]] -> [G, R, W(, R)]."""
-        return s[key][self._gar[:, None], self._ar[None, :].long(),
+        return s[key][self._gar[:, None], self._lar[None, :].long(),
                       row.long()]
 
     def _own_scatter(self, s, c, key, lane):
@@ -405,11 +412,11 @@ class EPaxosKernel(ProtocolKernel):
 
     # ========== own-row preaccept/accept/commit stream ingestion
     def _ingest_own_streams(self, s, c):
-        G, R, W = self.G, self.R, self.W
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
         inbox = c.inbox
         beacon = ((c.flags & BEACON) != 0) & ~c.eye  # [G, R, src(=row)]
 
-        bshape = (G, R, R, W)
+        bshape = (G, Rr, R, W)
 
         def lane(name, extra=()):
             return inbox[name][:, None].expand(bshape + extra)
@@ -429,7 +436,7 @@ class EPaxosKernel(ProtocolKernel):
         first_gap = torch.where(gap, abs_w, INF).amin(dim=3)
         s["seen_bar"] = _clip(first_gap, s["seen_bar"], s["seen_bar"] + W)
         # extent: max of my frontier and peers' reported frontiers
-        sb_peers = inbox["sb"][:, None].expand(G, R, R, R)
+        sb_peers = inbox["sb"][:, None].expand(G, Rr, R, R)
         sb_max = torch.where(beacon[..., None], sb_peers, 0).amax(dim=2)
         s["ext_row"] = torch.maximum(
             torch.maximum(s["ext_row"], s["seen_bar"]), sb_max
@@ -437,7 +444,8 @@ class EPaxosKernel(ProtocolKernel):
 
     # ========== command-leader decisions on own row (fast/slow/commit)
     def _leader_decide(self, s, c):
-        G, R, W, K = self.G, self.R, self.W, self.config.num_key_buckets
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        K = self.config.num_key_buckets
         inbox = c.inbox
         rid = c.rid
         beacon = ((c.flags & BEACON) != 0) & ~c.eye
@@ -529,14 +537,14 @@ class EPaxosKernel(ProtocolKernel):
             s,
             (slow & ~self._row_slice(s, "noop2", rid))[:, :, None, :]
             & own_sel,
-            abs_o[:, :, None, :].expand(G, R, R, W),
-            bucket[:, :, None, :].expand(G, R, R, W),
-            new_seq[:, :, None, :].expand(G, R, R, W),
+            abs_o[:, :, None, :].expand(G, Rr, R, W),
+            bucket[:, :, None, :].expand(G, Rr, R, W),
+            new_seq[:, :, None, :].expand(G, Rr, R, W),
         )
 
     # ========== recovery control: volunteer, campaign, decide, drive
     def _recovery_control(self, s, c):
-        G, R = self.G, self.R
+        G, Rr, R = self.G, self.rows, self.R
         inbox = c.inbox
         rid = c.rid
         dead = (s["alive_cnt"] <= 0) & ~c.eye  # [G, R, peer]
@@ -544,9 +552,9 @@ class EPaxosKernel(ProtocolKernel):
         # volunteer for the nearest dead ring-predecessor whose in-between
         # predecessors are all dead too (deterministic, collision-free
         # among live replicas)
-        vol_tgt = self.full((G, R), -1)
-        taken = self.zeros(G, R, dtype=torch.bool)
-        chain = torch.ones((G, R), dtype=torch.bool, device=self.device)
+        vol_tgt = self.full((G, Rr), -1)
+        taken = self.zeros(G, Rr, dtype=torch.bool)
+        chain = torch.ones((G, Rr), dtype=torch.bool, device=self.device)
         for k in range(1, R):
             cand = torch.remainder(rid - k, R)
             cand_dead = _pick(dead, cand)
@@ -605,8 +613,8 @@ class EPaxosKernel(ProtocolKernel):
 
         # tally this tick's RV responses to my campaign
         rv_on = (c.flags & RV) != 0
-        rv_row_in = inbox["rv_row"][:, None].expand(G, R, R)
-        rv_bal_in = inbox["rv_bal"][:, None].expand(G, R, R)
+        rv_row_in = inbox["rv_row"][:, None].expand(G, Rr, R)
+        rv_bal_in = inbox["rv_bal"][:, None].expand(G, Rr, R)
         rv_mine = (
             rv_on
             & (rv_row_in == tgt[..., None])
@@ -619,18 +627,19 @@ class EPaxosKernel(ProtocolKernel):
 
     # ========== proposals (every replica is a command leader)
     def _propose(self, s, c):
-        G, R, W, K = self.G, self.R, self.W, self.config.num_key_buckets
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        K = self.config.num_key_buckets
         rid = c.rid
-        n_prop = c.inputs["n_proposals"][:, None].to(I32).expand(G, R)
+        n_prop = c.inputs["n_proposals"][:, None].to(I32).expand(G, Rr)
         # host-serving mode: ``prop_replica`` [G] names the ONE replica
         # proposing this tick, and value ids are used verbatim; without it
         # (device bench mode) the count splits across all command leaders
         # with rid-interleaved ids
         pr = c.inputs.get("prop_replica")
         if pr is None:
-            pr2 = self.full((G, R), -1)
+            pr2 = self.full((G, Rr), -1)
         else:
-            pr2 = pr[:, None].to(I32).expand(G, R)
+            pr2 = pr[:, None].to(I32).expand(G, Rr)
         host_mode = pr2 >= 0
         share = torch.where(
             host_mode,
@@ -646,7 +655,7 @@ class EPaxosKernel(ProtocolKernel):
             # never propose past the vid list's width: an out-of-range
             # gather would duplicate the last vid across distinct instances
             n_new = torch.clamp(n_new, max=pv.shape[1])
-        vbase = c.inputs["value_base"][:, None].to(I32).expand(G, R)
+        vbase = c.inputs["value_base"][:, None].to(I32).expand(G, Rr)
         m_new, abs_new = range_cover(s["own_next"], s["own_next"] + n_new, W)
         off = abs_new - s["own_next"][..., None]
         # distinct value ids across replicas: interleave by rid; in host
@@ -654,7 +663,7 @@ class EPaxosKernel(ProtocolKernel):
         # may be supplied, minted in per-bucket residue classes
         if pv is not None:
             pmax = pv.shape[1]
-            pvb = pv[:, None, :].to(I32).expand(G, R, pmax)
+            pvb = pv[:, None, :].to(I32).expand(G, Rr, pmax)
             host_vals = torch.gather(
                 pvb, 2, torch.clamp(off, 0, pmax - 1).long()
             )
@@ -691,7 +700,7 @@ class EPaxosKernel(ProtocolKernel):
                 deps0,
             )
 
-        dlane = self._default_bal(rid)[..., None].expand(G, R, W)
+        dlane = self._default_bal(rid)[..., None].expand(G, Rr, W)
         for key, lane in (
             ("abs2", torch.where(m_new, abs_new,
                                  self._row_slice(s, "abs2", rid))),
@@ -720,9 +729,9 @@ class EPaxosKernel(ProtocolKernel):
         self._bump_tables(
             s,
             m_new[:, :, None, :] & own_sel3[..., None],
-            abs_new[:, :, None, :].expand(G, R, R, W),
-            bucket[:, :, None, :].expand(G, R, R, W),
-            seq0[:, :, None, :].expand(G, R, R, W),
+            abs_new[:, :, None, :].expand(G, Rr, R, W),
+            bucket[:, :, None, :].expand(G, Rr, R, W),
+            seq0[:, :, None, :].expand(G, Rr, R, W),
         )
         c.n_new = n_new
 
@@ -745,10 +754,10 @@ class EPaxosKernel(ProtocolKernel):
             s["exec_bar"] = s["exec_row"].sum(dim=2, dtype=I32)
             return
         gar = self._gar[:, None, None]
-        rar = self._ar[None, :, None].long()
+        rar = self._lar[None, :, None].long()
         rowar = self._ar[None, None, :].long()
         ar = self._ar
-        no_self = ~self._eye[None]
+        no_self = ~self._eye_full[None]
         # the (seq, row) order of the cycle break
         row_less = ar[None, None, :, None] < ar[None, None, None, :]
         # R passes per tick: a row-cycle of m rows drains one instance per
@@ -801,10 +810,10 @@ class EPaxosKernel(ProtocolKernel):
         return t - 1 - torch.remainder(t - 1 - p, W)
 
     def _build_outbox(self, s, c):
-        G, R, W = self.G, self.R, self.W
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
         out = self.zero_outbox()
         rid = c.rid
-        ns_mask = (~c.eye).expand(G, R, R)
+        ns_mask = (~c.eye).expand(G, Rr, R)
         oflags = flag_bits(ns_mask, BEACON)
 
         # own-row stream straight from the 2-D log
@@ -922,7 +931,8 @@ class EPaxosKernel(ProtocolKernel):
 
     # ========== recovery decision ladder (recoverer side)
     def _recovery_apply(self, s, c):
-        G, R, W, K = self.G, self.R, self.W, self.config.num_key_buckets
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        K = self.config.num_key_buckets
         inbox = c.inbox
         tgt = c.rec_tgt
         tgt_c = torch.clamp(tgt, min=0)
@@ -933,7 +943,7 @@ class EPaxosKernel(ProtocolKernel):
         my_ring = self._ring_abs(tgt_ext)        # [G, R, W]
 
         def rin(name, extra=()):
-            return inbox[name][:, None].expand((G, R, R, W) + extra)
+            return inbox[name][:, None].expand((G, Rr, R, W) + extra)
 
         align = (
             rv_mine[..., None]
@@ -950,7 +960,7 @@ class EPaxosKernel(ProtocolKernel):
         # highest committed frontier any responder reports for the row:
         # columns below it are committed SOMEWHERE even if every visible
         # window slid past them
-        rv_cmt_in = inbox["rv_cmt"][:, None].expand(G, R, R)
+        rv_cmt_in = inbox["rv_cmt"][:, None].expand(G, Rr, R)
         resp_cmt = torch.where(rv_mine, rv_cmt_in, 0).amax(dim=2)
 
         own_st = self._row_slice(s, "st2", tgt_c)
@@ -977,7 +987,7 @@ class EPaxosKernel(ProtocolKernel):
 
         def from_src_d(lane, ownl, src, use_own):
             # lane [G, R, src, W, R]; src [G, R, W]
-            idx = src[:, :, None, :, None].long().expand(G, R, 1, W, R)
+            idx = src[:, :, None, :, None].long().expand(G, Rr, 1, W, R)
             got = torch.gather(lane, 2, idx)[:, :, 0]
             return torch.where(use_own[..., None], ownl, got)
 
@@ -1122,7 +1132,7 @@ class EPaxosKernel(ProtocolKernel):
         }
         # own-row live span: columns minted but not yet executed on this
         # replica's own proposal row
-        exec_own = torch.diagonal(s["exec_row"], dim1=1, dim2=2)
+        exec_own = _pick(s["exec_row"], c.rid)
         tel["win_occupancy_hw"] = torch.clamp(
             s["own_next"] - exec_own, 0, self.window
         )
@@ -1130,8 +1140,8 @@ class EPaxosKernel(ProtocolKernel):
 
     # ------------------------------------------------------------- effects
     def _effects(self, s, c):
-        G, R = self.G, self.R
-        zero = self.zeros(G, R, R, R, dtype=torch.bool)
+        G, Rr, R = self.G, self.rows, self.R
+        zero = self.zeros(G, Rr, R, R, dtype=torch.bool)
         return StepEffects(
             commit_bar=s["commit_bar"],
             exec_bar=s["exec_bar"],

@@ -197,11 +197,15 @@ class MultiPaxosKernel(ProtocolKernel):
                 "must outlive its own promise before campaigning)"
             )
         self._chunk = min(self.config.chunk_size, window)
-        G, R, dev = self.G, self.R, self.device
-        # per-kernel constants, built once on the device
-        self._rid = arange32(R, dev)[None, :].expand(G, R)
-        self._ns_mask = not_self(G, R, dev)
-        self._eye = torch.eye(R, dtype=torch.bool, device=dev)[None]
+        self._build_consts()
+
+    def _build_consts(self) -> None:
+        # per-kernel constants, built once on the device (rows: the
+        # stepped replica rows, R: the peers)
+        G, Rr, R, dev = self.G, self.rows, self.R, self.device
+        self._rid = self.row_ids()[None, :].expand(G, Rr)
+        self._ns_mask = not_self(G, R, dev, self.row0, Rr)
+        self._eye = self.row_eye()
         self._src_bits = torch.bitwise_left_shift(
             torch.ones(R, dtype=torch.int32, device=dev), arange32(R, dev)
         )
@@ -282,10 +286,10 @@ class MultiPaxosKernel(ProtocolKernel):
 
     # ---------------------------------------------------------------- outbox
     def zero_outbox(self):
-        G, R, W = self.G, self.R, self.W
-        pair = lambda: self.zeros(G, R, R)  # noqa: E731
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        pair = lambda: self.zeros(G, Rr, R)  # noqa: E731
         tlane = (
-            (lambda: self.zeros(G, R)) if self.collective_tally else pair
+            (lambda: self.zeros(G, Rr)) if self.collective_tally else pair
         )
         out = {
             "flags": pair(),
@@ -297,9 +301,9 @@ class MultiPaxosKernel(ProtocolKernel):
             "prp_bal": pair(), "prp_trigger": pair(),
             "prr_bal": pair(), "prr_hi": pair(),
             "snp_bal": pair(), "snp_to": pair(),
-            "bw_abs": self.zeros(G, R, W),
-            "bw_bal": self.zeros(G, R, W),
-            "bw_val": self.zeros(G, R, W),
+            "bw_abs": self.zeros(G, Rr, W),
+            "bw_bal": self.zeros(G, Rr, W),
+            "bw_val": self.zeros(G, Rr, W),
         }
         self._extra_outbox(out)
         return out
@@ -372,7 +376,7 @@ class MultiPaxosKernel(ProtocolKernel):
     def _vote_gate(self, s, c, p_bal, p_src):
         """Hook: extra veto on granting a Prepare promise."""
         if not getattr(self.config, "leader_leases", False):
-            return torch.ones((self.G, self.R), dtype=torch.bool,
+            return torch.ones((self.G, self.rows), dtype=torch.bool,
                               device=self.device)
         return (s["ll_left"] <= 0) | (p_src == s["leader"])
 
@@ -623,7 +627,7 @@ class MultiPaxosKernel(ProtocolKernel):
     def _campaign_gate(self, s, c):
         """Hook: extra veto on starting a campaign."""
         if not getattr(self.config, "leader_leases", False):
-            return torch.ones((self.G, self.R), dtype=torch.bool,
+            return torch.ones((self.G, self.rows), dtype=torch.bool,
                               device=self.device)
         return s["ll_left"] <= 0
 
@@ -793,7 +797,7 @@ class MultiPaxosKernel(ProtocolKernel):
 
     def _commit_cap(self, s, c, peer_f):
         """Hook: extra cap on the commit frontier."""
-        return self.full((self.G, self.R), I32_MAX)
+        return self.full((self.G, self.rows), I32_MAX)
 
     def _extra_sends(self, s, c, out, oflags):
         """Hook: subclass message sends; returns updated oflags."""
@@ -806,7 +810,7 @@ class MultiPaxosKernel(ProtocolKernel):
         ns_mask = self._ns_mask
         active_leader = c.active_leader
         out = {}
-        oflags = self.zeros(self.G, R, R)
+        oflags = self.zeros(self.G, self.rows, R)
 
         # ACCEPT streams: per-peer go-back-N with retry rewind
         stale = (

@@ -114,12 +114,12 @@ class QuorumLeasesKernel(MultiPaxosKernel):
         )
 
     def _extra_outbox(self, out):
-        G, R, W = self.G, self.R, self.W
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
         out.update(
-            gr_len=self.zeros(G, R, R),
-            gr_slot=self.zeros(G, R, R),
-            gs_bits=self.zeros(G, R, R),
-            bw_cfg=self.zeros(G, R, W, dtype=torch.bool),
+            gr_len=self.zeros(G, Rr, R),
+            gr_slot=self.zeros(G, Rr, R),
+            gs_bits=self.zeros(G, Rr, R),
+            bw_cfg=self.zeros(G, Rr, W, dtype=torch.bool),
         )
 
     # ------------------------------------------------------ lane plumbing
@@ -128,8 +128,8 @@ class QuorumLeasesKernel(MultiPaxosKernel):
         s["win_cfg"] = torch.where(m_acc, lane_cfg, s["win_cfg"])
 
     def _on_adopt(self, s, c, adopt, best_src):
-        G, R, W = self.G, self.R, self.W
-        lane_cfg = c.inbox["bw_cfg"][:, None, :, :].expand(G, R, R, W)
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        lane_cfg = c.inbox["bw_cfg"][:, None, :, :].expand(G, Rr, R, W)
         best_cfg = torch.gather(lane_cfg, 2, best_src.to(torch.int64))[
             :, :, 0, :]
         s["win_cfg"] = torch.where(adopt, best_cfg, s["win_cfg"])
@@ -168,14 +168,14 @@ class QuorumLeasesKernel(MultiPaxosKernel):
 
     def _vote_gate(self, s, c, p_bal, p_src):
         if not self.config.enable_leader_leases:
-            return torch.ones((self.G, self.R), dtype=torch.bool,
+            return torch.ones((self.G, self.rows), dtype=torch.bool,
                               device=self.device)
         # refuse challengers while our promise to the current leader runs
         return (s["ll_left"] <= 0) | (p_src == s["leader"])
 
     def _campaign_gate(self, s, c):
         if not self.config.enable_leader_leases:
-            return torch.ones((self.G, self.R), dtype=torch.bool,
+            return torch.ones((self.G, self.rows), dtype=torch.bool,
                               device=self.device)
         return s["ll_left"] <= 0
 
@@ -194,7 +194,7 @@ class QuorumLeasesKernel(MultiPaxosKernel):
 
     # ------------------------------------------------------- conf changes
     def _leader_propose(self, s, c):
-        G, R = self.G, self.R
+        G, Rr = self.G, self.rows
         i_am_leader = (s["bal_prepared"] == s["bal_max"]) & (
             s["bal_prepared"] > 0
         )
@@ -204,7 +204,7 @@ class QuorumLeasesKernel(MultiPaxosKernel):
         tgt = c.inputs.get("conf_target")
         if tgt is not None:
             self._propose_conf(s, c, active_leader,
-                               tgt.to(torch.int32)[:, None].expand(G, R))
+                               tgt.to(torch.int32)[:, None].expand(G, Rr))
         # (an absent target reads as -1 everywhere: no conf entry is due)
         super()._leader_propose(s, c)
         # fresh client proposals are data entries

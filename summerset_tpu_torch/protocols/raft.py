@@ -139,11 +139,15 @@ class RaftKernel(ProtocolKernel):
         if self.config.max_proposals_per_tick > window // 2:
             raise ValueError("max_proposals_per_tick must be <= window/2")
         self._chunk = min(self.config.chunk_size, window)
-        G, R, dev = self.G, self.R, self.device
-        # per-kernel constants, built once on the device
-        self._rid = arange32(R, dev)[None, :].expand(G, R)
-        self._ns_mask = not_self(G, R, dev)
-        self._eye = torch.eye(R, dtype=torch.bool, device=dev)[None]
+        self._build_consts()
+
+    def _build_consts(self) -> None:
+        # per-kernel constants, built once on the device (rows: the
+        # stepped replica rows, R: the peers)
+        G, Rr, R, dev = self.G, self.rows, self.R, self.device
+        self._rid = self.row_ids()[None, :].expand(G, Rr)
+        self._ns_mask = not_self(G, R, dev, self.row0, Rr)
+        self._eye = self.row_eye()
         self._src_bits = torch.bitwise_left_shift(
             torch.ones(R, dtype=torch.int32, device=dev), arange32(R, dev)
         )
@@ -203,10 +207,10 @@ class RaftKernel(ProtocolKernel):
 
     # ---------------------------------------------------------------- outbox
     def zero_outbox(self):
-        G, R, W = self.G, self.R, self.W
-        pair = lambda: self.zeros(G, R, R)  # noqa: E731
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        pair = lambda: self.zeros(G, Rr, R)  # noqa: E731
         tlane = (
-            (lambda: self.zeros(G, R)) if self.collective_tally else pair
+            (lambda: self.zeros(G, Rr)) if self.collective_tally else pair
         )
         out = {
             "flags": pair(),
@@ -217,9 +221,9 @@ class RaftKernel(ProtocolKernel):
             "rv_term": pair(), "rv_lidx": pair(), "rv_lterm": pair(),
             "vr_term": pair(),
             "snp_term": pair(), "snp_to": pair(), "snp_lterm": pair(),
-            "bw_abs": self.zeros(G, R, W),
-            "bw_term": self.zeros(G, R, W),
-            "bw_val": self.zeros(G, R, W),
+            "bw_abs": self.zeros(G, Rr, W),
+            "bw_term": self.zeros(G, Rr, W),
+            "bw_val": self.zeros(G, Rr, W),
         }
         self._extra_outbox(out)
         return out
@@ -621,12 +625,12 @@ class RaftKernel(ProtocolKernel):
 
     # ========== 9. build outbox
     def _build_outbox(self, s, c):
-        G, R, W = self.G, self.R, self.W
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
         cfg = self.config
         ns_mask = self._ns_mask
         lead = s["is_leader"]
         out = {}
-        oflags = self.zeros(G, R, R)
+        oflags = self.zeros(G, Rr, R)
 
         # AE streams: go-back-N with retry rewind
         stale = lead[..., None] & ns_mask & (s["next_idx"] > s["match_f"])
@@ -680,8 +684,8 @@ class RaftKernel(ProtocolKernel):
         snd_hi = torch.maximum(snd_hi, snd_lo)  # empty heartbeat: hi == lo
         # prev_log_term at lo-1 from the own window, per peer
         prev_ok_l, prev_t = _gather_slot(
-            s["win_abs"][:, :, None, :].expand(G, R, R, W),
-            s["win_term"][:, :, None, :].expand(G, R, R, W),
+            s["win_abs"][:, :, None, :].expand(G, Rr, R, W),
+            s["win_term"][:, :, None, :].expand(G, Rr, R, W),
             snd_lo - 1,
         )
         oflags = oflags | flag_bits(do_ae, AE)

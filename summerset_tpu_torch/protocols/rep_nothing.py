@@ -18,7 +18,6 @@ from .common import (
     NO_SLOT,
     advance_durability,
     advance_exec,
-    arange32,
     client_intake,
 )
 
@@ -51,8 +50,11 @@ class RepNothingKernel(ProtocolKernel):
         self.config = config or ReplicaConfigRepNothing()
         if self.config.max_proposals_per_tick > window:
             raise ValueError("max_proposals_per_tick must be <= window")
-        self._serving = arange32(self.R, self.device)[None, :].expand(
-            self.G, self.R) == 0
+        self._build_consts()
+
+    def _build_consts(self) -> None:
+        self._serving = self.row_ids()[None, :].expand(
+            self.G, self.rows) == 0
 
     def init_state(self, seed: int = 0):
         G, R, W = self.G, self.R, self.W
@@ -67,7 +69,7 @@ class RepNothingKernel(ProtocolKernel):
         }
 
     def zero_outbox(self):
-        return {"flags": self.zeros(self.G, self.R, self.R)}
+        return {"flags": self.zeros(self.G, self.rows, self.R)}
 
     PHASES: Tuple[Tuple[str, str], ...] = (
         ("intake", "_intake"),

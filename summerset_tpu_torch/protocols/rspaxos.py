@@ -80,13 +80,13 @@ class RSPaxosKernel(MultiPaxosKernel):
         )
 
     def _extra_outbox(self, out):
-        G, R = self.G, self.R
-        rq_shape = (G, R) if self.collective_tally else (G, R, R)
+        G, Rr, R = self.G, self.rows, self.R
+        rq_shape = (G, Rr) if self.collective_tally else (G, Rr, R)
         out.update(
             rq_bal=self.zeros(*rq_shape),
             rq_lo=self.zeros(*rq_shape),
             rq_hi=self.zeros(*rq_shape),
-            rr_hi=self.zeros(G, R, R),
+            rr_hi=self.zeros(G, Rr, R),
         )
 
     # ------------------------------------------------- accept-side additions

@@ -71,13 +71,18 @@ class SimplePushKernel(ProtocolKernel):
         self._chunk = min(self.config.chunk_size, window)
         deg = self.config.rep_degree
         self._degree = population - 1 if deg < 0 else min(deg, population - 1)
-        G, R, dev = self.G, self.R, self.device
-        self._rid = arange32(R, dev)[None, :].expand(G, R)
+        self._build_consts()
+
+    def _build_consts(self) -> None:
+        G, Rr, R, dev = self.G, self.rows, self.R, self.device
+        self._rid = self.row_ids()[None, :].expand(G, Rr)
         # pushed peer set: replicas 1..degree (fixed, as in the reference)
         self._pushed = (self._rid >= 1) & (self._rid <= self._degree)
-        # [G, R, R_dst]: destinations that are pushed peers / replica 0
-        self._dst_pushed = self._pushed[:, None, :].expand(G, R, R)
-        self._to_serving = (arange32(R, dev) == 0)[None, None, :]
+        # [G, rows, R_dst]: destinations that are pushed peers / replica 0
+        peer = arange32(R, dev)
+        self._dst_pushed = ((peer >= 1) & (peer <= self._degree))[
+            None, None, :].expand(G, Rr, R)
+        self._to_serving = (peer == 0)[None, None, :]
 
     def init_state(self, seed: int = 0):
         G, R, W = self.G, self.R, self.W
@@ -95,14 +100,14 @@ class SimplePushKernel(ProtocolKernel):
         }
 
     def zero_outbox(self):
-        G, R, W = self.G, self.R, self.W
-        pair = lambda: self.zeros(G, R, R)  # noqa: E731
+        G, Rr, R, W = self.G, self.rows, self.R, self.W
+        pair = lambda: self.zeros(G, Rr, R)  # noqa: E731
         return {
             "flags": pair(),
             "ps_lo": pair(), "ps_hi": pair(), "ps_cbar": pair(),
             "pr_f": pair(),
-            "bw_abs": self.zeros(G, R, W),
-            "bw_val": self.zeros(G, R, W),
+            "bw_abs": self.zeros(G, Rr, W),
+            "bw_val": self.zeros(G, Rr, W),
         }
 
     PHASES: Tuple[Tuple[str, str], ...] = (

@@ -6,8 +6,10 @@ the JAX engine, on the CPU.
   (exact: integer counts), for both tally transports;
 - ``python -m summerset_tpu_torch.bench --device cpu`` prints one JSON
   line with ``bench.py``'s keys and ``ok`` true;
-- a card requested without one raises (no fallback), and ``--mesh`` is
-  refused.
+- a card requested without one raises (no fallback); ``--mesh`` runs on
+  a mesh of repeated CPU handles with ``--device cpu`` (its committed
+  slots equal the mesh-less run's) and refuses only a geometry it cannot
+  split.
 """
 
 import json
@@ -93,9 +95,22 @@ def test_card_requested_without_one_raises(monkeypatch):
         bench.main(["--device", "cuda"])
 
 
-def test_mesh_is_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        bench.main(["--mesh", "2x1", "--device", "cpu"])
+def test_mesh_is_refused(monkeypatch, capsys):
+    """The mesh is accepted: ``--mesh 2x1`` on the CPU prints the bench's
+    line with the mesh stamp and the same committed slots per window as
+    the mesh-less run; only a geometry the mesh cannot split (R=5 rows
+    over 2 replica shards) is refused, naming the axis."""
+    for k, v in ENV.items():
+        monkeypatch.setenv(k, v)
+    assert bench.main(["--mesh", "2x1", "--device", "cpu"]) == 0
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert doc["ok"] is True and doc["backend"] == "cpu"
+    assert doc["mesh"]["mesh"] == "2x1"
+    assert doc["mesh"]["groups_per_device"] == SHAPE["groups"] // 2
+    assert doc["mesh"]["device_list"] == ["cpu", "cpu"]
+    assert doc["xfer_bytes_per_tick"] == 0
+    assert [w["slots"] for w in doc["windows"]] == [
+        w["slots"] for w in bench.measure(SHAPE, "pairwise", device="cpu")]
     monkeypatch.setenv("BENCH_MESH", "4x2")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="replica_shards=2"):
         bench.main(["--device", "cpu"])

@@ -1148,10 +1148,31 @@ def test_unserved_protocol_is_refused(tmp_path):
 
 
 def test_device_mesh_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """The serving mesh is accepted (a replica on a 2x1 mesh of repeated
+    CPU handles serves a put and a get, its state on two shards) and
+    refuses only a geometry it cannot split: one group over two group
+    shards, before the replica joins anything."""
+    with pytest.raises(ValueError, match="group_shards=2"):
         ServerReplica("MultiPaxos", ADDR, ADDR, ADDR,
-                      config={"device_mesh": "2x1"},
+                      config={"device_mesh": "2x1",
+                              "mesh_devices": "cpu,cpu"},
                       backer_dir=str(tmp_path), device="cpu")
+    cluster = Cluster("MultiPaxos", 1, str(tmp_path / "c"),
+                      config={"device_mesh": "2x1",
+                              "mesh_devices": "cpu,cpu"},
+                      num_groups=2, device="cpu")
+    try:
+        ep = GenericEndpoint(cluster.manager_addr)
+        ep.connect()
+        drv = DriverClosedLoop(ep, timeout=5.0)
+        assert drv.put("mesh", "on").kind == "success"
+        assert drv.get("mesh").result.value == "on"
+        ep.leave()
+        rep = cluster.replicas[0]
+        assert len(rep.state.shards) == 2
+        assert cluster.faults() == []
+    finally:
+        cluster.stop()
 
 
 def test_default_device_raises_without_card(tmp_path):

@@ -337,8 +337,14 @@ def test_lease_margin_refusal_and_unported_paths():
             netcfg=TNet(delay_ticks=1, max_delay_ticks=3), device="cpu")
     tk = tmake("multipaxos", G, R, W, TMP(max_proposals_per_tick=P),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the mesh is ported: a Mesh is accepted, anything else refused
+    from summerset_tpu_torch.core.sharding import mesh_for
+
+    with pytest.raises(TypeError, match="Mesh"):
         TEngine(tk, mesh=object(), device="cpu")
+    eng = TEngine(tk, mesh=mesh_for(2, 1, ["cpu"] * 2, repeat=True),
+                  device="cpu")
+    assert len(eng.init()[0].shards) == 2
     # every protocol of the JAX package is ported, EPaxos last
     for name in ("epaxos", "EPaxos"):
         k = tmake(name, G, R, W, device="cpu")

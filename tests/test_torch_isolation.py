@@ -63,7 +63,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "summerset_tpu_torch.bench",
               "summerset_tpu_torch.entry"):
         assert m in got["modules"]
-    for m in SERVING_MODULES:
+    for m in SERVING_MODULES + MESH_MODULES:
         assert m in got["modules"]
 
 
@@ -95,6 +95,20 @@ print(json.dumps(bad))
 
 @pytest.mark.parametrize("module", SERVING_MODULES)
 def test_serving_module_alone_imports_no_jax(module):
+    proc = _run(["-c", _ALONE, module])
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+#: the mesh and the profiling plane (each keeps its own copy of what it
+#: needs from the JAX package, e.g. ``parse_mesh``)
+MESH_MODULES = tuple("summerset_tpu_torch." + m for m in (
+    "core.sharding", "host.profiling", "profile_run", "perf_gate",
+))
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_and_profiling_module_alone_imports_no_jax(module):
     proc = _run(["-c", _ALONE, module])
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
