@@ -314,11 +314,28 @@ WAL, and a phase with no injected fault fails on any demoted leader
              card (the 3x2 canonical cells at 8-tick windows, the g-sweep,
              the mesh and tally sweeps): its analytic counts equal the
              committed ``cuda`` block of ``summerset_tpu_torch/PROFILE.json``,
-             the phase table printed.  One ``mesh`` JSON line.
+             the phase table printed; the kernel's time beside its
+             bound at each per-shard encode shape.  One ``mesh`` JSON
+             line.
+24. analysis — the analysis plane and the explorer on the card: (a)
+             ``graftlint.run`` with all 11 kernels built on the card
+             (contract with C1 placement, taint, ranges, host lint): the
+             report equals the committed CPU baseline
+             ``summerset_tpu_torch/LINT.json``; (b) the ranges of
+             MultiPaxos and RSPaxos proven at R=5, W=128, P=32 (traced
+             at 2 groups), then MultiPaxos 4096x5 and RSPaxos 1024x5 for
+             64 ticks under phase 21's seed-11 plan with a running
+             per-leaf min / max and pair check on the device, read once:
+             every leaf inside its proven interval, every pair fact
+             holding (leaves, pairs, seconds); RSPaxos's last-tick values
+             encoded through ``bitslice_gf256`` (counted, held against
+             the plain version); (c) the exhaustive explorer, MultiPaxos
+             and RSPaxos at depth 3 on the card: rows equal to the CPU
+             rows.  One ``analysis`` JSON line.
 Every served replica of phases 12-14 and 17-20 must have opened the native
 WAL, and a phase with no injected fault fails on any demoted leader
 (phases 12-19 each log ``leader_demotions``).  Phases 4, 6, 7, 13, 19,
-20, 21, 22 and 23 each count their own kernel launches and fail on none;
+20, 21, 22, 23 and 24 each count their own kernel launches and fail on none;
 phases 8-12 and 14-18 run no codeword plane and launch no hand kernel.
 Every output line is stamped with the seconds since the start.
 
@@ -468,6 +485,22 @@ NEM_HOST_TICKS = 120       # (b): the soak's horizon in nemesis ticks
 NEM_TICK_LEN = 0.25        # wall seconds per nemesis tick
 NEM_CLIENTS = 3
 NEM_KEYS = ("nem0", "nem1", "nem2")
+# phase 24: the analysis plane and the explorer
+AN_TRACE_G = 2             # (b): the groups the ranges are proven at
+AN_TICKS = 64              # (b): ticks of phase 21's plan held to them
+AN_BUDGET_S = 45.0
+EXPLORE_DEPTH = 3
+#: (c): the explorer's rows on the CPU at depth 3 (the port's CPU rows,
+#: which tests/test_torch_model_check.py holds equal to both this table
+#: and models/explore.py's rows)
+EXPLORE_CPU_ROWS = {
+    "multipaxos": {"nodes_expanded": 399, "dedup_hits": 9,
+                   "max_committed_slots": 4, "violations": [],
+                   "range_leaves": 27, "range_pairs": 4},
+    "rspaxos": {"nodes_expanded": 399, "dedup_hits": 39,
+                "max_committed_slots": 4, "violations": [],
+                "range_leaves": 35, "range_pairs": 4},
+}
 NEM_RECOVERY_MAX_S = 20.0
 NEM_MIN_OPS = 20
 # a small ingress queue, so (c)'s burst sheds visibly
@@ -4062,7 +4095,11 @@ def _planes_scrapes(cluster, clients, what):
                 fail(f"{what}: replica {sid}'s slot trace {tr}")
         if snap["host"]["gauges"]["health_score"] != 1.0 or \
                 snap["host"]["counters"]["leader_demotions"]:
-            fail(f"{what}: replica {sid} scored unhealthy with no fault")
+            fail(f"{what}: replica {sid} scored unhealthy with no fault "
+                 f"(health_score {snap['host']['gauges']['health_score']}, "
+                 f"leader_demotions "
+                 f"{snap['host']['counters']['leader_demotions']}); health "
+                 f"{_health_report(cluster)}")
     ls = snaps[lead]
     if (ls["device"]["lanes"]["commits"] < 1
             or ls["host"]["counters"]["commits_applied_total"] < acked):
@@ -5474,19 +5511,20 @@ def _mesh_engine_check(torch, proto, cfg, sh, spec, card):
             "xfer_bytes_per_tick": xfer}, full, fx, mesh
 
 
-def _mesh_rs_encode(torch, np, rs, sh, fx, mesh, what):
+def _mesh_rs_encode(torch, np, rs, sh, fx, mesh, what, card):
     """Each mesh shard's codeword plane: the values the shard's rows
     proposed in the last tick (``n_accepted`` over its groups and rows,
     ``B = G/gs * P`` at its leaders) encoded on its device, each call
     held bit for bit against the plain version.  Returns the launches,
-    the max_abs_err and each distinct per-shard encode shape."""
+    the max_abs_err, each distinct per-shard encode shape and the
+    kernel's times there (``kernel_numbers``)."""
     code = rs.RSCode(sh["R"] // 2 + 1, sh["R"] - sh["R"] // 2 - 1,
                      device=DEV)
     n_acc = fx["n_accepted"].cpu()
     gs, rsh = mesh.shape["group"], mesh.shape["replica"]
     Gs, Rs = sh["G"] // gs, sh["R"] // rsh
     rs.bitslice_gf256.launches = 0
-    err, shapes, per = 0, set(), []
+    err, shapes, per = 0, {}, []
     for i, j, _dev in mesh.cells():
         B = int(n_acc[i * Gs:(i + 1) * Gs, j * Rs:(j + 1) * Rs].sum())
         per.append(B)
@@ -5495,7 +5533,7 @@ def _mesh_rs_encode(torch, np, rs, sh, fx, mesh, what):
         _p, data, _cw, e = encode_values(torch, np, rs, code, B,
                                          SEED + 23 + i * rsh + j,
                                          f"{what} shard ({i},{j})")
-        shapes.add(tuple(data.shape))
+        shapes.setdefault(tuple(data.shape), data)
         err = max(err, e)
     torch.cuda.synchronize()
     launches = rs.bitslice_gf256.launches
@@ -5504,7 +5542,14 @@ def _mesh_rs_encode(torch, np, rs, sh, fx, mesh, what):
     log(f"{what}: per-shard proposals {per}; encode shapes "
         f"{sorted(shapes)}, {launches} bitslice_gf256 launches, each "
         f"bit-exact against the plain version")
-    return launches, err, sorted(shapes)
+    # the kernel's time at each per-shard shape (these timing launches
+    # are not the path's: the count is restored after them)
+    times = {}
+    for shape in sorted(shapes):
+        times[shape] = kernel_numbers(torch, rs, code, shapes[shape],
+                                      card, f"{what} shard")
+    rs.bitslice_gf256.launches = launches
+    return launches, err, sorted(shapes), times
 
 
 def _mesh_serving_step(torch, card):
@@ -5682,8 +5727,8 @@ def phase_mesh(torch, np, card):
     rs_line, _full, fx, mesh = _mesh_engine_check(torch, "rspaxos", cfg, sh,
                                                   "2x2", card)
     lines.append(rs_line)
-    launches, err, shapes = _mesh_rs_encode(torch, np, rs, sh, fx, mesh,
-                                            "mesh rspaxos 2x2")
+    launches, err, shapes, times = _mesh_rs_encode(
+        torch, np, rs, sh, fx, mesh, "mesh rspaxos 2x2", card)
     t_a = time.perf_counter()
     _mesh_serving_step(torch, card)
     _mesh_cluster(torch, card)
@@ -5692,11 +5737,216 @@ def phase_mesh(torch, np, card):
     t_c = time.perf_counter()
     print(json.dumps({"mesh": {
         "engine": lines, "encode_shapes": [list(s) for s in shapes],
+        "encode_ms": [
+            {"shape": list(k), "ms": round(v["ms"], 4),
+             "plain_ms": round(v["plain_ms"], 4),
+             "bound_ms": round(v["bound_ms"], 4),
+             "share": round(v["bound_ms"] / v["ms"], 3)}
+            for k, v in sorted(times.items())],
         "launches": launches, "card": card,
         "seconds": {"engine": round(t_a - t0, 1),
                     "serving": round(t_b - t_a, 1),
                     "profile": round(t_c - t_b, 1)}}}), flush=True)
     return {"launches": launches, "max_abs_err": err}
+
+
+# ---------------------------------------------------- phase 24: analysis --
+def _an_plane(torch, card):
+    """(a) graftlint with every kernel built on the card: the report must
+    equal the committed CPU baseline ``summerset_tpu_torch/LINT.json``."""
+    from summerset_tpu_torch import graftlint
+
+    lines = []
+    out = graftlint.run(DEV, log=lines.append)
+    doc = out["doc"]
+    with open(graftlint.BASELINE) as f:
+        committed = json.load(f)
+    if doc != committed:
+        for line in lines:
+            log(line)
+        graftlint.print_drift(committed, doc, log=log)
+        fail("analysis (a): the report on the card differs from the "
+             "committed CPU baseline")
+    if not doc["summary"]["clean"]:
+        fail("analysis (a): findings on the card")
+    for line in lines:
+        if "contract" in line or "ranges" in line or "polarity" in line:
+            log(line.strip())
+    log(f"analysis (a): {doc['summary']['kernels_verified']} kernels, "
+        f"contract + ranges + taint + host lint on {DEV}: report == CPU "
+        f"baseline, {out['seconds']:.1f} s | {card}")
+    return round(out["seconds"], 1)
+
+
+def _logical(torch, leaf, t):
+    """A state leaf as int64 values in its logical dtype (the uint32
+    leaves the port holds as int32 bits read as uint32)."""
+    from summerset_tpu_torch.convert import UINT32_LEAVES
+
+    v = t.to(torch.int64)
+    return v & 0xFFFFFFFF if leaf in UINT32_LEAVES else v
+
+
+def _an_widths(torch, np, rs, card, proto, cfg, sh):
+    """(b) on one protocol: the ranges proven at the engine phases' R, W,
+    P (traced at ``AN_TRACE_G`` groups), then the full shape on the card
+    for ``AN_TICKS`` ticks under phase 21's seed-11 plan with a running
+    per-leaf min / max and pair check on the device, read once."""
+    from summerset_tpu_torch.analysis.ranges import analyze_kernel_ranges
+    from summerset_tpu_torch.host.nemesis import FaultPlan
+    from summerset_tpu_torch.protocols import make_protocol
+
+    what = f"analysis (b) {proto}"
+    t0 = time.perf_counter()
+    ra = analyze_kernel_ranges(make_protocol(proto, AN_TRACE_G, sh["R"],
+                                             sh["W"], cfg, device=DEV))
+    prove_s = time.perf_counter() - t0
+    G, R, P = sh["G"], sh["R"], sh["P"]
+    plan = FaultPlan.generate(NEM_DEVICE_SEED, R, NEM_DEVICE_TICKS,
+                              classes=NEM_DEVICE_CLASSES)
+    masks = plan.compile_device(G, device=DEV)
+    eng = make_engine(proto, cfg, sh, G, DEV)
+    leaves = sorted(ra.invariants)
+    pairs = list(ra.pairs)
+    st, ns = eng.init()
+    big = torch.iinfo(torch.int64)
+
+    def fold(st, lo, hi, ok):
+        vals = [_logical(torch, k, st[k]) for k in leaves]
+        lo = torch.minimum(lo, torch.stack([v.amin() for v in vals]))
+        hi = torch.maximum(hi, torch.stack([v.amax() for v in vals]))
+        if pairs:
+            ok = ok & torch.stack([(st[x] <= st[y]).all() for x, y in pairs])
+        return lo, hi, ok
+
+    lo = torch.full((len(leaves),), big.max, dtype=torch.int64, device=DEV)
+    hi = torch.full((len(leaves),), big.min, dtype=torch.int64, device=DEV)
+    ok = torch.ones((max(len(pairs), 1),), dtype=torch.bool, device=DEV)
+    lo, hi, ok = fold(st, lo, hi, ok)
+    floor = torch.full((G, R), 1 << 30, dtype=torch.int32, device=DEV)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fx = None
+    for t in range(AN_TICKS):
+        inputs = {
+            "n_proposals": torch.full((G,), P, dtype=torch.int32,
+                                      device=DEV),
+            "value_base": torch.full((G,), t * P, dtype=torch.int32,
+                                     device=DEV),
+            "exec_floor": floor,
+        }
+        for k, m in masks.items():
+            inputs[k] = m[t]
+        st, ns, fx = eng.tick(st, ns, inputs)
+        lo, hi, ok = fold(st, lo, hi, ok)
+    got = torch.cat([lo, hi, ok.to(torch.int64)]).cpu().tolist()
+    run_s = time.perf_counter() - t1
+    n = len(leaves)
+    for i, leaf in enumerate(leaves):
+        plo, phi = ra.invariants[leaf]
+        if got[i] < plo or got[n + i] > phi:
+            fail(f"{what}: {leaf} proven in [{plo}, {phi}] but the run "
+                 f"reached [{got[i]}, {got[n + i]}]")
+    for i, (x, y) in enumerate(pairs):
+        if not got[2 * n + i]:
+            fail(f"{what}: pair fact {x} <= {y} broken by the run")
+    if got[leaves.index("commit_bar") + n] <= 0:
+        fail(f"{what}: nothing committed in {AN_TICKS} ticks")
+    out = {"protocol": proto, "proof_groups": AN_TRACE_G, "groups": G,
+           "replicas": R, "window": sh["W"], "P": P, "ticks": AN_TICKS,
+           "plan_digest": plan.digest(), "leaves": n, "pairs": len(pairs),
+           "prove_s": round(prove_s, 2), "run_s": round(run_s, 2),
+           "ms_per_tick": round(run_s / AN_TICKS * 1e3, 3)}
+    log(f"{what}: {n} leaves and {len(pairs)} pair facts proven at "
+        f"{AN_TRACE_G}x{R} W={sh['W']} P={P} ({prove_s:.1f} s) hold over "
+        f"{AN_TICKS} planned ticks at {G}x{R} ({run_s:.1f} s, "
+        f"{out['ms_per_tick']} ms/tick) | {card}")
+    if proto == "rspaxos":
+        # the codeword plane on the run's last tick: every leader's
+        # proposed values encoded in one batched call (the path's
+        # launches), bit-exact against the plain version
+        code = rs.RSCode(3, 2, device=DEV)
+        B = int(fx.extra["n_accepted"].amax(dim=1).sum())
+        if B == 0:
+            fail(f"{what}: no values proposed in the run's last tick")
+        _p, _d, _cw, err = encode_values(torch, np, rs, code, B,
+                                         SEED + 24, what)
+        out.update(encoded_values=B, max_abs_err=err)
+    return out
+
+
+def _an_explore(card):
+    """(c) the explorer on the card: rows equal to the CPU rows."""
+    from summerset_tpu_torch.analysis import explore as ex
+
+    rows = []
+    for proto in ("multipaxos", "rspaxos"):
+        t = time.perf_counter()
+        r = ex.explore(proto, depth=EXPLORE_DEPTH, device=DEV,
+                       config_overrides=ex.CLI_PRESETS.get(proto))
+        row = r.as_json()
+        want = EXPLORE_CPU_ROWS[proto]
+        got = {k: row[k] for k in want}
+        if got != want:
+            fail(f"analysis (c) explore {proto}: card row {got} != CPU "
+                 f"row {want}")
+        row["seconds"] = round(time.perf_counter() - t, 1)
+        log(f"analysis (c) explore {proto} depth {EXPLORE_DEPTH}: "
+            f"{row['nodes_expanded']} nodes, {row['dedup_hits']} dedup "
+            f"hits, {row['range_leaves']} leaves / {row['range_pairs']} "
+            f"pairs asserted, no violation, == CPU row "
+            f"({row['seconds']} s) | {card}")
+        rows.append(row)
+    return rows
+
+
+def phase_analysis(torch, np, card):
+    """Phase 24: the analysis plane and the explorer on the card.
+    Returns the kernel's launches in (b) and its max_abs_err."""
+    from summerset_tpu_torch.ops import rscoding as rs
+    from summerset_tpu_torch.protocols.multipaxos import (
+        ReplicaConfigMultiPaxos,
+    )
+    from summerset_tpu_torch.protocols.rspaxos import ReplicaConfigRSPaxos
+
+    log("== phase 24: the analysis plane (graftlint on the card, ranges at "
+        f"the card's width) and the explorer")
+    t0 = time.perf_counter()
+    rs.bitslice_gf256.launches = 0
+    lint_s = _an_plane(torch, card)
+    t_a = time.perf_counter()
+    widths = [
+        _an_widths(torch, np, rs, card, "multipaxos",
+                   ReplicaConfigMultiPaxos(
+                       max_proposals_per_tick=MP_SHAPE["P"],
+                       chunk_size=2 * MP_SHAPE["P"],
+                       exec_follows_commit=False), MP_SHAPE),
+        _an_widths(torch, np, rs, card, "rspaxos",
+                   ReplicaConfigRSPaxos(
+                       max_proposals_per_tick=RS_SHAPE["P"],
+                       chunk_size=2 * RS_SHAPE["P"],
+                       exec_follows_commit=False, fault_tolerance=1),
+                   RS_SHAPE),
+    ]
+    launches = rs.bitslice_gf256.launches
+    if launches == 0:
+        fail("analysis (b) rspaxos: bitslice_gf256 never launched")
+    t_b = time.perf_counter()
+    rows = _an_explore(card)
+    t_c = time.perf_counter()
+    total = t_c - t0
+    print(json.dumps({"analysis": {
+        "lint_s": lint_s, "widths": widths, "explore": rows,
+        "launches": launches, "card": card,
+        "seconds": {"plane": round(t_a - t0, 1),
+                    "widths": round(t_b - t_a, 1),
+                    "explore": round(t_c - t_b, 1),
+                    "total": round(total, 1)}}}), flush=True)
+    if total > AN_BUDGET_S:
+        log(f"phase 24 took {total:.1f} s, over its {AN_BUDGET_S:.0f} s "
+            "budget")
+    return {"launches": launches,
+            "max_abs_err": widths[1]["max_abs_err"]}
 
 
 def main():
@@ -5769,6 +6019,8 @@ def main():
     paths["ingress"] = timed(22, phase_ingress, torch, np, card)
     rs.bitslice_gf256.launches = 0
     paths["mesh"] = timed(23, phase_mesh, torch, np, card)
+    rs.bitslice_gf256.launches = 0
+    paths["analysis"] = timed(24, phase_analysis, torch, np, card)
     log("bitslice_gf256 launches by path (the kernels line): " + ", ".join(
         f"{k} {v['launches']}" for k, v in paths.items()))
     total = round(time.perf_counter() - t_start, 1)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-from typing import Any, Dict, FrozenSet, Tuple
+from typing import Any, Callable, Dict, FrozenSet, Optional, Tuple
 
 import torch
 
@@ -28,6 +28,11 @@ State = Dict[str, torch.Tensor]
 PHASE_SCOPE_PREFIX = "graftphase__"
 
 _PHASE_SCOPES_ENABLED = True
+
+#: set by the analysis plane's tracer (``analysis/tracer.py``) while it
+#: records one step: ``phase_scope`` then returns the tracer's context,
+#: which tags every recorded op with its phase and changes nothing else
+_PHASE_TAGGER: Optional[Callable[[str], Any]] = None
 
 
 def set_phase_scopes(enabled: bool) -> None:
@@ -46,9 +51,74 @@ def phase_scope(name: str):
     profiler is on, a no-op context otherwise (a range costs ~9 us of host
     time even with no profiler listening) and when the phase ranges are
     ablated away."""
+    if _PHASE_TAGGER is not None:
+        return _PHASE_TAGGER(name)
     if _PHASE_SCOPES_ENABLED and torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(PHASE_SCOPE_PREFIX + name)
     return contextlib.nullcontext()
+
+
+#: The kernel SPI contract, numbered and checked by the analysis plane
+#: (``analysis/``, ``python -m summerset_tpu_torch.graftlint``, baseline
+#: ``summerset_tpu_torch/LINT.json``).  The codes and rules are the JAX
+#: package's; where its table says "jaxpr" the port reads "the recorded
+#: aten trace" of one step (``analysis/tracer.py``).
+KERNEL_CONTRACT: Tuple[Tuple[str, str, str], ...] = (
+    ("C1", "state-geometry",
+     "every state leaf leads with [G, R] and lives on the kernel's "
+     "device; int32 commit_bar / exec_bar [G, R] leaves are present "
+     "(engine freeze masks + effects mirror)"),
+    ("C10", "input-declarations",
+     "every step-input name the kernel reads — including optional "
+     ".get()-style reads, which a trace cannot KeyError on — is a base "
+     "input (n_proposals/value_base/exec_floor) or declared in "
+     "EXTRA_INPUTS, so the verified/tainted surface covers every lane "
+     "the kernel can consume"),
+    ("C2", "state-dtype",
+     "protocol state is integer/bool only — no float leaves"),
+    ("C3", "outbox-shape",
+     "the outbox carries a 32-bit [G, R, R] 'flags' pair-field; every "
+     "other leaf is per-pair [G, R_src, R_dst, ...] (delivered "
+     "transposed) or declared in broadcast_lanes and leads with "
+     "[G, R_src] (delivered as-is)"),
+    ("C4", "outbox-dtype",
+     "outbox lanes are integer/bool only"),
+    ("C5", "durable-contract",
+     "DURABLE_SCALARS / DURABLE_WINDOWS are declared and resolve to "
+     "state arrays of the declared shapes ([G, R] scalars, [G, R, ...] "
+     "windows); VALUE_WINDOW names one of DURABLE_WINDOWS"),
+    ("C6", "step-purity",
+     "step records an aten trace with no nondeterministic (seeded RNG) "
+     "op, no in-place or out= write into an input leaf, no c10d "
+     "collective (the collective tally is the broadcast record of "
+     "core/quorum.py, gathered outside the step), and no host read "
+     "(_local_scalar_dense) that HOST_SYNCS does not declare; "
+     "init_state runs eagerly on the host exactly once and is exempt"),
+    ("C7", "carry-stability",
+     "step returns a state dict structurally identical (keys, shapes, "
+     "dtypes) to its input — the engine's carry contract"),
+    ("C8", "int-discipline",
+     "no floating-point intermediate appears in the step trace (no "
+     "silent float32 upcasts in protocol lanes)"),
+    ("C9", "telemetry-path",
+     "the telem lane block is written only via the stacked "
+     "accumulate path in core/telemetry.py, contributed through "
+     "the _telemetry hook"),
+    ("R2", "range-claims",
+     "every RANGE_CLAIMS entry (leaf, lo, hi) is an inductive value-"
+     "range invariant: it holds at init_state and is preserved by one "
+     "abstract step under the saturating interval semantics of "
+     "analysis/ranges.py"),
+    ("T1", "flags-gating",
+     "every inbox read that lands in a state update, an effects "
+     "output, or an outbox lane (a relay hop back onto the wire) "
+     "passes a gate (select / mask-multiply) derived — directly or "
+     "transitively — from the netmodel-zeroed flags field; "
+     "intentional exceptions are declared in TAINT_ALLOW with a reason"),
+    ("T9", "suppression-hygiene",
+     "every TAINT_ALLOW entry names a flow that still occurs — a stale "
+     "suppression is itself a finding, so the allowlist cannot rot"),
+)
 
 
 @dataclasses.dataclass
@@ -99,6 +169,16 @@ class ProtocolKernel:
     # step() inputs beyond n_proposals [G], value_base [G] and exec_floor
     # [G, R], as (name, shape code): g=[G], gr=[G, R], grr=[G, R, R]
     EXTRA_INPUTS: Tuple[Tuple[str, str], ...] = ()
+    # declared-intentional ungated inbox->sink flows for the flags-taint
+    # pass, as (inbox_leaf, sink, reason); a stale entry is a T9 finding
+    TAINT_ALLOW: Tuple[Tuple[str, str, str], ...] = ()
+    # author-asserted per-leaf bounds (state_leaf, lo, hi), inclusive,
+    # each checked inductive by the range pass (R2)
+    RANGE_CLAIMS: Tuple[Tuple[str, int, int], ...] = ()
+    # host reads a step may make, as (phase, reason): C6 lists a declared
+    # read under ``suppressed``, fails an undeclared one, and fails an
+    # entry whose phase no longer reads (a stale declaration)
+    HOST_SYNCS: Tuple[Tuple[str, str], ...] = ()
 
     def reset_rows(self, st, reset):
         """Hook run by the engine's device reset (``core/engine.py::

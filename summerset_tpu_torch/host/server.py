@@ -1184,6 +1184,7 @@ class ServerReplica:
         with open(tmp, "wb") as f:
             pickle.dump(("kv", kv, meta), f)
             f.flush()
+            # graftlint: disable=H104 -- the snapshot tmp file is private to this replica loop and replaced atomically; routing it through StorageHub would serialize bulk snapshot IO behind latency-critical WAL appends
             os.fsync(f.fileno())
         os.replace(tmp, self.snap_path)
         if self._snap_crash > 0:
@@ -2650,8 +2651,7 @@ class ServerReplica:
         # clock runs slow against its peers'
         deadline = t0 + self.tick_interval * self._tick_scale
         tick_frames = self._build_tick_frames(frames, piggy)
-        # these frames carry step N-1's outbox, whose WAL records
-        # _flush_durability fsynced at the end of tick N-1
+        # graftlint: disable=H105 -- serial loop: these frames carry step N-1's outbox, whose WAL records _flush_durability fsynced at the END of tick N-1 — the strict stage order IS the fence
         self.transport.send_tick(self.tick, tick_frames)
         got = self.transport.recv_tick(self.tick, deadline)
         self._ingest_payloads(got)

@@ -330,6 +330,7 @@ class TransportHub:
                 if stall > 0:
                     time.sleep(stall)
             try:
+                # graftlint: disable=H101 -- the per-peer write lock exists to serialize frame writers on one socket; it guards nothing else, so blocking inside it cannot deadlock other state
                 with self._wlocks[peer]:
                     safetcp.sendmsg_all(sock, segs, copies * nbytes)
                 if reg is not None:

@@ -50,13 +50,16 @@ def range_cover(lo: torch.Tensor, hi: torch.Tensor, window: int):
 # ------------------------------------------------------------ msg selection --
 def first_argmax(x: torch.Tensor, best: torch.Tensor, dim: int):
     """Index of the first maximum of ``x`` along ``dim`` (``best`` is the
-    max, reduced over ``dim``): the tie rule of ``jnp.argmax``."""
+    max, reduced over ``dim``): the tie rule of ``jnp.argmax``.  Some
+    position always hits, so the last index stands in for a miss, which
+    keeps the result's value range ``[0, n - 1]`` visible to the range
+    prover (``analysis/ranges.py``)."""
     n = x.shape[dim]
     shape = [1] * x.ndim
     shape[dim] = n
     idx = arange32(n, x.device).reshape(shape)
     hit = x == best.unsqueeze(dim)
-    return torch.where(hit, idx, n).amin(dim=dim)
+    return torch.where(hit, idx, n - 1).amin(dim=dim)
 
 
 def first_true(mask: torch.Tensor, dim: int):

@@ -93,6 +93,13 @@ class MultiPaxosKernel(ProtocolKernel):
     DURABLE_SCALARS = ("bal_max", "vote_bal", "vote_from", "vote_bar")
     DURABLE_WINDOWS = ("win_abs", "win_bal", "win_val")
     EXTRA_INPUTS: Tuple[Tuple[str, str], ...] = (("demote", "gr"),)
+    HOST_SYNCS: Tuple[Tuple[str, str], ...] = (
+        ("ingest_prepare_reply",
+         "_gated_prepare_reply reads one bool a tick to skip the "
+         "[G, R, R_src, W] adoption when no candidate got a reply (the "
+         "JAX kernel's lax.cond); a gate a CUDA graph can capture is "
+         "ROADMAP's graph-capturable prepare-reply gate"),
+    )
 
     def reset_rows(self, st, reset):
         """The device reset's rule for the rebuilt rows, ``restore_durable``'s

@@ -1,6 +1,8 @@
-"""The port stands alone: importing ``summerset_tpu_torch`` (every module),
-``chip_smoke`` and ``serve_upload_ab`` loads neither ``jax`` nor the JAX package, and no entry
-point of the port falls back to the CPU by itself.  The wire codec and
+"""The port stands alone: importing ``summerset_tpu_torch`` (every module,
+the analysis plane and ``graftlint`` included), ``chip_smoke`` and
+``serve_upload_ab`` loads neither ``jax`` nor the JAX package, and no entry
+point of the port (``graftlint`` and the explorer too) falls back to the
+CPU by itself.  The wire codec and
 the native WAL's loader, run (not only imported), load nothing of the JAX
 package either, and a lane decoded as a view into a received frame never
 reaches the device upload unchanged.
@@ -63,7 +65,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "summerset_tpu_torch.bench",
               "summerset_tpu_torch.entry"):
         assert m in got["modules"]
-    for m in SERVING_MODULES + MESH_MODULES:
+    for m in SERVING_MODULES + MESH_MODULES + ANALYSIS_MODULES:
         assert m in got["modules"]
 
 
@@ -112,6 +114,45 @@ def test_mesh_and_profiling_module_alone_imports_no_jax(module):
     proc = _run(["-c", _ALONE, module])
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+#: the analysis plane and its entry point (each keeps its own copy of
+#: what it needs from the JAX package's ``analysis/``, ``report.py`` and
+#: ``hostlint.py`` included)
+ANALYSIS_MODULES = tuple("summerset_tpu_torch." + m for m in (
+    "analysis", "analysis.report", "analysis.hostlint", "analysis.tracer",
+    "analysis.contract", "analysis.ranges", "analysis.taint",
+    "analysis.explore", "graftlint",
+))
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_module_alone_imports_no_jax(module):
+    proc = _run(["-c", _ALONE, module])
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_graftlint_and_explore_run_without_jax():
+    """The two entry points of the analysis plane, run (not only
+    imported) on the CPU, load nothing of the JAX package."""
+    code = r"""
+import json, sys
+from summerset_tpu_torch import graftlint
+from summerset_tpu_torch.analysis import explore
+out = graftlint.run("cpu", passes=("contract", "taint"),
+                    kernels=["repnothing"], log=lambda *a: None)
+r = explore.explore("raft", depth=1, device="cpu")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "summerset_tpu" or m.startswith("summerset_tpu."))
+print(json.dumps({"bad": bad, "findings": out["n_findings"],
+                  "nodes": r.nodes_expanded}))
+"""
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"bad": [], "findings": 0, "nodes": 7}
 
 
 #: the ingress tier's modules: a proxy process and a fleet worker run
@@ -263,6 +304,9 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
     from summerset_tpu_torch.host.server import ServerReplica
     from summerset_tpu_torch.ops.prng import seed_state
     from summerset_tpu_torch.protocols import make_protocol
+    from summerset_tpu_torch import graftlint
+    from summerset_tpu_torch.analysis import explore
+    from summerset_tpu_torch.analysis.contract import build_kernel
 
     addr = ("127.0.0.1", 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -304,6 +348,11 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch):
         lambda: ServerReplica("ChainRep", addr, addr, addr),
         lambda: ServerReplica("SimplePush", addr, addr, addr),
         lambda: ServerReplica("RepNothing", addr, addr, addr),
+        lambda: graftlint.run(None),
+        lambda: graftlint.main(["--check"]),
+        lambda: build_kernel(make_protocol, "multipaxos"),
+        lambda: explore.explore("multipaxos", depth=1),
+        lambda: explore.main(["--protocols", "raft:1"]),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
